@@ -1,8 +1,10 @@
 """Model construction from configs, in PyTorch.
 
 Counterpart of ``dat_segmentation_tpu/models/builder.py:build_model`` for
-the SemanticFPN segmentor. UperNet (with its FCN auxiliary head) comes
-with the training slice and the classifier after it (ROADMAP.md, Queue 1).
+the segmentors: UperNet with its FCN auxiliary head, and SemanticFPN. The
+heads take the JAX builder's defaults (``builder.py:32-63`` there). The
+classifier (``ClsHead``) comes with the classifier slice (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -12,10 +14,10 @@ from typing import Optional, Union
 
 import torch
 
-from ..configs.schema import BackboneConfig, ModelConfig
+from ..configs.schema import BackboneConfig, HeadConfig, ModelConfig
 from ..utils.device import resolve_device
 from .dat import DAT
-from .heads import FPNHead, FPNNeck
+from .heads import FCNHead, FPNHead, FPNNeck, UPerHead
 from .segmentor import EncoderDecoder
 
 
@@ -26,32 +28,62 @@ def build_backbone(cfg: BackboneConfig) -> DAT:
     return DAT(**{f: getattr(cfg, f) for f in BackboneConfig.__dataclass_fields__ if f in params})
 
 
+def build_head(cfg: HeadConfig, in_channels, align_corners: bool = False) -> torch.nn.Module:
+    """A decode or auxiliary head from its config; ``in_channels`` is a
+    list for the multi-level heads and an int for ``FCNHead``."""
+    kw = cfg.kwargs
+    if cfg.type == "UPerHead":
+        return UPerHead(
+            in_channels, cfg.num_classes, cfg.channels,
+            pool_scales=tuple(kw.get("pool_scales", (1, 2, 3, 6))),
+            dropout_ratio=kw.get("dropout_ratio", 0.1),
+            topdown=kw.get("topdown", "mmseg"),
+        )
+    if cfg.type == "FCNHead":
+        return FCNHead(
+            in_channels, cfg.num_classes, cfg.channels,
+            num_convs=kw.get("num_convs", 1),
+            dropout_ratio=kw.get("dropout_ratio", 0.1),
+        )
+    if cfg.type == "FPNHead":
+        return FPNHead(
+            in_channels, cfg.num_classes,
+            feature_strides=tuple(kw.get("feature_strides", (4, 8, 16, 32))),
+            channels=cfg.channels,
+            dropout_ratio=kw.get("dropout_ratio", 0.1),
+            align_corners=align_corners,
+        )
+    raise ValueError(f"unknown head type {cfg.type!r}")
+
+
 def build_model(
     cfg: ModelConfig, *, device: Optional[Union[str, torch.device]] = None
 ) -> EncoderDecoder:
-    """ModelConfig -> SemanticFPN ``EncoderDecoder`` in eval mode on
-    ``device`` (``cuda`` unless the caller names another).
+    """ModelConfig -> ``EncoderDecoder`` (UperNet + FCN auxiliary head, or
+    SemanticFPN) in eval mode on ``device`` (``cuda`` unless the caller
+    names another).
 
     Weights are PyTorch's default initialisation from the global RNG
     (seed it with ``torch.manual_seed``); made on the CPU, then moved.
     """
-    device = resolve_device(device)
-    head = cfg.decode_head
-    if head.type != "FPNHead" or cfg.neck is None or cfg.auxiliary_head is not None:
+    if cfg.decode_head.type == "ClsHead":
         raise NotImplementedError(
-            f"build_model ports the SemanticFPN segmentor first; {head.type} "
-            "(UperNet with its FCN auxiliary head, the classifier) comes with "
-            "a later slice (ROADMAP.md, Queue 1)"
+            "ClsHead (the DatClassifier) comes with the classifier slice "
+            "(ROADMAP.md, Queue 1)"
         )
+    device = resolve_device(device)
+    dims = cfg.backbone.dims
     backbone = build_backbone(cfg.backbone)
-    neck = FPNNeck(cfg.backbone.dims, cfg.neck.out_channels)
-    decode = FPNHead(
-        cfg.neck.out_channels,
-        head.num_classes,
-        feature_strides=tuple(head.kwargs.get("feature_strides", (4, 8, 16, 32))),
-        channels=head.channels,
-        dropout_ratio=head.kwargs.get("dropout_ratio", 0.1),
-        align_corners=cfg.align_corners,
+    neck = FPNNeck(dims, cfg.neck.out_channels) if cfg.neck is not None else None
+    head_in = [cfg.neck.out_channels] * len(dims) if neck is not None else list(dims)
+    if cfg.decode_head.type == "FPNHead":
+        head_in = head_in[0]
+    decode = build_head(cfg.decode_head, head_in, cfg.align_corners)
+    aux = None
+    if cfg.auxiliary_head is not None:
+        aux = build_head(cfg.auxiliary_head, dims[cfg.aux_in_index], cfg.align_corners)
+    model = EncoderDecoder(
+        backbone, decode, neck, align_corners=cfg.align_corners,
+        auxiliary_head=aux, aux_in_index=cfg.aux_in_index,
     )
-    model = EncoderDecoder(backbone, decode, neck, align_corners=cfg.align_corners)
     return model.to(device).eval()

@@ -12,9 +12,13 @@ on the path the DAT++ presets take:
   the deformed positions (``F.grid_sample``), groups folded back into
   channels as in the reference;
 * attention with the continuous relative-position bias runs in the fused
-  kernel K1 (``ops/deform_attn.py``): on the card the CUDA kernel, on the
-  CPU its plain version. The kernel takes any H and W, so the queries are
-  not padded to 8-multiples as on the TPU.
+  kernels (``ops/deform_attn.py``): on the card K1 forward and, in
+  training, K2 for its gradient (q, k, v, the sample positions through
+  the offset net and the clamp, and the float32 ``rpe_table``); on the
+  CPU their plain versions under autograd. The kernels take any H and W,
+  so the queries are not padded to 8-multiples as on the TPU. As the JAX
+  package gates its kernel (``deformable_attention.py:243-252`` there):
+  continuous RPE only, no ``no_off``, attention dropout 0.
 
 The other position-bias modes (``dwc_pe``, ``fixed_pe``, ``log_cpb``),
 ``no_off``, a model without position bias and exact padded inference
@@ -31,7 +35,7 @@ import torch.nn as nn
 
 from ..ops.deform_attn import deform_attn
 from ..ops.grid_sample import grid_sample
-from .layers import Conv2d, LayerNorm2d, gelu
+from .layers import Conv2d, Dropout, LayerNorm2d, gelu
 
 LATER_PE_SLICE = "the position-bias modes slice (ROADMAP.md, Queue 1)"
 
@@ -91,7 +95,7 @@ class DeformableAttention(nn.Module):
         self.proj_k = nn.Linear(dim, dim)
         self.proj_v = nn.Linear(dim, dim)
         self.proj_out = nn.Linear(dim, dim)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
         th, tw = 2 * q_size[0] - 1, 2 * q_size[1] - 1
         self.rpe_table = nn.Parameter(torch.empty(n_heads, th, tw))
         nn.init.trunc_normal_(self.rpe_table, std=0.01, a=-0.02, b=0.02)
@@ -102,7 +106,8 @@ class DeformableAttention(nn.Module):
         cg, h_g = C // g, heads // g
         if self.training and self.attn_drop > 0.0:
             raise NotImplementedError(
-                "attention dropout in training comes with the training slice"
+                "attention dropout is not ported: the kernels compute none, "
+                "and every DAT++ preset has attn_drop_rate 0"
             )
 
         def grouped(t):  # (B, H, W, C) -> (B*g, H, W, Cg)

@@ -1,9 +1,13 @@
-"""Semantic-FPN neck and decode head (NHWC), in PyTorch.
+"""Decode heads (NHWC), in PyTorch.
 
-Counterpart of ``dat_segmentation_tpu/models/heads.py`` for the heads the
-SemanticFPN presets use: ``ConvBNReLU``, ``FPNNeck`` and ``FPNHead``. The
-UperNet and FCN heads come with the training slice, the classifier head
-after it (ROADMAP.md, Queue 1).
+Counterpart of ``dat_segmentation_tpu/models/heads.py`` for the
+segmentation heads: ``ConvBNReLU``, ``UPerHead`` (with its PPM) and the
+auxiliary ``FCNHead`` of the UperNet presets, ``FPNNeck`` and ``FPNHead``
+of the SemanticFPN ones. The classifier head comes with the classifier
+slice (ROADMAP.md, Queue 1). Exact padded inference (the JAX package's
+``valid_extent`` paths) is not ported: eager PyTorch takes each image at
+its true shape. Dropout is elementwise and draws from the generator that
+``layers.use_generator`` hands it.
 """
 
 from __future__ import annotations
@@ -15,8 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.interpolate import resize_bilinear, resize_nearest
-from .layers import BatchNorm2d, Conv2d
+from ..ops.interpolate import adaptive_avg_pool, resize_bilinear, resize_nearest
+from .layers import BatchNorm2d, Conv2d, Dropout
 
 
 class ConvBNReLU(nn.Module):
@@ -29,6 +33,99 @@ class ConvBNReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))
+
+
+class UPerHead(nn.Module):
+    """UperNet decode head: PPM on the deepest feature, 1x1 laterals, the
+    top-down path, the fuse bottleneck, dropout and ``cls_seg``.
+
+    ``topdown`` selects the JAX package's two orders, which share their
+    parameters: ``'mmseg'`` adds every top-down contribution to the raw
+    laterals and then refines each level; ``'standalone'`` refines each
+    level inside the top-down loop (heads.py:139-149 there).
+    """
+
+    def __init__(
+        self,
+        in_channels: Sequence[int],
+        num_classes: int,
+        channels: int = 512,
+        pool_scales: Sequence[int] = (1, 2, 3, 6),
+        dropout_ratio: float = 0.1,
+        topdown: str = "mmseg",
+    ):
+        super().__init__()
+        if topdown not in ("mmseg", "standalone"):
+            raise ValueError(f"topdown {topdown!r}: 'mmseg' or 'standalone'")
+        self.n = len(in_channels)
+        self.pool_scales = tuple(pool_scales)
+        self.topdown = topdown
+        ppm_c = channels // len(self.pool_scales)
+        for j in range(len(self.pool_scales)):
+            self.add_module(f"ppm_{j}", ConvBNReLU(in_channels[-1], ppm_c, 1))
+        self.ppm_bottleneck = ConvBNReLU(
+            in_channels[-1] + len(self.pool_scales) * ppm_c, channels, 3
+        )
+        for i in range(self.n - 1):
+            self.add_module(f"lateral_{i}", ConvBNReLU(in_channels[i], channels, 1))
+            self.add_module(f"fpn_{i}", ConvBNReLU(channels, channels, 3))
+        self.fuse_bottleneck = ConvBNReLU(self.n * channels, channels, 3)
+        self.dropout = Dropout(dropout_ratio)
+        self.cls_seg = nn.Linear(channels, num_classes)
+
+    def _up(self, x: torch.Tensor, hw) -> torch.Tensor:
+        return resize_bilinear(x, hw, align_corners=False)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        n = self.n
+        deep = feats[-1]
+        ppm = [deep]
+        for j, scale in enumerate(self.pool_scales):
+            p = getattr(self, f"ppm_{j}")(adaptive_avg_pool(deep, (scale, scale)))
+            ppm.append(self._up(p, deep.shape[1:3]))
+        laterals = [getattr(self, f"lateral_{i}")(feats[i]) for i in range(n - 1)]
+        laterals.append(self.ppm_bottleneck(torch.cat(ppm, dim=-1)))
+
+        fpn = [getattr(self, f"fpn_{i}") for i in range(n - 1)]
+        if self.topdown == "mmseg":
+            for i in range(n - 1, 0, -1):
+                laterals[i - 1] = laterals[i - 1] + self._up(laterals[i], laterals[i - 1].shape[1:3])
+            outs = [fpn[i](laterals[i]) for i in range(n - 1)] + [laterals[-1]]
+        else:
+            for i in range(n - 1, 0, -1):
+                up = self._up(laterals[i], laterals[i - 1].shape[1:3])
+                laterals[i - 1] = fpn[i - 1](laterals[i - 1] + up)
+            outs = laterals
+
+        target = outs[0].shape[1:3]
+        outs = [outs[0]] + [self._up(o, target) for o in outs[1:]]
+        x = self.fuse_bottleneck(torch.cat(outs, dim=-1))
+        return self.cls_seg(self.dropout(x))
+
+
+class FCNHead(nn.Module):
+    """Auxiliary FCN head: ``num_convs`` 3x3 ConvBNReLU, dropout,
+    ``cls_seg``."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        num_classes: int,
+        channels: int = 256,
+        num_convs: int = 1,
+        dropout_ratio: float = 0.1,
+    ):
+        super().__init__()
+        self.num_convs = num_convs
+        for i in range(num_convs):
+            self.add_module(f"conv_{i}", ConvBNReLU(in_channels if i == 0 else channels, channels, 3))
+        self.dropout = Dropout(dropout_ratio)
+        self.cls_seg = nn.Linear(channels, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_convs):
+            x = getattr(self, f"conv_{i}")(x)
+        return self.cls_seg(self.dropout(x))
 
 
 class FPNNeck(nn.Module):
@@ -76,7 +173,7 @@ class FPNHead(nn.Module):
                     f"scale_{i}_{k}",
                     ConvBNReLU(in_channels if k == 0 else channels, channels, 3),
                 )
-        self.dropout = nn.Dropout(dropout_ratio)
+        self.dropout = Dropout(dropout_ratio)
         self.cls_seg = nn.Linear(channels, num_classes)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -9,9 +9,17 @@ by name. The torch default initialisers are the ones the JAX package
 copied (kaiming-uniform with a = sqrt(5)), so nothing is re-declared here.
 
 GELU is the exact erf form (``nn.GELU``'s default), as in the reference.
+
+Randomness in training (``DropPath``, ``Dropout``) draws from a
+``torch.Generator`` that the caller owns and hands to every such module
+with ``use_generator``; the global RNG is used nowhere, so a train step is
+reproducible from its seed. ``BatchNorm2d`` keeps its running statistics
+as the JAX package's flax BatchNorm does (biased variance).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,26 +48,82 @@ class LayerNorm2d(nn.LayerNorm):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` on NHWC tensors (momentum 0.1, eps 1e-5)."""
+    """BatchNorm on NHWC tensors as the JAX package's ``batch_norm`` (flax
+    BatchNorm, momentum 0.9 there and 0.1 here, eps 1e-5).
+
+    In training it takes one set of batch statistics, as flax does:
+    ``torch.native_batch_norm`` computes the mean and the **biased**
+    variance once, in float32 (also for bf16 inputs, whose affine it then
+    takes in float32), normalises with them, (x - mean) * rsqrt(var + eps)
+    * weight + bias, and returns the mean and rsqrt(var + eps), from which
+    ``running_mean`` and ``running_var`` move. ``nn.BatchNorm2d`` would
+    move ``running_var`` towards the unbiased variance, n/(n-1) times
+    larger: twice as large for the PPM's 1x1 pool at batch 2. Flax's
+    E[x²] - E[x]² equals the variance up to rounding but cancels where
+    |mean| >> std, so that the card and the CPU, summing in other orders,
+    drift apart; PyTorch's kernels do not take that form. In eval it is
+    ``nn.BatchNorm2d``.
+    """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if not self.training:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        dt = torch.promote_types(x.dtype, torch.float32)
+        y, mean, rstd = torch.native_batch_norm(
+            x.permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt), None, None, True,
+            0.0, self.eps,
+        )
+        with torch.no_grad():
+            var = (rstd.pow(-2) - self.eps).clamp_min(0.0)
+            m = self.momentum
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+            self.num_batches_tracked += 1
+        return y.permute(0, 2, 3, 1)
 
 
-class DropPath(nn.Module):
-    """Per-sample stochastic depth (timm semantics); identity in eval."""
+class Dropout(nn.Module):
+    """Elementwise dropout (flax ``nn.Dropout``, which the JAX package's
+    heads use, not mmseg's channel-wise ``Dropout2d``): x / keep where a
+    Bernoulli(keep) mask drawn from ``self.generator`` keeps it, else 0.
+    Identity in eval or at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None  # set by use_generator
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        if self.generator is None:
+            raise RuntimeError(
+                "dropout and drop path draw from a torch.Generator the caller owns; "
+                "hand one to the model with layers.use_generator(model, generator)"
+            )
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.empty(shape, device=x.device).bernoulli_(keep)
-        return (x / keep * mask).to(x.dtype)
+        mask = torch.empty(self.mask_shape(x), device=x.device)
+        mask.bernoulli_(keep, generator=self.generator)
+        return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
+
+
+class DropPath(Dropout):
+    """Per-sample stochastic depth (timm semantics, the JAX ``DropPath``):
+    each sample is kept and scaled by 1/keep, or zeroed, as a whole."""
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return (x.shape[0],) + (1,) * (x.ndim - 1)
+
+
+def use_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Make every ``Dropout`` and ``DropPath`` of ``model`` draw from
+    ``generator`` (on the model's device)."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 class LayerScale(nn.Module):
@@ -80,7 +144,7 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim, dim * expansion)
         self.fc2 = nn.Linear(dim * expansion, dim)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(gelu(self.fc1(x)))
@@ -97,7 +161,7 @@ class ConvMlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.dwc = Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
         self.fc2 = nn.Linear(hidden, dim)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(self.fc1(x))
@@ -118,7 +182,7 @@ class CmtConvMlp(nn.Module):
         self.bn2 = BatchNorm2d(hidden)
         self.fc2 = nn.Linear(hidden, dim)
         self.bn3 = BatchNorm2d(dim)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(self.bn1(gelu(self.fc1(x))))

@@ -1,23 +1,30 @@
-"""Fused deformable-attention forward (kernel K1) and its plain version.
+"""Fused deformable attention: forward (kernel K1), backward (kernel K2)
+and their plain versions.
 
-Replaces the TPU kernel ``fused_deform_attention_v2``
+K1 replaces the TPU kernel ``fused_deform_attention_v2``
 (``dat_segmentation_tpu/ops/pallas/deform_attn.py:711``; its round-1 form
 ``fused_deform_attention_fwd``, ``:811``, computes the same function
-without ``hn``/``wn``). The CUDA source is ``csrc/deform_attn_fwd.cu``;
-its header says what bounds the kernel on the card and what the design
-does about it. For every batch*group, head and query it computes
+without ``hn``/``wn``), K2 the TPU kernel ``fused_deform_attention_bwd_v2``
+(``:1420``). The CUDA sources are ``csrc/deform_attn_fwd.cu`` and
+``csrc/deform_attn_bwd.cu``; their headers say what bounds each kernel on
+the card and what its design does about it. For every batch*group, head
+and query K1 computes
 
     softmax(q·kᵀ·scale + bias) · v
 
 where ``bias`` samples the head's (th, tw) relative-position table
 bilinearly at half the query-to-sample displacement, with taps outside the
-table weighing zero. The scores and the bias never reach device memory.
+table weighing zero. K2 recomputes P and returns the gradients of q, k, v,
+pos and the table. The scores, the bias and P never reach device memory.
 
-``deform_attn`` runs the kernel on CUDA tensors and the plain version
-``deform_attn_reference`` on CPU tensors; it never falls back from one to
-the other. The plain version is ``_xla_reference`` (``:1549``) written in
-PyTorch, and is what the tests hold to the JAX package and what
-``chip_smoke.py`` holds the kernel to.
+``deform_attn`` runs on CUDA tensors through ``DeformAttnFunction``, whose
+forward launches K1 and whose backward launches K2 (``deform_attn_bwd``),
+with grad or without; on CPU tensors it is the plain version
+``deform_attn_reference``, which autograd differentiates. It never falls
+back from one to the other. The plain version is ``_xla_reference``
+(``:1549``) written in PyTorch; ``deform_attn_bwd_reference`` is autograd
+of it. They are what the tests hold to the JAX package and what
+``chip_smoke.py`` holds the kernels to.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from .grid_sample import lerp_weight_matrix
 
 SOURCE = "deform_attn_fwd.cu"
+BWD_SOURCE = "deform_attn_bwd.cu"
 HEAD_WIDTH = 32  # the kernel's head width (every DAT++ preset: dims / heads)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,7 +52,8 @@ def query_coords(n: int, n_true: int, device=None) -> torch.Tensor:
 def rpe_bias(
     pos: torch.Tensor, table: torch.Tensor, H: int, W: int, hn: int = 0, wn: int = 0
 ) -> torch.Tensor:
-    """The continuous relative-position bias, (BG, h_g, H*W, Ns) float32.
+    """The continuous relative-position bias, (BG, h_g, H*W, Ns), float32
+    (float64 for float64 ``pos``).
 
     ``pos`` (BG, Ns, 2) holds normalised (y, x) sample positions; ``table``
     (g, h_g, th, tw) one table per head, group ``b % g`` for batch*group b.
@@ -54,16 +63,17 @@ def rpe_bias(
     BG, Ns, _ = pos.shape
     g, h_g, th, tw = table.shape
     hn, wn = hn or H, wn or W
-    pos = pos.float()
-    yg = query_coords(H, hn, pos.device)
-    xg = query_coords(W, wn, pos.device)
+    dt = torch.promote_types(pos.dtype, torch.float32)
+    pos = pos.to(dt)
+    yg = query_coords(H, hn, pos.device).to(dt)
+    xg = query_coords(W, wn, pos.device).to(dt)
     dy = (yg[None, :, None] - pos[..., 0][:, None, :]) * 0.5  # (BG, H, Ns)
     dx = (xg[None, :, None] - pos[..., 1][:, None, :]) * 0.5  # (BG, W, Ns)
     fy = (dy + 1.0) * 0.5 * (th - 1)
     fx = (dx + 1.0) * 0.5 * (tw - 1)
-    wy = lerp_weight_matrix(fy, th).reshape(BG // g, g, H, Ns, th)
-    wx = lerp_weight_matrix(fx, tw).reshape(BG // g, g, W, Ns, tw)
-    m1 = torch.einsum("bgynt,ghtu->bgynuh", wy, table.float())
+    wy = lerp_weight_matrix(fy, th, dt).reshape(BG // g, g, H, Ns, th)
+    wx = lerp_weight_matrix(fx, tw, dt).reshape(BG // g, g, W, Ns, tw)
+    m1 = torch.einsum("bgynt,ghtu->bgynuh", wy, table.to(dt))
     bias = torch.einsum("bgynuh,bgwnu->bghywn", m1, wx)  # (B, g, h_g, H, W, Ns)
     return bias.reshape(BG, h_g, H * W, Ns)
 
@@ -83,22 +93,49 @@ def deform_attn_reference(
     """Plain PyTorch version of K1 (the JAX ``_xla_reference``).
 
     q (BG, H, W, Cg); k, v (BG, Ns, Cg); pos (BG, Ns, 2) normalised (y, x);
-    table (g, h_g, th, tw). Products and the softmax in float32; the
-    output has q's shape and dtype.
+    table (g, h_g, th, tw). Products and the softmax in float32 (float64
+    for float64 inputs, which the tests use as ground truth); the output
+    has q's shape and dtype.
     """
     BG, H, W, Cg = q.shape
     Ns = k.shape[1]
     g, h_g = table.shape[:2]
     hc = Cg // h_g
     assert g == n_groups and BG % g == 0, (q.shape, table.shape, n_groups)
-    qh = q.reshape(BG, H * W, h_g, hc).float()
-    kh = k.reshape(BG, Ns, h_g, hc).float()
+    dt = torch.promote_types(q.dtype, torch.float32)
+    qh = q.reshape(BG, H * W, h_g, hc).to(dt)
+    kh = k.reshape(BG, Ns, h_g, hc).to(dt)
     vh = v.reshape(BG, Ns, h_g, hc)
     attn = torch.einsum("bmhc,bnhc->bhmn", qh, kh) * scale
-    attn = attn + rpe_bias(pos, table, H, W, hn, wn)
+    attn = attn + rpe_bias(pos, table, H, W, hn, wn).to(dt)
     p = torch.softmax(attn, dim=-1)
-    out = torch.einsum("bhmn,bnhc->bmhc", p.to(v.dtype).float(), vh.float())
+    out = torch.einsum("bhmn,bnhc->bmhc", p.to(v.dtype).to(dt), vh.to(dt))
     return out.reshape(BG, H, W, Cg).to(q.dtype)
+
+
+def deform_attn_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos: torch.Tensor,
+    table: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    n_groups: int,
+    scale: float,
+    hn: int = 0,
+    wn: int = 0,
+):
+    """Plain PyTorch version of K2: autograd of ``deform_attn_reference``.
+
+    Returns (dq, dk, dv, dpos, dtable), each in its input's dtype.
+    """
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, pos, table)]
+    with torch.enable_grad():
+        out = deform_attn_reference(
+            *leaves, n_groups=n_groups, scale=scale, hn=hn, wn=wn
+        )
+        return torch.autograd.grad(out, leaves, dout)
 
 
 def _check(q, k, v, pos, table, n_groups, hn, wn):
@@ -149,44 +186,43 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    from . import cuda_build
+
+    lib = cuda_build.load(BWD_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # q k v pos table dout dq dk dv dpos dtable; BG H W Ns Cg g h_g th tw hn wn;
+    # scale; dtype; stream
+    lib.dat_deform_attn_bwd.argtypes = [ptr] * 11 + [i32] * 11 + [ctypes.c_float, i32, ptr]
+    lib.dat_deform_attn_bwd.restype = i32
+    lib.dat_deform_attn_bwd_smem_bytes.argtypes = [i32] * 4
+    lib.dat_deform_attn_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.dat_cuda_error_string.argtypes = [i32]
+    lib.dat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def smem_bytes(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:
-    """Dynamic shared memory a block of the kernel takes (builds it)."""
+    """Dynamic shared memory a block of K1 takes (builds it)."""
     return _library().dat_deform_attn_fwd_smem_bytes(_DTYPE_CODE[dtype], Ns, th, tw)
 
 
-def deform_attn(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    pos: torch.Tensor,
-    table: torch.Tensor,
-    *,
-    n_groups: int,
-    scale: float,
-    hn: int = 0,
-    wn: int = 0,
-) -> torch.Tensor:
-    """K1 on CUDA tensors, its plain version on CPU tensors.
+def bwd_smem_bytes(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:
+    """Dynamic shared memory a block of K2 takes (builds it)."""
+    return _bwd_library().dat_deform_attn_bwd_smem_bytes(_DTYPE_CODE[dtype], Ns, th, tw)
 
-    Shapes as in ``deform_attn_reference``. ``hn``/``wn`` are the true
-    height and width when q's rows and columns were padded (0: unpadded).
-    Forward only: the backward (TPU kernel K2) is ported with the training
-    slice, so inputs that require grad are refused.
-    """
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v, pos, table)
-    ):
-        raise NotImplementedError(
-            "deform_attn is forward-only: its backward (fused_deform_attention"
-            "_bwd_v2) is ported with the training slice; run under "
-            "torch.inference_mode() or torch.no_grad()"
-        )
-    if q.device.type == "cpu":
-        return deform_attn_reference(
-            q, k, v, pos, table, n_groups=n_groups, scale=scale, hn=hn, wn=wn
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"deform_attn runs on cuda or cpu, not {q.device}")
+
+def _launch_error(kernel, lib, rc, q, Ns, th, tw, smem):
+    return RuntimeError(
+        f"{kernel} kernel not launched: {lib.dat_cuda_error_string(rc).decode()} "
+        f"(q {tuple(q.shape)} {q.dtype}, Ns {Ns}, table {th}x{tw}: "
+        f"{smem} bytes of shared memory a block)"
+    )
+
+
+def _fwd_kernel(q, k, v, pos, table, n_groups, scale, hn, wn) -> torch.Tensor:
+    """Launch K1 on checked CUDA tensors."""
     _check(q, k, v, pos, table, n_groups, hn, wn)
     BG, H, W, Cg = q.shape
     Ns = k.shape[1]
@@ -202,14 +238,127 @@ def deform_attn(
             float(scale), _DTYPE_CODE[q.dtype], stream,
         )
     if rc != 0:
-        raise RuntimeError(
-            f"deform_attn_fwd kernel not launched: "
-            f"{lib.dat_cuda_error_string(rc).decode()} (q {tuple(q.shape)} "
-            f"{q.dtype}, Ns {Ns}, table {th}x{tw}: "
-            f"{smem_bytes(q.dtype, Ns, th, tw)} bytes of shared memory a block)"
-        )
+        raise _launch_error("deform_attn_fwd", lib, rc, q, Ns, th, tw,
+                            smem_bytes(q.dtype, Ns, th, tw))
     deform_attn.launches += 1
     return out
 
 
-deform_attn.launches = 0  # kernel launches; chip_smoke.py reads and resets it
+def deform_attn_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos: torch.Tensor,
+    table: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    n_groups: int,
+    scale: float,
+    hn: int = 0,
+    wn: int = 0,
+):
+    """K2 on CUDA tensors, its plain version on CPU tensors.
+
+    Returns (dq, dk, dv, dpos, dtable): dq in q's dtype, the rest float32
+    (the kernel sums them in float32 across query tiles and, for dtable,
+    across the batch). Shapes as in ``deform_attn_reference``; ``dout``
+    like q.
+    """
+    if q.device.type == "cpu":
+        return deform_attn_bwd_reference(
+            q, k, v, pos, table, dout, n_groups=n_groups, scale=scale, hn=hn, wn=wn
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"deform_attn_bwd runs on cuda or cpu, not {q.device}")
+    _check(q, k, v, pos, table, n_groups, hn, wn)
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"deform_attn_bwd: dout {tuple(dout.shape)} {dout.dtype} "
+                         f"does not match q {tuple(q.shape)} {q.dtype}")
+    if not dout.is_contiguous() or dout.data_ptr() % 16:
+        raise ValueError("deform_attn_bwd: dout must be contiguous and 16-byte aligned")
+    BG, H, W, Cg = q.shape
+    Ns = k.shape[1]
+    g, h_g, th, tw = table.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, **f32)
+    dv = torch.zeros(v.shape, **f32)
+    dpos = torch.zeros(pos.shape, **f32)
+    dtable = torch.zeros(table.shape, **f32)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dat_deform_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            table.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dpos.data_ptr(), dtable.data_ptr(),
+            BG, H, W, Ns, Cg, g, h_g, th, tw, hn or H, wn or W,
+            float(scale), _DTYPE_CODE[q.dtype], stream,
+        )
+    if rc != 0:
+        raise _launch_error("deform_attn_bwd", lib, rc, q, Ns, th, tw,
+                            bwd_smem_bytes(q.dtype, Ns, th, tw))
+    deform_attn_bwd.launches += 1
+    return dq, dk, dv, dpos, dtable
+
+
+class DeformAttnFunction(torch.autograd.Function):
+    """K1 forward, K2 backward, on CUDA tensors.
+
+    The table is cast to q's dtype for both kernels; its gradient comes
+    back in the table's own dtype, pos's in float32. Only the inputs are
+    saved, as the TPU wrapper's ``_fda_fwd`` saves them: K2 recomputes P
+    and D, so neither the output nor the (HW x Ns) attention is kept.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos, table, n_groups, scale, hn, wn):
+        table_k = table.to(q.dtype).contiguous()
+        out = _fwd_kernel(q, k, v, pos, table_k, n_groups, scale, hn, wn)
+        ctx.save_for_backward(q, k, v, pos, table_k)
+        ctx.args = (n_groups, scale, hn, wn, table.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, pos, table_k = ctx.saved_tensors
+        n_groups, scale, hn, wn, table_dtype = ctx.args
+        dq, dk, dv, dpos, dtable = deform_attn_bwd(
+            q, k, v, pos, table_k, dout.contiguous(),
+            n_groups=n_groups, scale=scale, hn=hn, wn=wn,
+        )
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), dpos, dtable.to(table_dtype),
+                None, None, None, None)
+
+
+def deform_attn(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    n_groups: int,
+    scale: float,
+    hn: int = 0,
+    wn: int = 0,
+) -> torch.Tensor:
+    """K1 (with K2 as its gradient) on CUDA tensors, the plain version on
+    CPU tensors.
+
+    Shapes as in ``deform_attn_reference``. ``hn``/``wn`` are the true
+    height and width when q's rows and columns were padded (0: unpadded).
+    On the card the table may be float32 (a master weight) while q, k and
+    v are bf16: the kernels take it in q's dtype.
+    """
+    if q.device.type == "cpu":
+        return deform_attn_reference(
+            q, k, v, pos, table, n_groups=n_groups, scale=scale, hn=hn, wn=wn
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"deform_attn runs on cuda or cpu, not {q.device}")
+    return DeformAttnFunction.apply(q, k, v, pos, table, n_groups, float(scale), hn, wn)
+
+
+deform_attn.launches = 0  # K1 launches; chip_smoke.py reads and resets it
+deform_attn_bwd.launches = 0  # K2 launches; likewise

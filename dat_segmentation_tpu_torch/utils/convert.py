@@ -3,8 +3,9 @@
 ``convert_variables`` takes a ``dat_segmentation_tpu`` variable tree
 (``{'params': ..., 'batch_stats': ...}``, leaves as numpy arrays or
 anything ``np.asarray`` takes) and returns the port's ``state_dict``.
-The port's modules carry the JAX module names, so a key is the JAX path
-joined with dots and only the leaves change:
+The port's modules carry the JAX module names (backbone, neck, the
+UperNet, FCN and FPN heads alike), so a key is the JAX path joined with
+dots and only the leaves change:
 
 * conv ``kernel`` HWIO -> ``weight`` OIHW (a 1x1 conv (1, 1, in, out) ->
   (out, in, 1, 1), depthwise (k, k, 1, C) -> (C, 1, k, k)); dense
@@ -50,7 +51,7 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             key = f"{mod}.{_LEAF[name]}" if mod else _LEAF[name]
         else:
             raise KeyError(f"no port counterpart for JAX parameter {'/'.join(path)}")
-        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+        sd[key] = torch.from_numpy(np.array(a))  # a writable copy
     for path, leaf in _flatten(variables.get("batch_stats", {})):
         mod, name = ".".join(path[:-1]), path[-1]
         if name not in _STAT:

@@ -9,20 +9,33 @@ without them, with the JAX-pinning conftest left out:
 Tolerances, as in chip_smoke.py: float32 1e-4 (the kernel sums in another
 order and uses the fast exp), bf16 1e-2 (outputs rounded to bf16, and the
 plain version rounds P to bf16 before P·V); the small model's logits 1e-4
-in float32 with TF32 off (cuDNN against the CPU, and the kernel).
+in float32 with TF32 off (cuDNN against the CPU, and the kernel). K2 and
+the train step: see the constants below.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from dat_segmentation_tpu_torch import build_model, get_config
-from dat_segmentation_tpu_torch.ops.deform_attn import deform_attn, deform_attn_reference
-from torch_port_helpers import small_fpn
+from dat_segmentation_tpu_torch import build_model, create_train_state, get_config, make_train_step
+from dat_segmentation_tpu_torch.ops.deform_attn import (
+    deform_attn,
+    deform_attn_bwd,
+    deform_attn_bwd_reference,
+    deform_attn_reference,
+)
+from torch_port_helpers import small_fpn, small_upernet
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# K2, relative to the largest |gradient| of each of the five: the kernel
+# sums dk, dv, dpos and dtable with float32 atomics in an order that
+# changes from run to run; in bf16 dq, dk and dv are rounded to bf16 and
+# the plain version rounds P to bf16 before P·V.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GRADS = ("dq", "dk", "dv", "dpos", "dtable")
 
 
 @pytest.fixture
@@ -108,6 +121,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, spoil, error):
         deform_attn(*args, n_groups=2, scale=0.2)
 
 
+def _rel_errs(got, ref):
+    return {name: ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12)).item()
+            for name, a, b in zip(GRADS, got, ref)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        dict(),  # rectangular, Ns 49, pos outside [-1, 1]
+        dict(g=1, H=128, W=128, Ns=256, th=111, pos_range=1.0),  # T++ stage 0
+        dict(g=8, H=16, W=16, Ns=256, th=13, pos_range=1.0),  # T++ stage 3
+        dict(g=2, h_g=3, H=64, W=64, Ns=256, th=55, pos_range=1.0),  # S++ stage 1
+        dict(B=1, g=1, H=3, W=5, Ns=4, th=13),  # fewer queries than a block step
+    ],
+)
+def test_bwd_kernel_matches_plain(cuda, dtype, shape):
+    q, k, v, pos, table = _inputs(cuda, dtype, **shape)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(1),
+                       device=cuda).to(dtype)
+    kw = dict(n_groups=table.shape[0], scale=32 ** -0.5)
+    got = deform_attn_bwd(q, k, v, pos, table, dout, **kw)
+    ref = deform_attn_bwd_reference(q, k, v, pos, table, dout, **kw)
+    torch.cuda.synchronize()
+    assert [t.shape for t in got] == [t.shape for t in ref]
+    errs = _rel_errs(got, ref)
+    assert max(errs.values()) <= BWD_TOL[dtype], errs
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_padded_queries(cuda):
+    q, k, v, pos, table = _inputs(cuda, torch.float32, H=32, W=32)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+    kw = dict(n_groups=2, scale=32 ** -0.5, hn=28, wn=28)
+    errs = _rel_errs(deform_attn_bwd(q, k, v, pos, table, dout, **kw),
+                     deform_attn_bwd_reference(q, k, v, pos, table, dout, **kw))
+    assert max(errs.values()) <= BWD_TOL[torch.float32], errs
+
+
+@pytest.mark.cuda
+def test_autograd_runs_k1_then_k2(cuda):
+    """Under autograd the wrapper launches K1 forward and K2 backward, and
+    a float32 master table gets its gradient in float32."""
+    q, k, v, pos, table = _inputs(cuda, torch.bfloat16)
+    table = table.float()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, pos, table)]
+    fwd0, bwd0 = deform_attn.launches, deform_attn_bwd.launches
+    out = deform_attn(*leaves, n_groups=2, scale=32 ** -0.5)
+    out.float().square().sum().backward()
+    assert (deform_attn.launches, deform_attn_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    assert [t.grad.dtype for t in leaves] == [torch.bfloat16] * 3 + [torch.float32] * 2
+    ref = deform_attn_bwd_reference(q, k, v, pos, table.to(torch.bfloat16),
+                                    2 * out.detach(), n_groups=2, scale=32 ** -0.5)
+    errs = _rel_errs([t.grad for t in leaves], ref)
+    assert max(errs.values()) <= BWD_TOL[torch.bfloat16], errs
+
+
 @pytest.mark.cuda
 def test_small_model_kernel_path_matches_plain_path(cuda):
     """The small SemanticFPN (head width 32) on the card against the same
@@ -121,3 +192,38 @@ def test_small_model_kernel_path_matches_plain_path(cuda):
         ref = copy.deepcopy(model).cpu()(x)
     assert deform_attn.launches == before + 4  # one per 'D' block
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_small_upernet_train_step_matches_cpu(cuda):
+    """One float32 train step of the small UperNet (head width 32) on the
+    card, through K1 and K2, against the same step on the CPU: loss to
+    1e-5 relative, all gradients to 1e-4 (||g_card - g_cpu|| / ||g_cpu||),
+    BN running statistics to 1e-5; one K1 and one K2 launch per 'D'
+    block."""
+    torch.manual_seed(0)
+    cfg = get_config("upn_tiny_160k_dp03_lr6")
+    model_cfg = small_upernet(get_config, head_width=32)
+    cfg = dataclasses.replace(cfg, model=model_cfg,
+                              schedule=dataclasses.replace(cfg.schedule, warmup_iters=0))
+    gpu = build_model(model_cfg, device=cuda)
+    cpu = copy.deepcopy(gpu).cpu()
+    rng = np.random.RandomState(3)
+    label = rng.randint(0, 8, (2, 64, 96))
+    label[:, :5] = 255
+    batch = {"image": rng.randn(2, 64, 96, 3).astype(np.float32), "label": label}
+    out = {}
+    for name, m in (("gpu", gpu), ("cpu", cpu)):
+        state = create_train_state(m, cfg)
+        fwd0, bwd0 = deform_attn.launches, deform_attn_bwd.launches
+        _, metrics = make_train_step(m, num_classes=8, compute_dtype=torch.float32)(state, batch)
+        out[name] = (metrics, deform_attn.launches - fwd0, deform_attn_bwd.launches - bwd0)
+    (gm, gf, gb), (cm, _, _) = out["gpu"], out["cpu"]
+    assert (gf, gb) == (4, 4)
+    assert abs(gm["loss"].item() - cm["loss"].item()) <= 1e-5 * abs(cm["loss"].item())
+    dsq = sum((pg.grad.cpu() - pc.grad).square().sum() for pg, pc in zip(gpu.parameters(), cpu.parameters()))
+    gsq = sum(pc.grad.square().sum() for pc in cpu.parameters())
+    assert (dsq / gsq).sqrt().item() <= 1e-4
+    for (n, bg), (_, bc) in zip(gpu.named_buffers(), cpu.named_buffers()):
+        if n.endswith(("running_mean", "running_var")):
+            assert (bg.cpu() - bc).abs().max().item() <= 1e-5, n

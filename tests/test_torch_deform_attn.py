@@ -1,25 +1,33 @@
-"""Kernel K1 of the PyTorch port (ops/deform_attn.py) against the JAX package.
+"""Kernels K1 and K2 of the PyTorch port (ops/deform_attn.py) against the
+JAX package.
 
-On the CPU the port's wrapper runs K1's plain version; it is held here to
-the JAX composite ``_xla_reference`` and to the TPU kernels in Pallas
-interpret mode (v1, v3 and v4 layouts), in float32 to 1e-5: the same
-float32 arithmetic, summed in another order. The CUDA kernel itself is
-held to the plain version on the card (``tests/test_torch_cuda.py`` and
+On the CPU the port's wrapper runs K1's plain version, and autograd of it
+is K2's plain version (``deform_attn_bwd_reference``). They are held here
+to the JAX composite ``_xla_reference`` (and ``jax.vjp`` of it) and to the
+TPU kernels in Pallas interpret mode: forward v1, v3 and v4 layouts, and
+the fused backward ``fused_deform_attention_bwd_v2`` in both its layouts
+(``DAT_TPU_BWD_LAYOUT`` v2 and v4), in float32 to 1e-5: the same float32
+arithmetic, summed in another order. The CUDA kernels themselves are held
+to the plain versions on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``).
 """
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from dat_segmentation_tpu.ops.pallas.deform_attn import (
     _xla_reference,
+    fused_deform_attention,
     fused_deform_attention_fwd,
     fused_deform_attention_v2,
 )
 from dat_segmentation_tpu_torch.ops.deform_attn import (
     deform_attn,
+    deform_attn_bwd,
+    deform_attn_bwd_reference,
     deform_attn_reference,
     rpe_bias,
 )
@@ -142,11 +150,98 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_no_launch():
     assert deform_attn.launches == before
 
 
-def test_wrapper_refuses_inputs_that_need_grad():
+# ---------------------------------------------------------------- K2 ------
+
+GRADS = ("dq", "dk", "dv", "dpos", "dtable")
+
+
+def _dout(q, seed=11):
+    return np.random.RandomState(seed).randn(*q.shape).astype(np.float32)
+
+
+def _port_grads(arrays, dout, **kw):
+    g = arrays[4].shape[0]
+    scale = (arrays[0].shape[-1] // arrays[4].shape[1]) ** -0.5
+    grads = deform_attn_bwd_reference(
+        *map(torch.from_numpy, arrays), torch.from_numpy(dout), n_groups=g, scale=scale, **kw
+    )
+    return [t.numpy() for t in grads]
+
+
+def _assert_grads(got, ref, what=""):
+    for name, a, b in zip(GRADS, got, ref):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=ATOL, err_msg=f"{what} {name}")
+
+
+_BWD_SHAPES = [
+    dict(),
+    dict(H=8, W=16, Ns=25, pos_range=1.2),  # odd Ns; pos outside [-1, 1]
+    dict(B=1, g=2, h_g=2, hc=8, H=8, W=8, Ns=64, th=13, tw=13),  # a narrow stage's table
+]
+
+
+@pytest.mark.parametrize("layout", ["v2", "v4"])
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_plain_grads_match_pallas_bwd_interpret(shape, layout, monkeypatch):
+    """The gradients of the port's plain version against ``jax.vjp`` of
+    ``fused_deform_attention(interpret=True, fused_bwd=True)``: the TPU
+    kernel K2 interpreted, in its sample-major (v2) and query-major (v4)
+    layouts."""
+    monkeypatch.setenv("DAT_TPU_BWD_LAYOUT", layout)
+    arrays = _inputs(**shape)
+    g = arrays[4].shape[0]
+    scale = (arrays[0].shape[-1] // arrays[4].shape[1]) ** -0.5
+    dout = _dout(arrays[0])
+    _, vjp = jax.vjp(lambda *a: fused_deform_attention(*a, g, scale, True, 2, True),
+                     *map(jnp.asarray, arrays))
+    _assert_grads(_port_grads(arrays, dout), vjp(jnp.asarray(dout)), layout)
+
+
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_plain_grads_match_xla_reference_vjp(shape):
+    arrays = _inputs(**shape)
+    g = arrays[4].shape[0]
+    scale = (arrays[0].shape[-1] // arrays[4].shape[1]) ** -0.5
+    dout = _dout(arrays[0])
+    _, vjp = jax.vjp(lambda *a: _xla_reference(*a, n_groups=g, scale=scale),
+                     *map(jnp.asarray, arrays))
+    _assert_grads(_port_grads(arrays, dout), vjp(jnp.asarray(dout)))
+
+
+def test_plain_grads_padded_queries_match_pallas_bwd_interpret():
+    """Queries padded 14 -> 16 with hn = wn = 14, zero cotangent on the pad
+    rows: every gradient equals the interpreted TPU kernel's."""
+    q, k, v, pos, table = _inputs(H=14, W=14, Ns=16, pos_range=1.2)
+    qp = np.pad(q, ((0, 0), (0, 2), (0, 2), (0, 0)))
+    dout = np.pad(_dout(q), ((0, 0), (0, 2), (0, 2), (0, 0)))
+    g = table.shape[0]
+    scale = (q.shape[-1] // table.shape[1]) ** -0.5
+    arrays = (qp, k, v, pos, table)
+    _, vjp = jax.vjp(lambda *a: fused_deform_attention(*a, g, scale, True, 0, True, 14, 14),
+                     *map(jnp.asarray, arrays))
+    _assert_grads(_port_grads(arrays, dout, hn=14, wn=14), vjp(jnp.asarray(dout)))
+
+
+def test_bwd_reference_is_autograd_of_the_plain_forward():
+    """``deform_attn_bwd_reference`` equals autograd through ``deform_attn``
+    on the CPU, which is how a CPU model trains."""
+    arrays = _inputs(pos_range=1.2)
+    dout = torch.from_numpy(_dout(arrays[0]))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    deform_attn(*leaves, n_groups=2, scale=0.25).backward(dout)
+    ref = deform_attn_bwd_reference(*map(torch.from_numpy, arrays), dout, n_groups=2, scale=0.25)
+    for name, leaf, r in zip(GRADS, leaves, ref):
+        assert torch.equal(leaf.grad, r), name
+
+
+def test_cpu_bwd_wrapper_is_the_plain_version_and_counts_no_launch():
     arrays = [torch.from_numpy(a) for a in _inputs()]
-    arrays[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        deform_attn(*arrays, n_groups=2, scale=0.25)
+    dout = torch.from_numpy(_dout(arrays[0]))
+    before = deform_attn_bwd.launches
+    got = deform_attn_bwd(*arrays, dout, n_groups=2, scale=0.25)
+    ref = deform_attn_bwd_reference(*arrays, dout, n_groups=2, scale=0.25)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert deform_attn_bwd.launches == before
 
 
 def test_rpe_bias_zero_outside_the_table():

@@ -1,7 +1,8 @@
 """The PyTorch port's models against the JAX package, float32 on the CPU.
 
-Each layer module, DeformableAttention, the DAT backbone and the small
-SemanticFPN EncoderDecoder run in both packages on the same numpy input,
+Each layer module, DeformableAttention, the DAT backbone, the heads and
+the small SemanticFPN and UperNet EncoderDecoders run in both packages on
+the same numpy input,
 with the JAX variables (drawn from a numpy seed, no scale 1 and no bias 0)
 carried into the port by ``utils/convert.py``. Tolerances: 1e-5 for one
 layer and 1e-4 for the whole segmentor's logits -- float32 on both sides,
@@ -20,6 +21,7 @@ from flax import linen as fnn
 from dat_segmentation_tpu.configs import get_config as jax_get_config
 from dat_segmentation_tpu.configs import list_configs as jax_list_configs
 from dat_segmentation_tpu.models import build_model as jax_build_model
+from dat_segmentation_tpu.models import heads as jh
 from dat_segmentation_tpu.models import layers as jl
 from dat_segmentation_tpu.models.builder import build_backbone as jax_build_backbone
 from dat_segmentation_tpu.models.deformable_attention import (
@@ -29,7 +31,16 @@ from dat_segmentation_tpu_torch.configs import get_config, list_configs
 from dat_segmentation_tpu_torch.models import build_model
 from dat_segmentation_tpu_torch.models import layers as tl
 from dat_segmentation_tpu_torch.models.deformable_attention import DeformableAttention
-from torch_port_helpers import carry, jax_apply, port_apply, random_variables, small_fpn
+from dat_segmentation_tpu_torch.models import heads as th
+from dat_segmentation_tpu_torch.utils.convert import convert_variables
+from torch_port_helpers import (
+    carry,
+    jax_apply,
+    port_apply,
+    random_variables,
+    small_fpn,
+    small_upernet,
+)
 
 LAYER_ATOL = 1e-5
 MODEL_ATOL = 1e-4
@@ -85,6 +96,12 @@ class _JaxBN(fnn.Module):
     @fnn.compact
     def __call__(self, x):
         return jl.batch_norm(x, use_running_average=True, name="bn")
+
+
+class _JaxBNTrain(fnn.Module):
+    @fnn.compact
+    def __call__(self, x):
+        return jl.batch_norm(x, use_running_average=False, name="bn")
 
 
 class _JaxWrap(fnn.Module):
@@ -145,14 +162,79 @@ def test_layer_matches_jax(name):
 
 
 def test_droppath_in_training_drops_whole_samples():
-    """timm semantics: each sample is zeroed or scaled by 1/keep as a whole."""
-    torch.manual_seed(0)
+    """timm semantics: each sample is zeroed or scaled by 1/keep as a whole,
+    the mask drawn from the generator the caller hands it."""
     dp = tl.DropPath(0.5).train()
+    tl.use_generator(dp, torch.Generator().manual_seed(0))
     y = dp(torch.ones(64, 3, 4, 5))
     per_sample = y.reshape(64, -1)
     assert set(per_sample.unique().tolist()) <= {0.0, 2.0}
     assert torch.all(per_sample.min(1).values == per_sample.max(1).values)
     assert 0 < (per_sample[:, 0] == 0).sum() < 64
+
+
+def test_dropout_is_elementwise_and_seeded():
+    """The heads' dropout is flax's elementwise one (not Dropout2d): masks
+    differ within a sample's channels; the same seed gives the same mask,
+    another seed another one."""
+    def draw(seed):
+        d = tl.Dropout(0.5).train()
+        tl.use_generator(d, torch.Generator().manual_seed(seed))
+        return d(torch.ones(2, 4, 4, 32))
+
+    a, b, c = draw(1), draw(1), draw(2)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert set(a.unique().tolist()) == {0.0, 2.0}
+    assert (a[0, 0, 0] == 0).any() and (a[0, 0, 0] != 0).any()
+
+
+def test_drop_path_masks_follow_the_seed():
+    x = torch.ones(256, 2, 2, 3)
+
+    def mask(seed):
+        dp = tl.DropPath(0.3).train()
+        tl.use_generator(dp, torch.Generator().manual_seed(seed))
+        return dp(x)[:, 0, 0, 0]
+
+    assert torch.equal(mask(5), mask(5)) and not torch.equal(mask(5), mask(6))
+
+
+def test_dropout_in_training_needs_a_generator():
+    """Training never falls back to the global RNG."""
+    with pytest.raises(RuntimeError, match="torch.Generator"):
+        tl.DropPath(0.1).train()(torch.ones(2, 3))
+    assert torch.equal(tl.DropPath(0.0).train()(torch.ones(2, 3)), torch.ones(2, 3))
+
+
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [((2, 16, 24, _C), np.float32), ((2, 1, 1, _C), np.float32), ((4, 3, 5, _C), "bfloat16")],
+    ids=["map", "ppm_scale1_batch2", "bf16"],
+)
+def test_batchnorm_train_matches_flax(shape, dtype):
+    """Training mode: the output from the biased batch statistics, and the
+    running statistics after one call equal flax's batch_stats to 1e-6
+    (biased variance; the PPM's (B, 1, 1, C) map at B = 2 is where
+    PyTorch's unbiased update would differ 2x). The output to 1e-5, but
+    5e-5 over two values a channel, where flax's E[x²] - E[x]² loses
+    digits that F.batch_norm keeps; bf16 inputs: statistics in float32 on
+    both sides, output to bf16 rounding."""
+    import jax.numpy as jnp
+
+    x = _x(shape, seed=8)
+    jmod = _JaxBNTrain()
+    variables = random_variables(jmod, x, seed=4)
+    xj = jnp.asarray(x, jnp.bfloat16) if dtype == "bfloat16" else x
+    ref, upd = jax_apply(jmod, variables, xj, mutable=["batch_stats"])
+    port = carry(_Call("bn", tl.BatchNorm2d(_C)), variables).train()
+    xt = torch.from_numpy(x).to(torch.bfloat16) if dtype == "bfloat16" else torch.from_numpy(x)
+    with torch.no_grad():
+        got = port(xt)
+    atol = 2e-2 if dtype == "bfloat16" else 5e-5 if shape[0] * shape[1] * shape[2] == 2 else LAYER_ATOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=0, atol=atol)
+    stats = upd["batch_stats"]["bn"]
+    np.testing.assert_allclose(port.bn.running_mean.numpy(), np.asarray(stats["mean"]), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(port.bn.running_var.numpy(), np.asarray(stats["var"]), rtol=0, atol=1e-6)
 
 
 def test_gelu_is_exact_erf():
@@ -230,8 +312,98 @@ def test_flagship_preset_has_14_deformable_blocks():
 
 
 def test_build_model_refuses_other_heads():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(get_config("upn_tiny_160k_dp03_lr6").model, device="cpu")
+    """UperNet (with its FCN auxiliary head) builds; the classifier head
+    is refused, naming its slice."""
+    model = build_model(get_config("upn_tiny_160k_dp03_lr6").model, device="cpu")
+    assert isinstance(model.decode_head, th.UPerHead)
+    assert isinstance(model.auxiliary_head, th.FCNHead)
+    with pytest.raises(NotImplementedError, match="classifier slice"):
+        build_model(get_config("cls_tiny_imagenet").model, device="cpu")
+
+
+# ------------------------------------------------------------------ heads --
+
+_FEATS = [(2, 16, 16, 8), (2, 8, 8, 16), (2, 4, 4, 16), (2, 2, 2, 32)]
+
+
+def _feats(seed=9):
+    return [_x(s, seed=seed + i) for i, s in enumerate(_FEATS)]
+
+
+def _run_head(jmod, port, inputs, train):
+    """JAX head (train: BN batch statistics, batch_stats updated) and the
+    carried port head on the same inputs; returns both outputs and, in
+    train mode, the updated JAX batch_stats."""
+    import jax
+    import jax.numpy as jnp
+
+    variables = random_variables(jmod, inputs, seed=5)
+    port = carry(port, variables).train(train)
+    kw = dict(train=True, mutable=["batch_stats"]) if train else dict(train=False)
+    out = jax.jit(lambda v, a: jmod.apply(v, a, **kw))(
+        jax.tree_util.tree_map(jnp.asarray, variables), jax.tree_util.tree_map(jnp.asarray, inputs)
+    )
+    ref, upd = out if train else (out, None)
+    with torch.no_grad():
+        arg = [torch.from_numpy(f) for f in inputs] if isinstance(inputs, list) else torch.from_numpy(inputs)
+        got = port(arg)
+    return got, ref, port, upd
+
+
+def _assert_stats(port, upd, rtol=0.0):
+    """Running statistics against the updated JAX batch_stats, to 1e-6 (and
+    ``rtol`` where deep features carry float32 rounding from the layers
+    before them)."""
+    want = convert_variables({"batch_stats": upd["batch_stats"]})
+    got = port.state_dict()
+    for name, w in want.items():
+        if not name.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=rtol, atol=1e-6,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("topdown", ["mmseg", "standalone"])
+def test_uperhead_matches_jax(topdown, train):
+    jmod = jh.UPerHead(num_classes=5, channels=16, dropout_ratio=0.0, topdown=topdown)
+    port = th.UPerHead([8, 16, 16, 32], 5, 16, dropout_ratio=0.0, topdown=topdown)
+    got, ref, port, upd = _run_head(jmod, port, _feats(), train)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=LAYER_ATOL * 10)
+    if train:
+        _assert_stats(port, upd, rtol=1e-5)  # fpn_i's BN sits three convs deep
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_fcnhead_matches_jax(train):
+    jmod = jh.FCNHead(num_classes=5, channels=8, num_convs=2, dropout_ratio=0.0)
+    port = th.FCNHead(16, 5, 8, num_convs=2, dropout_ratio=0.0)
+    got, ref, port, upd = _run_head(jmod, port, _x((2, 8, 8, 16), seed=11), train)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=LAYER_ATOL)
+    if train:
+        _assert_stats(port, upd)
+
+
+@pytest.mark.parametrize("topdown", ["mmseg", "standalone"])
+def test_upernet_segmentor_train_outputs_match_jax(topdown):
+    """The small UperNet in training: ``(logits, aux)`` both at the input
+    size, against JAX ``train=True`` (drop path and dropout 0), and the
+    updated BN statistics."""
+    x = _x((2, 64, 64, 3), seed=12)
+    jmodel = jax_build_model(small_upernet(jax_get_config, topdown=topdown))
+    variables = random_variables(jmodel, x, seed=6, train=False)
+    (ref, ref_aux), upd = jax_apply(jmodel, variables, x, train=True, mutable=["batch_stats"])
+    torch.manual_seed(0)
+    pmodel = carry(build_model(small_upernet(get_config, topdown=topdown), device="cpu"), variables)
+    pmodel.train()
+    with torch.no_grad():
+        got, got_aux = pmodel(torch.from_numpy(x))
+    assert got.shape == got_aux.shape == (2, 64, 64, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=MODEL_ATOL)
+    np.testing.assert_allclose(got_aux.numpy(), np.asarray(ref_aux), rtol=0, atol=MODEL_ATOL)
+    _assert_stats(pmodel, upd, rtol=1e-5)
+    pmodel.eval()
+    with torch.no_grad():
+        assert pmodel(torch.from_numpy(x)).shape == (2, 64, 64, 8)  # eval: logits only
 
 
 def test_build_model_needs_cuda_unless_cpu_is_asked(monkeypatch):

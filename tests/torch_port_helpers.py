@@ -1,6 +1,7 @@
 """Shared by the PyTorch port's tests (tests/test_torch_*.py).
 
-One small SemanticFPN configuration built the same way in both packages,
+A small SemanticFPN and a small UperNet configuration built the same way
+in both packages,
 random variables for a JAX module made from a numpy seed, and the same
 weights carried into a port module through ``utils/convert.py``. JAX is
 imported only where it is used: ``tests/test_torch_cuda.py`` runs on a
@@ -36,6 +37,38 @@ def small_fpn(get_config, head_width=16):
         neck=dataclasses.replace(cfg.neck, out_channels=32),
         decode_head=dataclasses.replace(cfg.decode_head, channels=16, num_classes=8),
         num_classes=8,
+    )
+
+
+def small_upernet(get_config, head_width=16, num_classes=8, drop=0.0, topdown="mmseg"):
+    """upn_tiny_160k_dp03_lr6 cut to depths (1, 2, 1, 1) and narrow widths,
+    with a 'D' block in every stage, ``num_classes`` classes, drop path
+    and both heads' dropout at ``drop``, from either package's
+    ``get_config``; returns the ModelConfig."""
+    cfg = get_config("upn_tiny_160k_dp03_lr6").model
+    hw = head_width
+    bb = dataclasses.replace(
+        cfg.backbone,
+        dim_stem=2 * hw,
+        dims=(2 * hw, 2 * hw, 4 * hw, 4 * hw),
+        depths=(1, 2, 1, 1),
+        heads=(2, 2, 4, 4),
+        groups=(1, 1, 2, 2),
+        stage_spec=(("D",), ("X", "D"), ("D",), ("D",)),
+        drop_path_rate=drop,
+    )
+    return dataclasses.replace(
+        cfg,
+        backbone=bb,
+        decode_head=dataclasses.replace(
+            cfg.decode_head, channels=32, num_classes=num_classes,
+            kwargs={"dropout_ratio": drop, "topdown": topdown},
+        ),
+        auxiliary_head=dataclasses.replace(
+            cfg.auxiliary_head, channels=16, num_classes=num_classes,
+            kwargs={"dropout_ratio": drop},
+        ),
+        num_classes=num_classes,
     )
 
 
