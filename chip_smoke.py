@@ -14,37 +14,50 @@ line each:
 1. device: the card's name and power limit (as nvidia-smi gives them),
    the torch, CUDA and nvcc versions.
 2. build: every CUDA source of the port, built at once (one nvcc each),
-   with the registers and spills ptxas reports.
+   with the registers, spills and shared memory ptxas and the launchers
+   report.
 3. kernel_check: each kernel against its plain PyTorch version on the card
    at the shapes the main paths give it, in float32 and bf16 (K2: all
-   five gradients).
+   five gradients; K3: both modes at the four T++ stage shapes, the four
+   S++ widths, no LPU, a rectangular image, windows 3 and 5).
 4. model: the full-width, full-depth DAT-T++ SemanticFPN (preset
    fpn_tiny_80k_dp04_lr2, 26 blocks) at 512x512 with random weights from
    a fixed seed, in float32 with TF32 off: the kernel path on the card
-   against the plain path (the same model on the CPU).
+   against the plain path (the same model on the CPU); then the same
+   weights with ``kernel_impl='pallas'`` (K3 on), card against CPU and
+   against the card's unfused run.
 5. serve: the main path. ``SegInferencer`` answers requests in bf16
    (batches of 512x512 images, then one whole image); each kernel's
    launch count, set to 0 just before, must show every kernel ran.
-6. times: K1 per stage (CUDA events, after warm-up) beside its plain
-   version, one PyTorch library call computing the same function (the
-   yardstick, used nowhere in the port) and the least time the card could
-   take; the forward at batch 16 in bf16 (ms/img, img/s, peak memory) and
-   a profile of where its device time goes.
+   serve_pallas: the same with ``kernel_impl='pallas'`` (26 K3 and 14 K1
+   launches a forward), then ``predict`` on a raw 512x683 uint8 image,
+   single-scale in slide mode and multi-scale + flip in whole mode: each
+   request's K3 count must equal the count the JAX package's gate gives
+   for the sizes its forwards ran at. serve_small: DAT-S++ UperNet
+   (``upn_small_160k``) with ``kernel_impl='pallas'``, one bf16 batch.
+6. times: K1 per stage and K3 per (stage, mode) (CUDA events, after
+   warm-up) beside its plain version, one PyTorch library call computing
+   the same function (K3: none computes it, so the yardstick is the
+   unfused stock-op chain the model runs without K3; used nowhere in the
+   port) and the least time the card could take; the forward at batch 16
+   in bf16 (ms/img, img/s, peak memory), with ``kernel_impl`` 'auto' and
+   'pallas' in turns, and profiles of where their device time goes.
 7. train_model: the full-width, full-depth DAT-T++ UperNet with its FCN
    auxiliary head (preset upn_tiny_160k_dp03_lr6, 150 classes) from a
    fixed seed takes one float32 train step (TF32 off, drop path and
    dropout 0) on a 2x512x512 batch: the kernel path on the card against a
    copy of the same model on the CPU (loss, gradients, BN statistics, IoU
-   counts).
+   counts); then again with ``kernel_impl='pallas'``.
 8. train: the main path of the training slice. ``make_train_step`` on the
    preset as it is (drop path 0.3, dropout 0.1; warm-up 0 so the learning
    rate is not 6e-11) in bf16 at batch 16, a few steps on one synthetic
    batch; the launch counts, set to 0 just before, must show 14 K1 and 14
-   K2 launches a step.
+   K2 launches a step; then a few steps with ``kernel_impl='pallas'`` (26
+   K3, 14 K1 and 14 K2 launches a step).
 9. train times: K2 per stage as K1 above (the yardstick is the backward
    of one ``scaled_dot_product_attention`` with the bias prebuilt), the
    train step at batch 16 (ms, img/s, peak memory) and a profile of its
-   device time.
+   device time; the step with 'auto' and 'pallas' in turns.
 
 Then a ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -56,6 +69,7 @@ import concurrent.futures
 import copy
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -63,10 +77,14 @@ import time
 SEED = 0
 PRESET = "fpn_tiny_80k_dp04_lr2"
 TRAIN_PRESET = "upn_tiny_160k_dp03_lr6"
+SMALL_PRESET = "upn_small_160k"  # DAT-S++: K3 at C = 96 ... 768
 IMG = 512
 SERVE_BATCH, SERVE_REQUESTS = 4, 4
+PREDICT_HW = (512, 683)  # a raw image whose sides are not multiples of 32
+SMALL_BATCH = 2
 TIME_BATCH = 16
 TRAIN_BATCH, TRAIN_STEPS, TIME_STEPS = 16, 10, 5
+PALLAS_STEPS = 3
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -85,6 +103,13 @@ TOL_MODEL = 1e-3
 # bf16 dq, dk, dv are rounded to bf16 and the plain version rounds P.
 TOL_BWD_F32 = 1e-4
 TOL_BWD_BF16 = 2e-2
+# K3, max |error| over max |value| of the plain version: float32, the kernel
+# sums its products and depthwise taps in another order; bf16, both round at
+# _composite's points, but cuDNN and cuBLAS sum the plain version's convs in
+# float32 and round once where the kernel's sums round too, the output's
+# one bf16 ulp is 2^-8 relative, and fc2 sums 4C of those rounded values.
+TOL_XB_F32 = 1e-4
+TOL_XB_BF16 = 1e-2
 # One float32 train step of the full UperNet, card against CPU: the loss
 # (relative), all gradients (||g_card - g_cpu|| / ||g_cpu||), each
 # parameter's gradient (||dg_p|| <= TOL_GRAD_PARAM ||g_p|| + 1e-6 ||g||:
@@ -114,7 +139,14 @@ KERNELS = [
         "source": "dat_segmentation_tpu_torch/csrc/deform_attn_bwd.cu",
         "replaces": "dat_segmentation_tpu/ops/pallas/deform_attn.py:1420",
     },
+    {
+        "name": "x_block_fwd",
+        "route": "cuda",
+        "source": "dat_segmentation_tpu_torch/csrc/x_block_fwd.cu",
+        "replaces": "dat_segmentation_tpu/ops/pallas/x_block.py:227",
+    },
 ]
+XB_PARAMS = ("w3", "b3", "w7", "b7", "g", "be", "wf1", "bf1", "wd", "bd", "wf2", "bf2")
 
 GRADS = ("dq", "dk", "dv", "dpos", "dtable")
 
@@ -154,8 +186,12 @@ def main() -> int:
     import torch.nn.functional as F
 
     from dat_segmentation_tpu_torch import SegInferencer, build_model, get_config
+    from dataclasses import replace
+
+    from dat_segmentation_tpu_torch.eval.inference import MS_RATIOS
     from dat_segmentation_tpu_torch.ops import cuda_build
     from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.ops import x_block as xb
 
     card = nvidia_smi_card()
     dev = torch.device("cuda")
@@ -206,6 +242,13 @@ def main() -> int:
           "smem_bytes_stage0": {"float32": da.bwd_smem_bytes(torch.float32, 256, 111, 111),
                                 "bfloat16": da.bwd_smem_bytes(torch.bfloat16, 256, 111, 111)},
           "smem_bytes_max_per_block": torch.cuda.get_device_properties(0).shared_memory_per_block_optin})
+    emit({"phase": "build", "card": card, "source": xb.SOURCE,
+          "tiles": [{"C": C, "mode": name, "dtype": str(dt).split(".")[1],
+                     "tile": [xb.tile_rows(dt, C, mode, k), 8],
+                     "smem_bytes": xb.smem_bytes(dt, C, mode, k)}
+                    for C in (64, 96, 128, 192, 256, 384, 512, 768)
+                    for name, mode, k in (("X", xb.MODE_X_LPU, 7), ("mlp", xb.MODE_MLP, 1))
+                    for dt in (torch.bfloat16, torch.float32)]})
 
     # ---- stage geometry of the flagship at 512x512 ---------------------------
     cfg = get_config(PRESET).model
@@ -222,7 +265,8 @@ def main() -> int:
             th=2 * q_size - 1, launches_per_forward=bb.stage_spec[i].count("D"),
         ))
     scale = 32 ** -0.5
-    emit(x_block_bound(cfg.backbone, stages, card))
+    xb_bound = x_block_bound(cfg.backbone, stages, card)
+    emit(xb_bound)
 
     def k1_inputs(B, g, h_g, Cg, H, W, Ns, th, dtype, pos_range=1.0, seed=SEED, **_):
         rng = np.random.RandomState(seed)
@@ -242,8 +286,10 @@ def main() -> int:
     cases.append(dict(stages[2], B=2, pos_range=1.2, what="T++ stage 2, pos ~ U(-1.2, 1.2)"))
     cases.append(dict(B=2, g=2, h_g=2, Cg=64, H=32, W=32, Ns=49, th=55, hn=28, wn=28,
                       what="queries padded 28 -> 32 (hn = wn = 28), Ns 49"))
+    k1_only = [dict(B=1, g=1, h_g=2, Cg=64, H=224, W=299, Ns=1064, th=111,
+                    what="stage 0 of a 896x1195 image, Ns 1064 in chunks")]
     max_err = 0.0
-    for c in cases:
+    for c in cases + k1_only:
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             q, k, v, pos, table = k1_inputs(dtype=dtype, **c)
             kw = dict(n_groups=c["g"], scale=scale, hn=c.get("hn", 0), wn=c.get("wn", 0))
@@ -256,6 +302,7 @@ def main() -> int:
             emit({"phase": "kernel_check", "card": card, "kernel": "deform_attn_fwd",
                   "case": c["what"], "dtype": str(dtype).split(".")[1],
                   "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
+                  "samples_a_chunk": da.fwd_chunk(dtype, c["Ns"], c["th"], c["th"]),
                   "max_abs_err": err, "tol": tol})
             check(err <= tol and got.shape == ref.shape,
                   f"kernel_check {c['what']} {dtype}: {err} > {tol}")
@@ -285,6 +332,37 @@ def main() -> int:
                   and all(a.shape == b.shape for a, b in zip(got, ref)),
                   f"kernel_check K2 {c['what']} {dtype}: {rel} > {tol}")
 
+    # K3: both modes at the four T++ stage shapes (batch 2), the four S++
+    # widths, no LPU, a rectangular image, windows 3 and 5
+    sdims = get_config(SMALL_PRESET).model.backbone.dims
+    xcases = [dict(B=2, H=s["H"], W=s["W"], C=cfg.backbone.dims[s["stage"]], mode=m,
+                   what=f"T++ stage {s['stage']} {m}") for s in stages for m in ("lpu", "mlp")]
+    xcases += [dict(B=1, H=s["H"], W=s["W"], C=sdims[s["stage"]],
+                    mode="mlp" if s["stage"] == 3 else "lpu", what=f"S++ stage {s['stage']}")
+               for s in stages]
+    xcases += [dict(B=2, H=64, W=64, C=128, mode="x", what="no LPU"),
+               dict(B=2, H=48, W=80, C=64, mode="lpu", what="rectangular 48x80"),
+               dict(B=2, H=32, W=32, C=64, k=3, mode="lpu", what="window 3"),
+               dict(B=2, H=32, W=32, C=64, k=5, mode="lpu", what="window 5")]
+    max_err_xb = max_rel_xb = 0.0
+    for c in xcases:
+        for dtype, tol in ((torch.float32, TOL_XB_F32), (torch.bfloat16, TOL_XB_BF16)):
+            x, prm = xb_inputs(torch, np, dev, dtype, **c)
+            args = [prm[n] for n in XB_PARAMS]
+            with torch.inference_mode():
+                got = xb.x_block_fwd(x, *args, with_lpu=c["mode"] == "lpu")
+                ref = xb.x_block_reference(x, *args, with_lpu=c["mode"] == "lpu")
+                torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            max_err_xb, max_rel_xb = max(max_err_xb, err), max(max_rel_xb, rel)
+            emit({"phase": "kernel_check", "card": card, "kernel": "x_block_fwd",
+                  "case": c["what"], "dtype": str(dtype).split(".")[1], "x": list(x.shape),
+                  "k": c.get("k", 7), "mode": c["mode"], "max_abs_err": err,
+                  "max_rel_err": rel, "tol_rel": tol})
+            check(rel <= tol and got.shape == ref.shape and got.dtype == dtype,
+                  f"kernel_check K3 {c['what']} {dtype}: {rel} > {tol}")
+
     # ---- 4. model: kernel path on the card vs the plain path on the CPU ------
     torch.manual_seed(SEED)
     model = build_model(cfg, device=dev)
@@ -309,6 +387,32 @@ def main() -> int:
     check(bool(torch.isfinite(gpu_logits).all()), "model f32: non-finite logits")
     n_d = sum(s["launches_per_forward"] for s in stages)
     check(gpu_launches == n_d, f"model f32: {gpu_launches} K1 launches, want {n_d}")
+
+    # the same weights with kernel_impl='pallas': K3 on the card
+    pcfg = replace(cfg, backbone=replace(cfg.backbone, kernel_impl="pallas"))
+    pmodel = build_model(pcfg, device=dev)
+    pmodel.load_state_dict(model.state_dict())
+    n_x = sum(cfg.backbone.depths)  # one K3 launch a block: 12 'X', 14 MLP-only
+    da.deform_attn.launches = xb.x_block_fwd.launches = 0
+    with torch.inference_mode():
+        fused_logits = pmodel(image.to(dev)).float()
+        torch.cuda.synchronize()
+        fused_launches = (xb.x_block_fwd.launches, da.deform_attn.launches)
+        cpu_fused = copy.deepcopy(pmodel).cpu()(image)
+    d_cpu = (fused_logits.cpu() - cpu_fused).abs().max().item()
+    d_unfused = (fused_logits - gpu_logits).abs().max().item()
+    emit({"phase": "model", "card": card, "preset": PRESET, "kernel_impl": "pallas",
+          "dtype": "float32", "tf32": False, "max_abs_dlogit_vs_cpu": d_cpu,
+          "max_abs_dlogit_vs_card_unfused": d_unfused, "tol": TOL_MODEL,
+          "argmax_agreement_vs_cpu":
+              (fused_logits.cpu().argmax(-1) == cpu_fused.argmax(-1)).float().mean().item(),
+          "kernel_launches": {"x_block_fwd": fused_launches[0],
+                              "deform_attn_fwd": fused_launches[1]}})
+    check(d_cpu <= TOL_MODEL, f"model f32 pallas: card vs CPU {d_cpu} > {TOL_MODEL}")
+    check(d_unfused <= TOL_MODEL, f"model f32 pallas: fused vs unfused {d_unfused} > {TOL_MODEL}")
+    check(fused_launches == (n_x, n_d),
+          f"model f32 pallas: launches (K3, K1) {fused_launches}, want {(n_x, n_d)}")
+    del cpu_fused
 
     # ---- 5. serve: the main path, counts set to 0 just before ---------------
     server = SegInferencer(model, num_classes=cfg.num_classes, device=dev)
@@ -336,6 +440,81 @@ def main() -> int:
     check(shapes_ok and whole_ok, "serve: outputs of the wrong shape or not finite")
     check(launches["deform_attn_fwd"] == n_d * forwards,
           f"serve: {launches['deform_attn_fwd']} K1 launches, want {n_d * forwards}")
+
+    # serve_pallas: the same requests with K3; then predict on a raw image
+    pserver = SegInferencer(pmodel, num_classes=cfg.num_classes, device=dev)
+    seen = []  # the (B, H, W) of every backbone forward
+    hook = pserver.model.backbone.register_forward_pre_hook(
+        lambda m, a: seen.append(tuple(a[0].shape[:3])))
+    da.deform_attn.launches = xb.x_block_fwd.launches = 0
+    t0 = time.perf_counter()
+    pouts = [pserver.forward_batch(r) for r in requests]
+    torch.cuda.synchronize()
+    pserve_s = time.perf_counter() - t0
+    pserve_launches = {"x_block_fwd": xb.x_block_fwd.launches,
+                       "deform_attn_fwd": da.deform_attn.launches}
+    pshapes_ok = all(tuple(o.shape) == (SERVE_BATCH, IMG // 4, IMG // 4, cfg.num_classes)
+                     and bool(torch.isfinite(o).all()) for o in pouts)
+    agree = float(np.mean([(a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                           for a, b in zip(pouts, outs)]))
+    emit({"phase": "serve_pallas", "card": card, "dtype": "bfloat16", "kernel_impl": "pallas",
+          "requests": SERVE_REQUESTS, "batch": SERVE_BATCH, "wall_s": pserve_s,
+          "launches": pserve_launches,
+          "launches_per_forward": {k: v / SERVE_REQUESTS for k, v in pserve_launches.items()},
+          "outputs_ok": pshapes_ok, "argmax_agreement_vs_unfused_bf16": agree})
+    check(pshapes_ok, "serve_pallas: outputs of the wrong shape or not finite")
+    check(pserve_launches == {"x_block_fwd": n_x * SERVE_REQUESTS,
+                              "deform_attn_fwd": n_d * SERVE_REQUESTS},
+          f"serve_pallas: launches {pserve_launches}, want {n_x} K3 and {n_d} K1 a forward")
+
+    raw = np.random.RandomState(SEED + 6).randint(0, 256, (*PREDICT_HW, 3)).astype(np.uint8)
+    predict_launches = {}
+    for name, mode, kw in (("slide", "slide", {}),
+                           ("ms_flip", "whole", dict(ratios=MS_RATIOS, flip=True))):
+        pserver.mode = mode
+        seen.clear()
+        da.deform_attn.launches = xb.x_block_fwd.launches = 0
+        t0 = time.perf_counter()
+        pred = pserver.predict(raw, **kw)
+        pred_s = time.perf_counter() - t0
+        got = (xb.x_block_fwd.launches, da.deform_attn.launches)
+        want = (sum(k3_gate_count(cfg.backbone, h, w) for _, h, w in seen), n_d * len(seen))
+        predict_launches[name] = got[0]
+        ok = bool(pred.shape == PREDICT_HW and pred.dtype == np.int32
+                  and 0 <= pred.min() and pred.max() < cfg.num_classes)
+        emit({"phase": "serve_pallas", "card": card, "request": f"predict {name}",
+              "mode": mode, "raw": list(raw.shape), "ratios": list(kw.get("ratios", (1.0,))),
+              "flip": kw.get("flip", False), "forwards": [list(s) for s in seen],
+              "k3_launches": got[0], "k3_gate_count": want[0], "k1_launches": got[1],
+              "classes_present": int(len(np.unique(pred))), "output_ok": ok, "wall_s": pred_s})
+        check(ok, f"serve_pallas: predict {name} gave {pred.shape} {pred.dtype}")
+        check(got == want, f"serve_pallas: predict {name} launches (K3, K1) {got}, want {want}")
+    hook.remove()
+    pserver.mode = "whole"
+
+    # serve_small: DAT-S++ UperNet at full width and depth, K3 at C = 96 ... 768
+    scfg = get_config(SMALL_PRESET).model
+    scfg = replace(scfg, backbone=replace(scfg.backbone, kernel_impl="pallas"))
+    torch.manual_seed(SEED)
+    sserver = SegInferencer(build_model(scfg, device=dev), num_classes=scfg.num_classes,
+                            device=dev)
+    xs2 = np.random.RandomState(SEED + 7).randn(SMALL_BATCH, IMG, IMG, 3).astype(np.float32)
+    da.deform_attn.launches = xb.x_block_fwd.launches = 0
+    sout = sserver.forward_batch(xs2)
+    torch.cuda.synchronize()
+    s_launches = (xb.x_block_fwd.launches, da.deform_attn.launches)
+    s_want = (sum(scfg.backbone.depths),
+              sum(spec.count("D") for spec in scfg.backbone.stage_spec))
+    s_ok = (tuple(sout.shape) == (SMALL_BATCH, IMG // 4, IMG // 4, scfg.num_classes)
+            and bool(torch.isfinite(sout).all()))
+    emit({"phase": "serve_small", "card": card, "preset": SMALL_PRESET, "kernel_impl": "pallas",
+          "dtype": "bfloat16", "batch": SMALL_BATCH, "dims": list(scfg.backbone.dims),
+          "logits": list(sout.shape), "finite": s_ok,
+          "launches": {"x_block_fwd": s_launches[0], "deform_attn_fwd": s_launches[1]}})
+    check(s_ok, "serve_small: logits of the wrong shape or not finite")
+    check(s_launches == s_want, f"serve_small: launches (K3, K1) {s_launches}, want {s_want}")
+    del sserver, sout
+    torch.cuda.empty_cache()
 
     # ---- 6. times -------------------------------------------------------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
@@ -372,6 +551,36 @@ def main() -> int:
               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
               "roofline_share": bound_ms / ms})
 
+    xtot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "chain_ms": 0.0,
+            "ops_ms": 0.0, "bytes_ms": 0.0}
+    for row in xb_bound["rows"]:
+        mode = "lpu" if row["mode"] == "X" else "mlp"
+        B, H, W, C = row["x"]
+        x, prm = xb_inputs(torch, np, dev, torch.bfloat16, B=B, H=H, W=W, C=C, k=row["k"],
+                           mode=mode)
+        args = [prm[n] for n in XB_PARAMS]
+        lpu = mode == "lpu"
+        with torch.inference_mode():
+            ms = timed(lambda: xb.x_block_fwd(x, *args, with_lpu=lpu), 20)
+            plain_ms = timed(lambda: xb.x_block_reference(x, *args, with_lpu=lpu), 5, 1)
+            chain_ms = timed(lambda: stock_chain(F, x, prm, mode), 10)
+        n = row["calls_per_forward"]
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", row["bound_ms"]),
+                         ("chain_ms", chain_ms), ("ops_ms", row["ops_ms"]),
+                         ("bytes_ms", row["bytes_ms"])):
+            xtot[key] += val * n
+        emit({"phase": "kernel_time", "card": card, "kernel": "x_block_fwd",
+              "stage": row["stage"], "mode": row["mode"], "dtype": "bfloat16", "batch": B,
+              "x": row["x"], "k": row["k"],
+              "tile": [xb.tile_rows(torch.bfloat16, C, xb.MODE_X_LPU if lpu else xb.MODE_MLP,
+                                    row["k"]), 8],
+              "launches_per_forward": n, "ms": ms, "plain_ms": plain_ms,
+              "yardstick": "the unfused stock-op chain (cuDNN depthwise convs, LayerNorm, "
+                           "cuBLAS linears, GELU), not one call",
+              "chain_ms": chain_ms, "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+              "roofline_share": row["bound_ms"] / ms, "chain_over_kernel": chain_ms / ms})
+        del x, prm, args
+
     x16 = torch.tensor(np.random.RandomState(SEED + 3).randn(TIME_BATCH, IMG, IMG, 3),
                        dtype=torch.bfloat16, device=dev)
     fwd_ms = timed(lambda: server.forward_batch(x16), 5)
@@ -385,13 +594,35 @@ def main() -> int:
           "deform_attn_fwd_ms": totals["ms"],
           "deform_attn_fwd_share": totals["ms"] / fwd_ms})
     emit(profile_device(torch, lambda: server.forward_batch(x16), card, fwd_ms, "forward"))
+
+    # the forward with 'auto' and 'pallas' in turns (auto, pallas, pallas, auto,
+    # three times: the host holds some runs back)
+    servers = {"auto": server, "pallas": pserver}
+    fwd = {"auto": [], "pallas": []}
+    peak_by = {}
+    for impl in ("auto", "pallas", "pallas", "auto") * 3:
+        fwd[impl].append(timed(lambda: servers[impl].forward_batch(x16), 5))
+    for impl, srv in servers.items():
+        torch.cuda.reset_peak_memory_stats()
+        srv.forward_batch(x16)
+        torch.cuda.synchronize()
+        peak_by[impl] = torch.cuda.max_memory_allocated() / 2 ** 30
+    pfwd_ms = statistics.median(fwd["pallas"])
+    emit({"phase": "forward_time", "card": card, "dtype": "bfloat16", "batch": TIME_BATCH,
+          "compare": "kernel_impl auto vs pallas, in turns",
+          "order": "(auto pallas pallas auto) x 3", "ms": fwd,
+          "median_ms": {k: statistics.median(vs) for k, vs in fwd.items()},
+          "img_per_s": {k: [TIME_BATCH / v * 1e3 for v in vs] for k, vs in fwd.items()},
+          "peak_mem_gib": peak_by, "x_block_fwd_ms": xtot["ms"],
+          "x_block_chain_ms": xtot["chain_ms"]})
+    pprof = profile_device(torch, lambda: pserver.forward_batch(x16), card, pfwd_ms, "forward")
+    pprof["kernel_impl"] = "pallas"
+    emit(pprof)
     serve_launches = launches["deform_attn_fwd"]
-    del server, model, x16
+    del server, model, pserver, pmodel, servers, x16
     torch.cuda.empty_cache()
 
     # ---- 7. train_model: one float32 step, kernel path vs plain path ---------
-    from dataclasses import replace
-
     from dat_segmentation_tpu_torch import create_train_state, make_train_step
 
     ucfg = get_config(TRAIN_PRESET)
@@ -413,67 +644,73 @@ def main() -> int:
         auxiliary_head=replace(mc.auxiliary_head,
                                kwargs={**mc.auxiliary_head.kwargs, "dropout_ratio": 0.0}),
     )
-    torch.manual_seed(SEED)
-    gmodel = build_model(quiet, device=dev)
-    cmodel = copy.deepcopy(gmodel).cpu()
-    b2 = seg_batch(2, SEED + 4, "cpu")
-    runs = {}
-    for where, m in (("card", gmodel), ("cpu", cmodel)):
-        st = create_train_state(m, no_warmup(quiet))
-        stp = make_train_step(m, aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
-                              compute_dtype=torch.float32)
-        da.deform_attn.launches = da.deform_attn_bwd.launches = 0
-        t0 = time.perf_counter()
-        _, met = stp(st, b2)
-        if where == "card":
-            torch.cuda.synchronize()
-        runs[where] = dict(metrics={k: v.cpu() for k, v in met.items()},
-                           seconds=time.perf_counter() - t0,
-                           launches=(da.deform_attn.launches, da.deform_attn_bwd.launches))
-    gm, cm = runs["card"]["metrics"], runs["cpu"]["metrics"]
-    loss_rel = abs(gm["loss"].item() - cm["loss"].item()) / abs(cm["loss"].item())
-    dsq = gsq = 0.0
-    per_param = []
-    for (name, pg), (_, pc) in zip(gmodel.named_parameters(), cmodel.named_parameters()):
-        d = (pg.grad.cpu() - pc.grad).norm().item()
-        gn = pc.grad.norm().item()
-        dsq, gsq = dsq + d * d, gsq + gn * gn
-        per_param.append((d, gn, name))
-    grad_rel = (dsq / gsq) ** 0.5
-    # the worst of the parameters whose gradient is not float32 noise
-    worst = max((t for t in per_param if t[1] > 1e-6 * gsq ** 0.5), key=lambda t: t[0] / t[1])
-    off = [n for d, g, n in per_param if d > TOL_GRAD_PARAM * g + 1e-6 * gsq ** 0.5]
-    bn_err = max((b.cpu() - cb).abs().max().item()
-                 for (n, b), (_, cb) in zip(gmodel.named_buffers(), cmodel.named_buffers())
-                 if n.endswith(("running_mean", "running_var")))
-    iou_diff = int((gm["inter"] - cm["inter"]).abs().sum() + (gm["union"] - cm["union"]).abs().sum())
-    pixels = b2["label"].numel()
-    n_d = sum(s["launches_per_forward"] for s in stages)
-    emit({"phase": "train_model", "card": card, "preset": TRAIN_PRESET, "dtype": "float32",
-          "tf32": False, "batch": list(b2["image"].shape), "drop_path": 0.0, "dropout": 0.0,
-          "loss_card": gm["loss"].item(), "loss_cpu": cm["loss"].item(), "loss_rel_err": loss_rel,
-          "grad_rel_err": grad_rel, "worst_param": worst[2],
-          "worst_param_rel_err": worst[0] / max(worst[1], 1e-30),
-          "worst_param_grad_norm": worst[1], "grad_norm_total": gsq ** 0.5,
-          "largest_grad_errs": [{"param": n, "abs": d, "norm": g}
-                                for d, g, n in sorted(per_param, reverse=True)[:6]],
-          "bn_stats_max_abs_err": bn_err, "iou_counts_equal": iou_diff == 0,
-          "iou_count_abs_diff": iou_diff, "pixels": pixels,
-          "launches": {"deform_attn_fwd": runs["card"]["launches"][0],
-                       "deform_attn_bwd": runs["card"]["launches"][1]},
-          "card_step_s": runs["card"]["seconds"], "cpu_step_s": runs["cpu"]["seconds"],
-          "tol": {"loss": TOL_TRAIN_LOSS, "grad": TOL_GRAD, "grad_param": TOL_GRAD_PARAM,
-                  "bn": TOL_BN}})
-    check(loss_rel <= TOL_TRAIN_LOSS, f"train_model: loss rel err {loss_rel} > {TOL_TRAIN_LOSS}")
-    check(grad_rel <= TOL_GRAD, f"train_model: grad rel err {grad_rel} > {TOL_GRAD}")
-    check(not off, f"train_model: gradients beyond {TOL_GRAD_PARAM}: {off}")
-    check(bn_err <= TOL_BN, f"train_model: BN statistics off by {bn_err} > {TOL_BN}")
-    # argmax near-ties may flip under float32 rounding: a few pixels, never more
-    check(iou_diff <= 1e-4 * pixels, f"train_model: IoU counts differ by {iou_diff}")
-    check(runs["card"]["launches"] == (n_d, n_d),
-          f"train_model: launches {runs['card']['launches']}, want ({n_d}, {n_d})")
-    del gmodel, cmodel, runs
-    torch.cuda.empty_cache()
+    for impl in ("auto", "pallas"):
+        qcfg = replace(quiet, backbone=replace(quiet.backbone, kernel_impl=impl))
+        torch.manual_seed(SEED)
+        gmodel = build_model(qcfg, device=dev)
+        cmodel = copy.deepcopy(gmodel).cpu()
+        b2 = seg_batch(2, SEED + 4, "cpu")
+        runs = {}
+        for where, m in (("card", gmodel), ("cpu", cmodel)):
+            st = create_train_state(m, no_warmup(qcfg))
+            stp = make_train_step(m, aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
+                                  compute_dtype=torch.float32)
+            da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
+            t0 = time.perf_counter()
+            _, met = stp(st, b2)
+            if where == "card":
+                torch.cuda.synchronize()
+            runs[where] = dict(metrics={k: v.cpu() for k, v in met.items()},
+                               seconds=time.perf_counter() - t0,
+                               launches=(da.deform_attn.launches, da.deform_attn_bwd.launches),
+                               k3=xb.x_block_fwd.launches)
+        gm, cm = runs["card"]["metrics"], runs["cpu"]["metrics"]
+        loss_rel = abs(gm["loss"].item() - cm["loss"].item()) / abs(cm["loss"].item())
+        dsq = gsq = 0.0
+        per_param = []
+        for (name, pg), (_, pc) in zip(gmodel.named_parameters(), cmodel.named_parameters()):
+            d = (pg.grad.cpu() - pc.grad).norm().item()
+            gn = pc.grad.norm().item()
+            dsq, gsq = dsq + d * d, gsq + gn * gn
+            per_param.append((d, gn, name))
+        grad_rel = (dsq / gsq) ** 0.5
+        # the worst of the parameters whose gradient is not float32 noise
+        worst = max((t for t in per_param if t[1] > 1e-6 * gsq ** 0.5), key=lambda t: t[0] / t[1])
+        off = [n for d, g, n in per_param if d > TOL_GRAD_PARAM * g + 1e-6 * gsq ** 0.5]
+        bn_err = max((b.cpu() - cb).abs().max().item()
+                     for (n, b), (_, cb) in zip(gmodel.named_buffers(), cmodel.named_buffers())
+                     if n.endswith(("running_mean", "running_var")))
+        iou_diff = int((gm["inter"] - cm["inter"]).abs().sum() + (gm["union"] - cm["union"]).abs().sum())
+        pixels = b2["label"].numel()
+        n_d = sum(s["launches_per_forward"] for s in stages)
+        emit({"phase": "train_model", "card": card, "preset": TRAIN_PRESET, "dtype": "float32",
+              "kernel_impl": impl, "x_block_fwd_launches": runs["card"]["k3"],
+              "tf32": False, "batch": list(b2["image"].shape), "drop_path": 0.0, "dropout": 0.0,
+              "loss_card": gm["loss"].item(), "loss_cpu": cm["loss"].item(), "loss_rel_err": loss_rel,
+              "grad_rel_err": grad_rel, "worst_param": worst[2],
+              "worst_param_rel_err": worst[0] / max(worst[1], 1e-30),
+              "worst_param_grad_norm": worst[1], "grad_norm_total": gsq ** 0.5,
+              "largest_grad_errs": [{"param": n, "abs": d, "norm": g}
+                                    for d, g, n in sorted(per_param, reverse=True)[:6]],
+              "bn_stats_max_abs_err": bn_err, "iou_counts_equal": iou_diff == 0,
+              "iou_count_abs_diff": iou_diff, "pixels": pixels,
+              "launches": {"deform_attn_fwd": runs["card"]["launches"][0],
+                           "deform_attn_bwd": runs["card"]["launches"][1]},
+              "card_step_s": runs["card"]["seconds"], "cpu_step_s": runs["cpu"]["seconds"],
+              "tol": {"loss": TOL_TRAIN_LOSS, "grad": TOL_GRAD, "grad_param": TOL_GRAD_PARAM,
+                      "bn": TOL_BN}})
+        check(loss_rel <= TOL_TRAIN_LOSS, f"train_model {impl}: loss rel err {loss_rel} > {TOL_TRAIN_LOSS}")
+        check(grad_rel <= TOL_GRAD, f"train_model {impl}: grad rel err {grad_rel} > {TOL_GRAD}")
+        check(not off, f"train_model {impl}: gradients beyond {TOL_GRAD_PARAM}: {off}")
+        check(bn_err <= TOL_BN, f"train_model {impl}: BN statistics off by {bn_err} > {TOL_BN}")
+        # argmax near-ties may flip under float32 rounding: a few pixels, never more
+        check(iou_diff <= 1e-4 * pixels, f"train_model {impl}: IoU counts differ by {iou_diff}")
+        check(runs["card"]["launches"] == (n_d, n_d),
+              f"train_model {impl}: launches {runs['card']['launches']}, want ({n_d}, {n_d})")
+        check(runs["card"]["k3"] == (n_x if impl == "pallas" else 0),
+              f"train_model {impl}: {runs['card']['k3']} K3 launches")
+        del gmodel, cmodel, runs
+        torch.cuda.empty_cache()
 
     # ---- 8. train: the main path, counts set to 0 just before ----------------
     cfg_train = no_warmup(mc)
@@ -508,6 +745,37 @@ def main() -> int:
           f"train: non-finite loss or grad norm: {losses} {gnorms}")
     for name, n in train_launches.items():
         check(n == n_d * TRAIN_STEPS, f"train: {n} {name} launches, want {n_d * TRAIN_STEPS}")
+
+    # train_pallas: the preset with kernel_impl='pallas' (its MLP dropout is 0,
+    # so the gate holds in training), the same batch, counts set to 0 just before
+    pmc = replace(mc, backbone=replace(mc.backbone, kernel_impl="pallas"))
+    torch.manual_seed(SEED)
+    pmodel = build_model(pmc, device=dev)
+    pstate = create_train_state(pmodel, no_warmup(pmc))
+    pstep = make_train_step(pmodel, aux_weight=mc.aux_loss_weight,
+                            ignore_index=cfg_train.data.ignore_index,
+                            num_classes=mc.num_classes, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
+    t0 = time.perf_counter()
+    pmets = [pstep(pstate, b16)[1] for _ in range(PALLAS_STEPS)]
+    torch.cuda.synchronize()
+    ptrain_s = time.perf_counter() - t0
+    ptrain_launches = {"x_block_fwd": xb.x_block_fwd.launches,
+                       "deform_attn_fwd": da.deform_attn.launches,
+                       "deform_attn_bwd": da.deform_attn_bwd.launches}
+    plosses = [m["loss"].item() for m in pmets]
+    pgnorms = [m["grad_norm"].item() for m in pmets]
+    emit({"phase": "train_pallas", "card": card, "preset": TRAIN_PRESET, "kernel_impl": "pallas",
+          "dtype": "bfloat16", "batch": TRAIN_BATCH, "steps": PALLAS_STEPS, "losses": plosses,
+          "grad_norms": pgnorms, "launches": ptrain_launches,
+          "launches_per_step": {k: v / PALLAS_STEPS for k, v in ptrain_launches.items()},
+          "wall_s": ptrain_s})
+    check(all(np.isfinite(plosses)) and all(np.isfinite(pgnorms)),
+          f"train_pallas: non-finite loss or grad norm: {plosses} {pgnorms}")
+    want_p = {"x_block_fwd": n_x * PALLAS_STEPS, "deform_attn_fwd": n_d * PALLAS_STEPS,
+              "deform_attn_bwd": n_d * PALLAS_STEPS}
+    check(ptrain_launches == want_p, f"train_pallas: launches {ptrain_launches}, want {want_p}")
 
     # ---- 9. train times: K2 per stage, the step, its profile ------------------
     btot = {key: 0.0 for key in totals}
@@ -560,6 +828,24 @@ def main() -> int:
           "k1_k2_share_profiled": k12 / prof["device_ms_per_step"] if "kernels_ms" in prof else None})
     emit(prof)
 
+    # the step with 'auto' and 'pallas' in turns (auto, pallas, pallas, auto)
+    steps = {"auto": (step, state), "pallas": (pstep, pstate)}
+    sms = {"auto": [], "pallas": []}
+    speak = {}
+    for impl in ("auto", "pallas", "pallas", "auto"):
+        fn, st = steps[impl]
+        sms[impl].append(timed(lambda: fn(st, b16), TIME_STEPS, warmup=1))
+    for impl, (fn, st) in steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        fn(st, b16)
+        torch.cuda.synchronize()
+        speak[impl] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit({"phase": "train_time", "card": card, "dtype": "bfloat16", "batch": TRAIN_BATCH,
+          "compare": "kernel_impl auto vs pallas, in turns", "order": "auto pallas pallas auto",
+          "ms_per_step": sms,
+          "img_per_s": {k: [TRAIN_BATCH / v * 1e3 for v in vs] for k, vs in sms.items()},
+          "peak_mem_gib": speak})
+
     # ---- kernels line, card, verdict ----------------------------------------
     def line(kernel, n, err, tot):
         return dict(kernel, launches=n, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -571,7 +857,14 @@ def main() -> int:
     k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"]}
     k2 = line(KERNELS[1], train_launches["deform_attn_bwd"], max_err_bwd, btot)
     k2["max_rel_err"] = max_rel_bwd
-    emit({"kernels": [k1, k2]})
+    k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
+    k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"],
+              yardstick="no one PyTorch call computes the block: chain_ms is the unfused "
+                        "stock-op chain the model runs without K3, per forward",
+              launches_by_path={"serve": pserve_launches["x_block_fwd"],
+                                "predict": predict_launches,
+                                "train": ptrain_launches["x_block_fwd"]})
+    emit({"kernels": [k1, k2, k3]})
     print(f"chip_smoke: wall {time.perf_counter() - T_START:.1f} s", file=sys.stderr, flush=True)
     if failures:
         print("chip_smoke: failed: " + "; ".join(failures), file=sys.stderr)
@@ -582,12 +875,72 @@ def main() -> int:
     return 0
 
 
-KERNEL_NAMES = ("deform_attn_fwd_kernel", "deform_attn_bwd_kernel")
+KERNEL_NAMES = ("deform_attn_fwd_kernel", "deform_attn_bwd_kernel", "x_block_fwd_kernel")
+
+
+def xb_inputs(torch, np, dev, dtype, B, H, W, C, k=7, mode="lpu", seed=SEED, **_):
+    """x and the port's parameter tensors of one fused X block (mode 'lpu',
+    'x' without the LPU, or 'mlp'), weights at 1/sqrt(fan-in), from a seed."""
+    rng = np.random.RandomState(seed)
+    E = 4 * C
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.tensor(rng.randn(*shape) * scale + shift, dtype=torch.float32,
+                            device=dev).to(dtype)
+
+    p = dict(w3=None, b3=None, w7=None, b7=None)
+    if mode == "lpu":
+        p.update(w3=t(C, 1, 3, 3, scale=1 / 3), b3=t(C, scale=0.1))
+    if mode != "mlp":
+        p.update(w7=t(C, 1, k, k, scale=1 / k), b7=t(C, scale=0.1))
+    p.update(g=t(C, scale=0.1, shift=1.0), be=t(C, scale=0.1), wf1=t(E, C, scale=C ** -0.5),
+             bf1=t(E, scale=0.1), wd=t(E, 1, 3, 3, scale=1 / 3), bd=t(E, scale=0.1),
+             wf2=t(C, E, scale=E ** -0.5), bf2=t(C, scale=0.1))
+    return t(B, H, W, C), p
+
+
+def stock_chain(F, x, p, mode):
+    """K3's yardstick: the unfused chain the model runs without it (the
+    port's Conv2d, LayerNorm2d and ConvMlp modules: cuDNN depthwise convs on
+    channels-last views, LayerNorm, cuBLAS linears with their bias, GELU)."""
+    def dw(v, w, b):
+        return F.conv2d(v.permute(0, 3, 1, 2), w, b, padding=w.shape[-1] // 2,
+                        groups=v.shape[-1]).permute(0, 2, 3, 1)
+
+    if mode == "lpu":
+        x = x + dw(x, p["w3"], p["b3"])
+    y = x if mode == "mlp" else dw(x, p["w7"], p["b7"])
+    y = F.layer_norm(y, (y.shape[-1],), p["g"], p["be"])
+    h = F.linear(y, p["wf1"], p["bf1"])
+    h = F.gelu(h + dw(h, p["wd"], p["bd"]))
+    return F.linear(h, p["wf2"], p["bf2"])
+
+
+def k3_gate_count(bb, h, w):
+    """K3 launches of one backbone forward of an h x w input under the JAX
+    package's gate (models/dat.py:103-118 there): every block of a stage
+    whose sides are multiples of 8, none elsewhere. Stage sizes follow the
+    stem and downsamplers: 3x3 stride-2 convs (ceil) with conv patches,
+    else the patch conv and 2x2 ones (floor)."""
+    def down(v):
+        return -(-v // 2) if bb.use_conv_patches else v // 2
+
+    if bb.use_conv_patches:
+        h, w = down(down(h)), down(down(w))
+    else:
+        h, w = h // bb.patch_size, w // bb.patch_size
+    n = 0
+    for i, depth in enumerate(bb.depths):
+        if i:
+            h, w = down(h), down(w)
+        if h % 8 == 0 and w % 8 == 0:
+            n += depth
+    return n
 
 
 def x_block_bound(bb, stages, card, batch=TIME_BATCH, expansion=4):
-    """The least time of the TPU kernel K3 (``ops/pallas/x_block.py:227``
-    ``_fwd_pallas``, not ported yet) per forward of the flagship at
+    """The least time of K3 (``csrc/x_block_fwd.cu``, the port of the TPU
+    kernel ``ops/pallas/x_block.py:227`` ``_fwd_pallas``) per forward of the flagship at
     ``batch``, bf16: x read, out written and the weights read once over
     the memory rate; the fc1/fc2 and depthwise products over the bf16
     rate. It runs in 'X' blocks (LPU dw3 + dw7 window) and, in MLP-only
@@ -613,7 +966,7 @@ def x_block_bound(bb, stages, card, batch=TIME_BATCH, expansion=4):
                          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
             for key, val in (("ops_ms", ops_ms), ("bytes_ms", bytes_ms), ("bound_ms", bound)):
                 tot[key] += val * calls
-    return {"phase": "bound", "card": card, "kernel": "x_block (K3, not ported)",
+    return {"phase": "bound", "card": card, "kernel": "x_block_fwd (K3, ported)",
             "replaces": "dat_segmentation_tpu/ops/pallas/x_block.py:227", "dtype": "bfloat16",
             "batch": batch, "per_forward": tot, "rows": rows}
 

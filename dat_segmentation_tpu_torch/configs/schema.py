@@ -3,9 +3,12 @@
 A copy of ``dat_segmentation_tpu/configs/schema.py``: the port keeps its
 own copy so that it imports nothing of the JAX package, and
 ``tests/test_torch_models.py`` holds every preset equal to the JAX one
-field by field. ``kernel_impl`` is kept only as a field: the port has one
-path per device (the CUDA kernels on the card, their plain versions on
-the CPU).
+field by field. ``kernel_impl`` is read by the backbone: ``'pallas'``
+runs the fused X-block kernel K3 (``ops/x_block.py``) where the JAX
+package's gate lets it; ``'xla'``, ``'auto'`` (the presets' value) and
+``'gather'`` run the unfused chain, as the JAX package does on every
+backend but the TPU. The deformable-attention kernels K1 and K2 run on the
+card whatever the value; on the CPU every kernel is its plain version.
 """
 
 from __future__ import annotations

@@ -31,9 +31,13 @@
 //
 // Layout: q (BG, H, W, Cg), k and v (BG, Ns, Cg), pos (BG, Ns, 2) fp32 as
 // (y, x), table (g, h_g, th, tw), out like q; all contiguous; q, k, v,
-// table and out in one dtype, fp32 or bf16; Cg = h_g * 32. Any H, W and Ns
-// whose per-head K, V and table fit in shared memory; no padding of the
-// queries is needed (hn/wn only set the coordinate normalisation).
+// table and out in one dtype, fp32 or bf16; Cg = h_g * 32. Any H and W; no
+// padding of the queries is needed (hn/wn only set the coordinate
+// normalisation). Any Ns: where the head's K and V (and the scores) do not
+// fit in shared memory with the table, as at stage 0 of an image of about
+// 900 x 1200 (Ns 1064), the samples are taken in chunks that do, with an
+// online softmax (the running max rescales the sums); up to one chunk, the
+// arithmetic is that of a single pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,9 +133,9 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const float* __restrict__ pos,
                        const T* __restrict__ table, T* __restrict__ out,
                        int H, int W, int Ns, int Cg, int g, int h_g, int th, int tw,
-                       float qy_step, float qx_step, float scale) {
+                       int nsc, float qy_step, float qx_step, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<T> lay(Ns, th, tw);
+  const Smem<T> lay(nsc, th, tw);  // nsc: samples a chunk (Ns when they all fit)
   constexpr int KS = Smem<T>::KS;
   T* ks = reinterpret_cast<T*>(smem + lay.ks);
   T* vs = reinterpret_cast<T*>(smem + lay.vs);
@@ -145,29 +149,38 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int m_begin = blockIdx.x * QB;
   const int m_end = min(m_begin + QB, HW);
 
-  // ---- this head's K, V, table and tap offsets into shared memory ----
+  // ---- this head's table, and its K, V and tap offsets a chunk at a time ----
   const T* kg = k + (size_t)bg * Ns * Cg + h * HC;
   const T* vg = v + (size_t)bg * Ns * Cg + h * HC;
-  for (int i = threadIdx.x; i < Ns * HC; i += blockDim.x) {
-    const int n = i / HC, c = i % HC;
-    ks[n * KS + c] = kg[(size_t)n * Cg + c];
-    vs[n * HC + c] = vg[(size_t)n * Cg + c];
-  }
   const T* tg = table + ((size_t)(bg % g) * h_g + h) * th * tw;
   for (int i = threadIdx.x; i < th * tw; i += blockDim.x) tbl[i] = tg[i];
   // fy = yq * ay + by[n]: the part of the tap coordinate that depends on n
   const float ay = 0.25f * (th - 1), ax = 0.25f * (tw - 1);
-  for (int n = threadIdx.x; n < Ns; n += blockDim.x) {
-    const float2 p = reinterpret_cast<const float2*>(pos)[(size_t)bg * Ns + n];
-    by[n] = 0.5f * (th - 1) - p.x * ay;
-    bx[n] = 0.5f * (tw - 1) - p.y * ax;
-  }
+  auto load_chunk = [&](int n0, int nc) {
+    for (int i = threadIdx.x; i < nc * HC; i += blockDim.x) {
+      const int n = i / HC, c = i % HC;
+      ks[n * KS + c] = kg[(size_t)(n0 + n) * Cg + c];
+      vs[n * HC + c] = vg[(size_t)(n0 + n) * Cg + c];
+    }
+    for (int n = threadIdx.x; n < nc; n += blockDim.x) {
+      const float2 p = reinterpret_cast<const float2*>(pos)[(size_t)bg * Ns + n0 + n];
+      by[n] = 0.5f * (th - 1) - p.x * ay;
+      bx[n] = 0.5f * (tw - 1) - p.y * ax;
+    }
+  };
+  const bool one_chunk = Ns <= nsc;
+  if (one_chunk) load_chunk(0, Ns);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sw = sbuf + (size_t)warp * Ns * QW;  // this warp's scores, [n][qi]
+  float* sw = sbuf + (size_t)warp * nsc * QW;  // this warp's scores, [n][qi]
 
-  for (int m0 = m_begin + warp * QW; m0 < m_end; m0 += WARPS * QW) {
+  // Every warp takes the same number of query groups, so that with several
+  // chunks all reach each chunk's barriers; with one chunk a warp stops at
+  // m_end.
+  for (int it = 0; it < QB / (WARPS * QW); ++it) {
+    const int m0 = m_begin + (it * WARPS + warp) * QW;
+    if (one_chunk && m0 >= m_end) break;
     // ---- queries m0 .. m0+QW-1 (past m_end: computed, not stored) ----
     float qr[QW][HC];
     float yq[QW], xq[QW];
@@ -181,68 +194,108 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       xq[qi] = (m % W) * qx_step - 1.f;
     }
 
-    // pass 1: scores of the lane's samples n = lane, lane + 32, ...
-    float mx[QW];
+    float run[QW], sum[QW], acc[QW];  // running max, sum of exponentials, P·V
 #pragma unroll
-    for (int qi = 0; qi < QW; ++qi) mx[qi] = -CUDART_INF_F;
-    for (int n = lane; n < Ns; n += 32) {
-      float kr[HC];
-      load_row(ks + n * KS, kr);
-      const float byn = by[n], bxn = bx[n];
-      float s[QW];
+    for (int qi = 0; qi < QW; ++qi) {
+      run[qi] = -CUDART_INF_F;
+      sum[qi] = 0.f;
+      acc[qi] = 0.f;
+    }
+    for (int n0 = 0; n0 < Ns; n0 += nsc) {
+      const int nc = min(nsc, Ns - n0);
+      if (!one_chunk) {
+        __syncthreads();  // every warp is done with the previous chunk
+        load_chunk(n0, nc);
+        __syncthreads();
+      }
+
+      // pass 1: scores of the lane's samples n = lane, lane + 32, ...
+      float mx[QW];
+#pragma unroll
+      for (int qi = 0; qi < QW; ++qi) mx[qi] = run[qi];
+      for (int n = lane; n < nc; n += 32) {
+        float kr[HC];
+        load_row(ks + n * KS, kr);
+        const float byn = by[n], bxn = bx[n];
+        float s[QW];
+#pragma unroll
+        for (int qi = 0; qi < QW; ++qi) {
+          float a = 0.f;
+#pragma unroll
+          for (int c = 0; c < HC; ++c) a = fmaf(qr[qi][c], kr[c], a);
+          a += table_tap(tbl, th, tw, fmaf(yq[qi], ay, byn), fmaf(xq[qi], ax, bxn));
+          s[qi] = a;
+          mx[qi] = fmaxf(mx[qi], a);
+        }
+        *reinterpret_cast<float4*>(sw + n * QW) = make_float4(s[0], s[1], s[2], s[3]);
+      }
+      float rescale[QW];  // exp(old max - new max): 0 before the first chunk
 #pragma unroll
       for (int qi = 0; qi < QW; ++qi) {
-        float acc = 0.f;
 #pragma unroll
-        for (int c = 0; c < HC; ++c) acc = fmaf(qr[qi][c], kr[c], acc);
-        acc += table_tap(tbl, th, tw, fmaf(yq[qi], ay, byn), fmaf(xq[qi], ax, bxn));
-        s[qi] = acc;
-        mx[qi] = fmaxf(mx[qi], acc);
+        for (int o = 16; o > 0; o >>= 1) mx[qi] = fmaxf(mx[qi], __shfl_xor_sync(FULL, mx[qi], o));
+        rescale[qi] = __expf(run[qi] - mx[qi]);
+        run[qi] = mx[qi];
       }
-      *reinterpret_cast<float4*>(sw + n * QW) = make_float4(s[0], s[1], s[2], s[3]);
-    }
-#pragma unroll
-    for (int qi = 0; qi < QW; ++qi)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx[qi] = fmaxf(mx[qi], __shfl_xor_sync(FULL, mx[qi], o));
 
-    // pass 2: exponentials (each lane rewrites only its own samples)
-    float sum[QW] = {0.f, 0.f, 0.f, 0.f};
-    for (int n = lane; n < Ns; n += 32) {
-      float4 e = *reinterpret_cast<float4*>(sw + n * QW);
-      e.x = __expf(e.x - mx[0]);
-      e.y = __expf(e.y - mx[1]);
-      e.z = __expf(e.z - mx[2]);
-      e.w = __expf(e.w - mx[3]);
-      sum[0] += e.x;
-      sum[1] += e.y;
-      sum[2] += e.z;
-      sum[3] += e.w;
-      *reinterpret_cast<float4*>(sw + n * QW) = e;
-    }
+      // pass 2: exponentials (each lane rewrites only its own samples)
+      float part[QW] = {0.f, 0.f, 0.f, 0.f};
+      for (int n = lane; n < nc; n += 32) {
+        float4 e = *reinterpret_cast<float4*>(sw + n * QW);
+        e.x = __expf(e.x - mx[0]);
+        e.y = __expf(e.y - mx[1]);
+        e.z = __expf(e.z - mx[2]);
+        e.w = __expf(e.w - mx[3]);
+        part[0] += e.x;
+        part[1] += e.y;
+        part[2] += e.z;
+        part[3] += e.w;
+        *reinterpret_cast<float4*>(sw + n * QW) = e;
+      }
 #pragma unroll
-    for (int qi = 0; qi < QW; ++qi)
+      for (int qi = 0; qi < QW; ++qi) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum[qi] += __shfl_xor_sync(FULL, sum[qi], o);
-    __syncwarp();  // pass 3 reads every lane's exponentials
+        for (int o = 16; o > 0; o >>= 1) part[qi] += __shfl_xor_sync(FULL, part[qi], o);
+        sum[qi] = sum[qi] * rescale[qi] + part[qi];
+        acc[qi] *= rescale[qi];
+      }
+      __syncwarp();  // pass 3 reads every lane's exponentials
 
-    // pass 3: out = P·V, lane `lane` owns channel `lane`
-    float acc[QW] = {0.f, 0.f, 0.f, 0.f};
-    for (int n = 0; n < Ns; ++n) {
-      const float4 p = *reinterpret_cast<const float4*>(sw + n * QW);
-      const float vv = to_f(vs[n * HC + lane]);
-      acc[0] = fmaf(p.x, vv, acc[0]);
-      acc[1] = fmaf(p.y, vv, acc[1]);
-      acc[2] = fmaf(p.z, vv, acc[2]);
-      acc[3] = fmaf(p.w, vv, acc[3]);
+      // pass 3: out += P·V, lane `lane` owns channel `lane`
+      for (int n = 0; n < nc; ++n) {
+        const float4 p = *reinterpret_cast<const float4*>(sw + n * QW);
+        const float vv = to_f(vs[n * HC + lane]);
+        acc[0] = fmaf(p.x, vv, acc[0]);
+        acc[1] = fmaf(p.y, vv, acc[1]);
+        acc[2] = fmaf(p.z, vv, acc[2]);
+        acc[3] = fmaf(p.w, vv, acc[3]);
+      }
+      __syncwarp();  // the next chunk or queries overwrite this warp's scores
     }
 #pragma unroll
     for (int qi = 0; qi < QW; ++qi) {
       if (m0 + qi < m_end)
         store(out + ((size_t)bg * HW + m0 + qi) * Cg + h * HC + lane, acc[qi] / sum[qi]);
     }
-    __syncwarp();  // the next queries overwrite this warp's scores
   }
+}
+
+// Samples a chunk: all Ns if they fit in shared memory beside the table,
+// else the most (a multiple of 32) that do; 0 if not even 32 fit.
+template <typename T>
+int chunk_samples(int Ns, int th, int tw, int max_smem) {
+  if (Smem<T>(Ns, th, tw).total <= (size_t)max_smem) return Ns;
+  int nsc = (Ns - 1) / 32 * 32;
+  while (nsc >= 32 && Smem<T>(nsc, th, tw).total > (size_t)max_smem) nsc -= 32;
+  return nsc >= 32 ? nsc : 0;
+}
+
+int max_smem_optin() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return v;
 }
 
 template <typename T>
@@ -250,14 +303,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* pos
                    const void* table, void* out, int BG, int H, int W, int Ns, int Cg,
                    int g, int h_g, int th, int tw, int hn, int wn, float scale,
                    cudaStream_t stream) {
-  const Smem<T> lay(Ns, th, tw);
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (lay.total > (size_t)max_smem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(deform_attn_fwd_kernel<T>,
+  const int nsc = chunk_samples<T>(Ns, th, tw, max_smem_optin());
+  if (nsc == 0) return cudaErrorInvalidValue;
+  const Smem<T> lay(nsc, th, tw);
+  cudaError_t err = cudaFuncSetAttribute(deform_attn_fwd_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return err;
   const float qy_step = 2.f / (float)(hn > 1 ? hn - 1 : 1);
@@ -265,7 +314,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* pos
   const dim3 grid((H * W + QB - 1) / QB, h_g, BG);
   deform_attn_fwd_kernel<T><<<grid, WARPS * 32, lay.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<const T*>(table), static_cast<T*>(out), H, W, Ns, Cg, g, h_g, th, tw,
+      static_cast<const T*>(table), static_cast<T*>(out), H, W, Ns, Cg, g, h_g, th, tw, nsc,
       qy_step, qx_step, scale);
   return cudaGetLastError();
 }
@@ -290,10 +339,21 @@ int dat_deform_attn_fwd(const void* q, const void* k, const void* v, const float
   return (int)cudaErrorInvalidValue;
 }
 
-// Bytes of dynamic shared memory one block takes.
+// Bytes of dynamic shared memory one block takes (with Ns in chunks where
+// they do not all fit).
 long long dat_deform_attn_fwd_smem_bytes(int dtype, int Ns, int th, int tw) {
-  return dtype == 0 ? (long long)Smem<float>(Ns, th, tw).total
-                    : (long long)Smem<__nv_bfloat16>(Ns, th, tw).total;
+  const int max_smem = max_smem_optin();
+  if (dtype == 0)
+    return (long long)Smem<float>(chunk_samples<float>(Ns, th, tw, max_smem), th, tw).total;
+  return (long long)Smem<__nv_bfloat16>(chunk_samples<__nv_bfloat16>(Ns, th, tw, max_smem), th,
+                                        tw).total;
+}
+
+// Samples a block takes per chunk (Ns when they all fit).
+int dat_deform_attn_fwd_chunk(int dtype, int Ns, int th, int tw) {
+  const int max_smem = max_smem_optin();
+  return dtype == 0 ? chunk_samples<float>(Ns, th, tw, max_smem)
+                    : chunk_samples<__nv_bfloat16>(Ns, th, tw, max_smem);
 }
 
 const char* dat_cuda_error_string(int err) {

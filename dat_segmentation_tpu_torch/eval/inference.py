@@ -1,18 +1,27 @@
-"""Segmentation inference, whole-image mode, in PyTorch.
+"""Segmentation inference: whole-image, sliding-window and multi-scale +
+flip test-time augmentation, in PyTorch.
 
 Counterpart of ``dat_segmentation_tpu/eval/inference.py:SegInferencer``
-for whole-image inference on images whose sides are multiples of 32 (the
-backbone's stride), so no padding and no exact padded inference are
-needed. The forward runs on the device in ``compute_dtype`` (bf16 on the
-card); the bilinear upsample of the stride-4 logits runs there too, in
-float32, as ``F.interpolate(align_corners=False)`` (the JAX package ran it
-on the host with cv2). Sliding-window, TTA / ``predict`` and exact padded
-inference for other sizes come with the eval slice (ROADMAP.md, Queue 1).
+(the mmseg test path: per image, resize keeping the ratio to each TTA
+scale, run whole or slide inference, resize the logits back to the
+original size, softmax, average over scales and flips). Eager PyTorch
+runs every image at its true shape, which is what the JAX package's exact
+padded inference (``exact=True``) is proven equal to, so there is no
+padding to buckets and no valid-extent bookkeeping; the JAX package's
+compile-economy settings (``bucket``, ``exact``, ``transfer_dtype``) have
+no counterpart. The forward runs on the device in ``compute_dtype`` (bf16
+on the card); everything after it (the bilinear resizes, the softmax, the
+averaging, the argmax) runs there too, in float32, as PyTorch ops. The
+resizes are ``F.interpolate(mode='bilinear', align_corners=False,
+antialias=False)``, cv2's ``INTER_LINEAR`` on float data; cv2 resizes the
+raw uint8 image in fixed point, so an augmented input may differ from the
+JAX package's by one grey level at some pixels.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import math
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,14 +30,28 @@ import torch.nn as nn
 from ..ops.interpolate import resize_bilinear
 from ..utils.device import resolve_device
 
-STRIDE = 32  # backbone output stride: whole-mode sides must be multiples of it
+# ImageNet mean and std in RGB order (dat_segmentation_tpu/data/ade20k.py:33-34)
+IMG_NORM_MEAN = np.array([123.675, 116.28, 103.53], dtype=np.float32)
+IMG_NORM_STD = np.array([58.395, 57.12, 57.375], dtype=np.float32)
+IMG_SCALE = (2048, 512)  # (W, H) of the ADE20K test pipeline
+MS_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)  # tools/test.py --aug-test
+
+Image = Union[np.ndarray, torch.Tensor]
+
+
+def _resize(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize of one (H, W, C) image (half-pixel centres)."""
+    return resize_bilinear(x[None], tuple(out_hw))[0]
 
 
 class SegInferencer:
-    """Serve a segmentor: batches of normalised NHWC images in, logits out.
+    """Serve a segmentor: images in, logits or class maps out.
 
     ``model`` (an ``EncoderDecoder`` with its weights) is moved to
-    ``device`` and cast to ``compute_dtype`` in place.
+    ``device`` and cast to ``compute_dtype`` in place. ``mode`` is
+    ``'whole'`` or ``'slide'`` (mmseg's test_cfg); slide mode runs
+    ``crop_size`` (W, H) windows at ``stride`` (W, H), ``slide_batch``
+    windows a forward.
     """
 
     def __init__(
@@ -36,36 +59,161 @@ class SegInferencer:
         model: nn.Module,
         *,
         num_classes: int = 150,
+        mode: str = "whole",
+        crop_size: Tuple[int, int] = (512, 512),
+        stride: Tuple[int, int] = (341, 341),
         compute_dtype: torch.dtype = torch.bfloat16,
         align_corners: bool = False,
+        slide_batch: int = 4,
         device: Optional[Union[str, torch.device]] = None,
     ):
+        if mode not in ("whole", "slide"):
+            raise ValueError(f"mode {mode!r}: 'whole' or 'slide'")
         self.device = resolve_device(device)
         self.model = model.to(device=self.device, dtype=compute_dtype).eval()
         self.num_classes = num_classes
+        self.mode = mode
+        self.crop_size = tuple(crop_size)
+        self.stride = tuple(stride)
         self.compute_dtype = compute_dtype
         self.align_corners = align_corners
+        self.slide_batch = max(int(slide_batch), 1)
+        self._mean = torch.tensor(IMG_NORM_MEAN, device=self.device)
+        self._std = torch.tensor(IMG_NORM_STD, device=self.device)
 
-    def _check_sides(self, h: int, w: int) -> None:
-        if h % STRIDE or w % STRIDE:
-            raise NotImplementedError(
-                f"whole-mode inference takes sides that are multiples of {STRIDE}, "
-                f"got {h}x{w}; exact padded inference comes with the eval slice"
-            )
+    def _image(self, img: Image) -> torch.Tensor:
+        return torch.as_tensor(img).to(self.device, torch.float32)
+
+    def _up(self, x: torch.Tensor, out_hw) -> torch.Tensor:
+        return resize_bilinear(x, tuple(out_hw), align_corners=self.align_corners)
+
+    # -- forwards -----------------------------------------------------------
 
     @torch.inference_mode()
-    def forward_batch(self, images: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
-        """(B, H, W, 3) normalised float32 -> (B, H/4, W/4, C) float32
-        stride-4 logits, left on the device."""
-        x = torch.as_tensor(images)
-        self._check_sides(x.shape[1], x.shape[2])
-        x = x.to(device=self.device, dtype=self.compute_dtype, non_blocking=True)
+    def forward_batch(self, images: Image) -> torch.Tensor:
+        """(B, H, W, 3) normalised float32, any H and W -> (B, h4, w4, C)
+        float32 stride-4 logits of the true-shape forward, on the device."""
+        x = torch.as_tensor(images).to(self.device, self.compute_dtype, non_blocking=True)
         return self.model(x, upsample=False).float()
 
     @torch.inference_mode()
-    def logits_whole(self, img: np.ndarray) -> np.ndarray:
-        """img (H, W, 3) normalised float32 -> (H, W, C) float32 logits."""
+    def _whole(self, img: torch.Tensor) -> torch.Tensor:
+        small = self.forward_batch(img[None])
+        return self._up(small, img.shape[:2])[0]
+
+    @torch.inference_mode()
+    def _slide(self, img: torch.Tensor) -> torch.Tensor:
+        """mmseg slide mode: crops at ``stride``, averaged where they
+        overlap. Windows start at min(r * stride, padded size - crop), the
+        image padded up to one crop. Where the image is smaller than the
+        crop a window is forwarded at the image's true extent, as mmseg
+        forwards it; windows of one extent run batched."""
         h, w = img.shape[:2]
-        small = self.forward_batch(np.asarray(img, np.float32)[None])
-        logits = resize_bilinear(small, (h, w), align_corners=self.align_corners)
-        return logits[0].cpu().numpy()
+        cw, ch = self.crop_size
+        sw, sh = self.stride
+        hp, wp = max(h, ch), max(w, cw)
+        rows = max(math.ceil((hp - ch) / sh) + 1, 1)
+        cols = max(math.ceil((wp - cw) / sw) + 1, 1)
+        groups = {}
+        for r in range(rows):
+            for c in range(cols):
+                y1, x1 = min(r * sh, hp - ch), min(c * sw, wp - cw)
+                groups.setdefault((min(h - y1, ch), min(w - x1, cw)), []).append((y1, x1))
+        total = torch.zeros(hp, wp, self.num_classes, device=self.device)
+        count = torch.zeros(hp, wp, 1, device=self.device)
+        for (vh, vw), wins in groups.items():
+            for lo in range(0, len(wins), self.slide_batch):
+                chunk = wins[lo : lo + self.slide_batch]
+                crops = torch.stack([img[y1 : y1 + vh, x1 : x1 + vw] for y1, x1 in chunk])
+                out = self._up(self.forward_batch(crops), (vh, vw))
+                for (y1, x1), o in zip(chunk, out):
+                    total[y1 : y1 + vh, x1 : x1 + vw] += o
+                    count[y1 : y1 + vh, x1 : x1 + vw] += 1.0
+        return (total / count.clamp_min(1.0))[:h, :w]
+
+    def _logits(self, img: torch.Tensor) -> torch.Tensor:
+        return self._slide(img) if self.mode == "slide" else self._whole(img)
+
+    def logits_whole(self, img: Image) -> np.ndarray:
+        """img (H, W, 3) normalised float32 -> (H, W, C) float32 logits."""
+        return self._whole(self._image(img)).cpu().numpy()
+
+    def logits_slide(self, img: Image) -> np.ndarray:
+        """Slide-mode (H, W, C) float32 logits of a normalised image."""
+        return self._slide(self._image(img)).cpu().numpy()
+
+    def logits(self, img: Image) -> np.ndarray:
+        """(H, W, C) float32 logits in this inferencer's mode."""
+        return self._logits(self._image(img)).cpu().numpy()
+
+    # -- test-time augmentation ------------------------------------------------
+
+    @torch.inference_mode()
+    def tta_inputs(
+        self,
+        raw_img: Image,
+        *,
+        img_scale: Tuple[int, int] = IMG_SCALE,
+        ratios: Sequence[float] = (1.0,),
+        flip: bool = False,
+        keep_ratio: bool = True,
+    ) -> Iterator[Tuple[torch.Tensor, bool]]:
+        """Yield (normalised (h, w, 3) float32 image on the device, flipped)
+        for every TTA variant of a raw RGB uint8 image (mmseg
+        MultiScaleFlipAug: ``img_scale`` (W, H) times each ratio, keeping
+        the aspect ratio; each resize rounded to whole grey levels, as cv2
+        returns uint8)."""
+        raw = torch.as_tensor(raw_img).to(self.device)
+        h, w = raw.shape[:2]
+        for ratio in ratios:
+            tw, th = int(img_scale[0] * ratio), int(img_scale[1] * ratio)
+            if keep_ratio:
+                f = min(tw / w, th / h)
+                rw, rh = int(w * f + 0.5), int(h * f + 0.5)
+            else:
+                rw, rh = tw, th
+            resized = _resize(raw.float(), (rh, rw)).round_().clamp_(0.0, 255.0)
+            norm = (resized - self._mean) / self._std
+            for do_flip in ((False, True) if flip else (False,)):
+                yield (torch.flip(norm, dims=[1]) if do_flip else norm), do_flip
+
+    @torch.inference_mode()
+    def predict(
+        self,
+        raw_img: Image,
+        *,
+        img_scale: Tuple[int, int] = IMG_SCALE,
+        ratios: Sequence[float] = (1.0,),
+        flip: bool = False,
+        keep_ratio: bool = True,
+        ori_shape: Optional[Tuple[int, int]] = None,
+    ) -> np.ndarray:
+        """The test pipeline on a raw RGB uint8 image: (H_ori, W_ori) int32
+        class map.
+
+        One scale without flip: the argmax of the logits resized to the
+        original size (the softmax does not change it). Otherwise, per
+        variant, the logits (flipped back) are resized to the original size
+        and then soft-maxed, as mmseg orders it, and the probabilities are
+        averaged. Ties go to the lowest class index.
+        """
+        ori = tuple(ori_shape or raw_img.shape[:2])
+        variants = self.tta_inputs(raw_img, img_scale=img_scale, ratios=ratios, flip=flip,
+                                   keep_ratio=keep_ratio)
+        if len(ratios) == 1 and not flip:
+            (inp, _), = variants
+            logits = self._logits(inp)
+            if tuple(logits.shape[:2]) != ori:
+                logits = _resize(logits, ori)
+            return logits.argmax(-1).to(torch.int32).cpu().numpy()
+        prob_sum = torch.zeros(*ori, self.num_classes, device=self.device)
+        n = 0
+        for inp, do_flip in variants:
+            logits = self._logits(inp)
+            if do_flip:
+                logits = torch.flip(logits, dims=[1])
+            if tuple(logits.shape[:2]) != ori:
+                logits = _resize(logits, ori)
+            prob_sum += torch.softmax(logits, dim=-1)
+            n += 1
+        return (prob_sum / n).argmax(-1).to(torch.int32).cpu().numpy()

@@ -22,8 +22,8 @@ from .segmentor import EncoderDecoder
 
 
 def build_backbone(cfg: BackboneConfig) -> DAT:
-    """The config fields DAT takes (``use_checkpoint`` and ``kernel_impl``
-    are training and TPU settings and are not among them)."""
+    """The config fields DAT takes, ``kernel_impl`` among them
+    (``use_checkpoint``, activation checkpointing, is not ported yet)."""
     params = inspect.signature(DAT).parameters
     return DAT(**{f: getattr(cfg, f) for f in BackboneConfig.__dataclass_fields__ if f in params})
 

@@ -13,6 +13,19 @@ Kept from the reference, as in the JAX package:
 * the position-bias tables are sized from the config-time ``img_size``
   (224), not the runtime input size.
 
+``kernel_impl='pallas'`` runs the fused X-block kernel K3
+(``ops/x_block.py``) where the JAX package's gate lets it
+(``models/dat.py:103-118`` there), decided per stage at the stage's true
+H, W: a ConvMLP stage (``use_dwc_mlp``, not CMT), dropout 0 or eval, and
+H and W multiples of 8. Then an 'X' block is one kernel (its LPU
+included, so the separate LPU is skipped) and a 'D' block's second half
+(LN + ConvMLP) is another, in MLP-only mode. Any other ``kernel_impl``
+('xla', 'auto', 'gather') is the unfused chain, as the JAX package runs
+on every backend but the TPU. The JAX package's TPU switch
+``DAT_TPU_XBLOCK`` and its exact-extent clause have no counterpart: eager
+PyTorch runs every input at its true shape. K1 (the deformable attention)
+runs on the card whatever ``kernel_impl`` says.
+
 Submodules carry the JAX package's names (``lpu_0``, ``attn_1``, ...), so
 its variables map onto this state_dict by name (``utils/convert.py``).
 """
@@ -24,6 +37,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..ops.x_block import fused_conv_mlp, fused_x_block
 from .deformable_attention import DeformableAttention
 from .layers import CmtConvMlp, Conv2d, ConvMlp, DropPath, LayerNorm2d, LayerScale, Mlp, gelu
 
@@ -58,6 +72,7 @@ class TransformerStage(nn.Module):
         use_lpu: bool,
         use_cmt_mlp: bool,
         log_cpb: bool,
+        kernel_impl: str = "xla",
     ):
         super().__init__()
         dim = dim_embed
@@ -65,6 +80,10 @@ class TransformerStage(nn.Module):
         self.stage_spec = tuple(stage_spec)
         self.use_lpu = use_lpu
         self.layer_scale = layer_scale_value > 0
+        self.window_size = window_size
+        self.drop = drop
+        # the shape-free clauses of the JAX gate (dat.py:105-110 there)
+        self.fusable = kernel_impl == "pallas" and use_dwc_mlp and not use_cmt_mlp
         if in_dim != dim:
             self.proj = Conv2d(in_dim, dim, 1)
         if use_dwc_mlp:
@@ -106,24 +125,52 @@ class TransformerStage(nn.Module):
     def _block(self, name: str, d: int) -> nn.Module:
         return getattr(self, f"{name}_{d}")
 
+    def fuses(self, H: int, W: int) -> bool:
+        """The JAX gate at this stage's true size: K3 runs here."""
+        return (self.fusable and (self.drop == 0.0 or not self.training)
+                and H % 8 == 0 and W % 8 == 0)
+
+    def _fused_x(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        lpu = self._block("lpu", d) if self.use_lpu else None
+        conv, ln, mlp = (self._block(n, d) for n in ("conv_attn", "ln_cnvnxt", "mlp"))
+        return fused_x_block(
+            x, None if lpu is None else lpu.weight, None if lpu is None else lpu.bias,
+            conv.weight, conv.bias, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias,
+            mlp.dwc.weight, mlp.dwc.bias, mlp.fc2.weight, mlp.fc2.bias,
+            self.window_size, self.use_lpu,
+        )
+
+    def _fused_mlp(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        ln, mlp = self._block("norm2", d), self._block("mlp", d)
+        return fused_conv_mlp(x, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias,
+                              mlp.dwc.weight, mlp.dwc.bias, mlp.fc2.weight, mlp.fc2.bias)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if hasattr(self, "proj"):
             x = self.proj(x)
+        fuse = self.fuses(x.shape[1], x.shape[2])
         for d in range(self.depths):
             drop_path = self._block("drop_path", d)
-            if self.use_lpu:
+            spec = self.stage_spec[d]
+            if self.use_lpu and not (fuse and spec == "X"):  # K3 applies an X block's LPU
                 x = x + self._block("lpu", d)(x)
-            if self.stage_spec[d] == "X":
+            if spec == "X":
                 # ConvNeXt-like block; deliberately no residual (see header)
-                y = self._block("conv_attn", d)(x)
-                y = self._block("mlp", d)(self._block("ln_cnvnxt", d)(y))
+                if fuse:
+                    y = self._fused_x(x, d)
+                else:
+                    y = self._block("conv_attn", d)(x)
+                    y = self._block("mlp", d)(self._block("ln_cnvnxt", d)(y))
                 x = drop_path(y)
             else:
                 y = self._block("attn", d)(self._block("norm1", d)(x))
                 if self.layer_scale:
                     y = self._block("ls1", d)(y)
                 x = drop_path(y) + x
-                y = self._block("mlp", d)(self._block("norm2", d)(x))
+                if fuse:
+                    y = self._fused_mlp(x, d)
+                else:
+                    y = self._block("mlp", d)(self._block("norm2", d)(x))
                 if self.layer_scale:
                     y = self._block("ls2", d)(y)
                 x = drop_path(y) + x
@@ -164,6 +211,7 @@ class DAT(nn.Module):
         use_cmt_mlps: Sequence[bool] = (False,) * 4,
         log_cpb: Sequence[bool] = (False,) * 4,
         out_indices: Sequence[int] = (0, 1, 2, 3),
+        kernel_impl: str = "xla",
     ):
         super().__init__()
         self.out_indices = tuple(out_indices)
@@ -211,6 +259,7 @@ class DAT(nn.Module):
                     use_lpu=use_lpus[i],
                     use_cmt_mlp=use_cmt_mlps[i],
                     log_cpb=log_cpb[i],
+                    kernel_impl=kernel_impl,
                 ),
             )
             if i in self.out_indices:

@@ -181,6 +181,8 @@ def _library() -> ctypes.CDLL:
     lib.dat_deform_attn_fwd.restype = i32
     lib.dat_deform_attn_fwd_smem_bytes.argtypes = [i32] * 4
     lib.dat_deform_attn_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.dat_deform_attn_fwd_chunk.argtypes = [i32] * 4
+    lib.dat_deform_attn_fwd_chunk.restype = i32
     lib.dat_cuda_error_string.argtypes = [i32]
     lib.dat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -206,6 +208,13 @@ def _bwd_library() -> ctypes.CDLL:
 def smem_bytes(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:
     """Dynamic shared memory a block of K1 takes (builds it)."""
     return _library().dat_deform_attn_fwd_smem_bytes(_DTYPE_CODE[dtype], Ns, th, tw)
+
+
+def fwd_chunk(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:
+    """Samples a block of K1 takes a chunk: Ns when the head's K and V fit
+    in shared memory beside its table, fewer (with an online softmax) when
+    they do not (builds it)."""
+    return _library().dat_deform_attn_fwd_chunk(_DTYPE_CODE[dtype], Ns, th, tw)
 
 
 def bwd_smem_bytes(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:

@@ -9,8 +9,8 @@ without them, with the JAX-pinning conftest left out:
 Tolerances, as in chip_smoke.py: float32 1e-4 (the kernel sums in another
 order and uses the fast exp), bf16 1e-2 (outputs rounded to bf16, and the
 plain version rounds P to bf16 before P·V); the small model's logits 1e-4
-in float32 with TF32 off (cuDNN against the CPU, and the kernel). K2 and
-the train step: see the constants below.
+in float32 with TF32 off (cuDNN against the CPU, and the kernel). K2, K3
+and the train step: see the constants below.
 """
 
 import copy
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from dat_segmentation_tpu_torch import build_model, create_train_state, get_config, make_train_step
+from dat_segmentation_tpu_torch.ops import x_block as xb
 from dat_segmentation_tpu_torch.ops.deform_attn import (
     deform_attn,
     deform_attn_bwd,
@@ -36,6 +37,12 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the plain version rounds P to bf16 before P·V.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRADS = ("dq", "dk", "dv", "dpos", "dtable")
+# K3, max |error| over max |value| of the plain version's output: float32,
+# the kernel sums the products and convs in another order; bf16, both round
+# at the composite's points, but cuDNN and cuBLAS sum the plain version's
+# convs and products in float32 and round once where the kernel also does,
+# and one bf16 ulp is 2^-8 relative.
+XB_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -66,6 +73,10 @@ def _inputs(device, dtype, B=2, g=2, h_g=2, H=16, W=24, Ns=49, th=27, pos_range=
         dict(g=1, H=128, W=128, Ns=256, th=111, pos_range=1.0),  # T++ stage 0
         dict(g=2, h_g=3, H=64, W=64, Ns=256, th=55, pos_range=1.0),  # S++ stage 1
         dict(B=1, g=1, H=3, W=5, Ns=4, th=13),  # fewer queries than a warp step
+        # Ns 1064 (stage 0 of a 896 x 1195 image): K and V of a head do not
+        # fit in shared memory beside the 111 x 111 table, so K1 takes the
+        # samples in chunks
+        dict(B=1, g=1, H=30, W=37, Ns=1064, th=111, pos_range=1.0),
     ],
 )
 def test_kernel_matches_plain(cuda, dtype, shape):
@@ -227,3 +238,137 @@ def test_small_upernet_train_step_matches_cpu(cuda):
     for (n, bg), (_, bc) in zip(gpu.named_buffers(), cpu.named_buffers()):
         if n.endswith(("running_mean", "running_var")):
             assert (bg.cpu() - bc).abs().max().item() <= 1e-5, n
+
+
+def _xb_inputs(device, dtype, B=2, H=16, W=24, C=64, k=7, mode="lpu", seed=0):
+    """x and the port's parameter tensors of one fused X block (mode 'lpu',
+    'x' without the LPU, or 'mlp'), weights at 1/sqrt(fan-in)."""
+    rng = np.random.RandomState(seed)
+    E = 4 * C
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.tensor(rng.randn(*shape) * scale + shift, dtype=torch.float32,
+                            device=device).to(dtype)
+
+    p = dict(w3=None, b3=None, w7=None, b7=None)
+    if mode == "lpu":
+        p.update(w3=t(C, 1, 3, 3, scale=1 / 3), b3=t(C, scale=0.1))
+    if mode != "mlp":
+        p.update(w7=t(C, 1, k, k, scale=1 / k), b7=t(C, scale=0.1))
+    p.update(g=t(C, scale=0.1, shift=1.0), be=t(C, scale=0.1), wf1=t(E, C, scale=C ** -0.5),
+             bf1=t(E, scale=0.1), wd=t(E, 1, 3, 3, scale=1 / 3), bd=t(E, scale=0.1),
+             wf2=t(C, E, scale=E ** -0.5), bf2=t(C, scale=0.1))
+    return t(B, H, W, C), p
+
+
+def _xb_rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        dict(),  # X block with the LPU, 16 x 24
+        dict(B=1, H=128, W=128, C=64),  # T++ stage 0
+        dict(B=1, H=32, W=32, C=256, mode="mlp"),  # T++ stage 2, MLP-only
+        dict(B=1, H=48, W=80, C=96),  # rectangular, the S++ stage-0 width
+        dict(B=1, H=16, W=16, C=768, mode="mlp"),  # S++ stage 3
+        dict(B=1, H=20, W=36, C=128, mode="x"),  # no LPU; sides not multiples of the tile
+        dict(H=8, W=8, C=64, k=3),
+        dict(H=8, W=16, C=32, k=5),
+    ],
+)
+def test_x_block_kernel_matches_plain(cuda, dtype, shape):
+    x, p = _xb_inputs(cuda, dtype, **shape)
+    lpu = shape.get("mode", "lpu") == "lpu"
+    names = ("w3", "b3", "w7", "b7", "g", "be", "wf1", "bf1", "wd", "bd", "wf2", "bf2")
+    with torch.inference_mode():
+        before = xb.x_block_fwd.launches
+        got = xb.x_block_fwd(x, *(p[n] for n in names), with_lpu=lpu)
+        ref = xb.x_block_reference(x, *(p[n] for n in names), with_lpu=lpu)
+    torch.cuda.synchronize()
+    assert xb.x_block_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _xb_rel(got, ref) <= XB_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lpu", "mlp"])
+def test_x_block_function_grads_on_the_card(cuda, mode):
+    """XBlockFunction: K3 forward (one launch), backward by autograd of the
+    plain version, equal to autograd of the plain version itself; the
+    absent parameters get None."""
+    x, p = _xb_inputs(cuda, torch.float32, mode=mode)
+    names = ("w3", "b3", "w7", "b7", "g", "be", "wf1", "bf1", "wd", "bd", "wf2", "bf2")
+    leaves = {n: (None if v is None else v.requires_grad_(True)) for n, v in p.items()}
+    xg = x.clone().requires_grad_(True)
+    cot = torch.randn(x.shape, generator=torch.Generator(cuda).manual_seed(3), device=cuda)
+    before = xb.x_block_fwd.launches
+    if mode == "mlp":
+        out = xb.fused_conv_mlp(xg, *(leaves[n] for n in names[4:]))
+    else:
+        out = xb.fused_x_block(xg, *(leaves[n] for n in names), 7, True)
+    assert xb.x_block_fwd.launches == before + 1
+    (out * cot).sum().backward()
+    present = [n for n in names if leaves[n] is not None]
+    xr = x.clone().requires_grad_(True)
+    pr = {n: leaves[n].detach().clone().requires_grad_(True) for n in present}
+    ref = xb.x_block_reference(xr, *(pr.get(n) for n in names), with_lpu=mode == "lpu")
+    (ref * cot).sum().backward()
+    assert _xb_rel(out.detach(), ref.detach()) <= XB_TOL[torch.float32]
+    assert (xg.grad - xr.grad).abs().max().item() <= 1e-5 * xr.grad.abs().max().item()
+    for n in present:
+        assert (leaves[n].grad - pr[n].grad).abs().max().item() <= 1e-5 * pr[n].grad.abs().max().item(), n
+    assert all(leaves[n] is None for n in names if n not in present)
+
+
+@pytest.mark.cuda
+def test_small_model_pallas_path_matches_cpu(cuda):
+    """The small SemanticFPN (head width 32) with kernel_impl='pallas' on
+    the card at 64x64 (K3 at stages 0 and 1: the 'D' block of stage 0 and
+    the 'X' and 'D' blocks of stage 1) against the same model on the CPU."""
+    torch.manual_seed(0)
+    cfg = small_fpn(get_config, head_width=32)
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, kernel_impl="pallas"))
+    model = build_model(cfg, device=cuda)
+    x = torch.tensor(np.random.RandomState(1).randn(2, 64, 64, 3), dtype=torch.float32)
+    before = xb.x_block_fwd.launches
+    with torch.inference_mode():
+        got = model(x.to(cuda)).cpu()
+        ref = copy.deepcopy(model).cpu()(x)
+    assert xb.x_block_fwd.launches == before + 3
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_small_upernet_pallas_train_step_matches_cpu(cuda):
+    """One float32 train step of the small UperNet with kernel_impl='pallas'
+    (K3 forward, autograd of its plain version backward) on the card
+    against the CPU: the tolerances of the unfused step above."""
+    torch.manual_seed(0)
+    cfg = get_config("upn_tiny_160k_dp03_lr6")
+    model_cfg = small_upernet(get_config, head_width=32)
+    model_cfg = dataclasses.replace(
+        model_cfg, backbone=dataclasses.replace(model_cfg.backbone, kernel_impl="pallas"))
+    cfg = dataclasses.replace(cfg, model=model_cfg,
+                              schedule=dataclasses.replace(cfg.schedule, warmup_iters=0))
+    gpu = build_model(model_cfg, device=cuda)
+    cpu = copy.deepcopy(gpu).cpu()
+    rng = np.random.RandomState(3)
+    label = rng.randint(0, 8, (2, 64, 64))
+    label[:, :5] = 255
+    batch = {"image": rng.randn(2, 64, 64, 3).astype(np.float32), "label": label}
+    out = {}
+    for name, m in (("gpu", gpu), ("cpu", cpu)):
+        state = create_train_state(m, cfg)
+        before = xb.x_block_fwd.launches
+        _, metrics = make_train_step(m, num_classes=8, compute_dtype=torch.float32)(state, batch)
+        out[name] = (metrics, xb.x_block_fwd.launches - before)
+    (gm, gl), (cm, cl) = out["gpu"], out["cpu"]
+    assert (gl, cl) == (3, 0)
+    assert abs(gm["loss"].item() - cm["loss"].item()) <= 1e-5 * abs(cm["loss"].item())
+    dsq = sum((pg.grad.cpu() - pc.grad).square().sum() for pg, pc in zip(gpu.parameters(), cpu.parameters()))
+    gsq = sum(pc.grad.square().sum() for pc in cpu.parameters())
+    assert (dsq / gsq).sqrt().item() <= 1e-4

@@ -1,4 +1,5 @@
-"""The PyTorch port's SegInferencer (whole mode) against the JAX one.
+"""The PyTorch port's SegInferencer (whole mode) against the JAX one
+(slide mode, any size and ``predict``: ``tests/test_torch_eval.py``).
 
 The JAX inferencer runs with ``exact=False`` (the image's sides are
 multiples of 32, so no padding either way), float32 compute and float32
@@ -54,12 +55,6 @@ def test_forward_batch_matches_jax(inferencers):
     got = pinf.forward_batch(batch)
     assert got.shape == ref.shape == (2, 16, 24, 8)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
-
-
-def test_sides_must_be_multiples_of_32(inferencers):
-    _, pinf, _ = inferencers
-    with pytest.raises(NotImplementedError, match="multiples of 32"):
-        pinf.logits_whole(np.zeros((60, 96, 3), np.float32))
 
 
 def test_inferencer_needs_cuda_unless_cpu_is_asked(inferencers, monkeypatch):
