@@ -13,13 +13,19 @@ line each:
 
 1. device: the card's name and power limit (as nvidia-smi gives them),
    the torch, CUDA and nvcc versions.
-2. build: every CUDA source of the port, built at once (one nvcc each),
-   with the registers, spills and shared memory ptxas and the launchers
-   report.
+2. build: every CUDA source of the port, built at once (one nvcc each,
+   K2's attribution variant beside them), with the registers, spills
+   and shared memory ptxas and the launchers report; K2's resident blocks
+   and warps an SM at each stage's table (bf16 must reach 8 warps) and
+   the count of tensor-core instructions (HMMA/HGMMA) in its SASS (must be
+   more than 0).
 3. kernel_check: each kernel against its plain PyTorch version on the card
-   at the shapes the main paths give it, in float32 and bf16 (K2: all
-   five gradients; K3: both modes at the four T++ stage shapes, the four
-   S++ widths, no LPU, a rectangular image, windows 3 and 5).
+   at the shapes the main paths give it, in float32 and bf16 (K1: also
+   its log-sum-exp, and its serving output bit for bit that of the launch
+   that writes the log-sum-exp; K2: all five gradients, also at Ns 289, a
+   544x544 crop's stage 0, and Ns 1064; K3: both modes at the four T++
+   stage shapes, the four S++ widths, no LPU, a rectangular image,
+   windows 3 and 5).
 4. model: the full-width, full-depth DAT-T++ SemanticFPN (preset
    fpn_tiny_80k_dp04_lr2, 26 blocks) at 512x512 with random weights from
    a fixed seed, in float32 with TF32 off: the kernel path on the card
@@ -53,11 +59,16 @@ line each:
    rate is not 6e-11) in bf16 at batch 16, a few steps on one synthetic
    batch; the launch counts, set to 0 just before, must show 14 K1 and 14
    K2 launches a step; then a few steps with ``kernel_impl='pallas'`` (26
-   K3, 14 K1 and 14 K2 launches a step).
+   K3, 14 K1 and 14 K2 launches a step); train_crop: one step at a
+   544x544 crop, batch 2 (Ns 289 at stage 0); train_checkpoint: a step
+   with ``use_checkpoint=True`` at batch 16 (28 K1 and 14 K2 launches: the
+   stages run again in the backward).
 9. train times: K2 per stage as K1 above (the yardstick is the backward
-   of one ``scaled_dot_product_attention`` with the bias prebuilt), the
-   train step at batch 16 (ms, img/s, peak memory) and a profile of its
-   device time; the step with 'auto' and 'pallas' in turns.
+   of one ``scaled_dot_product_attention`` with the bias prebuilt), beside
+   its attribution build (no bias gradient); the train step at batch 16 (ms, img/s,
+   peak memory) and a profile of its device time; the step with 'auto'
+   and 'pallas' in turns; the step with ``use_checkpoint`` (ms, peak
+   memory).
 
 Then a ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -73,6 +84,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 0
 PRESET = "fpn_tiny_80k_dp04_lr2"
@@ -85,6 +97,9 @@ SMALL_BATCH = 2
 TIME_BATCH = 16
 TRAIN_BATCH, TRAIN_STEPS, TIME_STEPS = 16, 10, 5
 PALLAS_STEPS = 3
+CROP, CROP_BATCH = 544, 2  # a train crop above 512²: Ns 289 at stage 0
+K2_VARIANTS = {"no_bias_grad": ("K2_NO_BIAS_GRAD",)}  # K2 without its bias gradient, timed only
+MIN_K2_WARPS = 8  # resident warps an SM that K2's bf16 blocks must reach
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -103,6 +118,9 @@ TOL_MODEL = 1e-3
 # bf16 dq, dk, dv are rounded to bf16 and the plain version rounds P.
 TOL_BWD_F32 = 1e-4
 TOL_BWD_BF16 = 2e-2
+# K1's log-sum-exp, absolute (values about log Ns): float32 sums in
+# another order and the fast exp.
+TOL_LSE = 1e-4
 # K3, max |error| over max |value| of the plain version: float32, the kernel
 # sums its products and depthwise taps in another order; bf16, both round at
 # _composite's points, but cuDNN and cuBLAS sum the plain version's convs in
@@ -226,8 +244,9 @@ def main() -> int:
     # ---- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
     sources = [k["source"].rsplit("/", 1)[1] for k in KERNELS]
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(cuda_build.build, sources))
+    builds = [(src, ()) for src in sources] + [(da.BWD_SOURCE, d) for d in K2_VARIANTS.values()]
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: cuda_build.build(*b), builds))
     build_s = time.perf_counter() - t0
     for src in sources:
         log = cuda_build.build_log(src)
@@ -238,10 +257,34 @@ def main() -> int:
     emit({"phase": "build", "card": card, "source": da.SOURCE,
           "smem_bytes_stage0": {"float32": da.smem_bytes(torch.float32, 256, 111, 111),
                                 "bfloat16": da.smem_bytes(torch.bfloat16, 256, 111, 111)}})
-    emit({"phase": "build", "card": card, "source": da.BWD_SOURCE,
-          "smem_bytes_stage0": {"float32": da.bwd_smem_bytes(torch.float32, 256, 111, 111),
-                                "bfloat16": da.bwd_smem_bytes(torch.bfloat16, 256, 111, 111)},
+    sass = subprocess.run(
+        [str(Path(cuda_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+         str(cuda_build.library_path(da.BWD_SOURCE))], capture_output=True, text=True).stdout
+    k2_mma = len(re.findall(r"\bH(?:G)?MMA\b", sass))
+    # a float32 atomic add to shared memory is a compare-and-swap loop here
+    k2_cas = len(re.findall(r"\bATOMS\.CAST?\b", sass))
+    k2_occupancy = {}
+    cfg_bb = get_config(PRESET).model.backbone
+    for th in sorted({2 * (cfg_bb.img_size // cfg_bb.patch_size >> i) - 1 for i in range(4)},
+                    reverse=True):
+        for dt in (torch.bfloat16, torch.float32):
+            blocks, warps = da.bwd_resident_warps(dt, th, th)
+            k2_occupancy.setdefault(f"table {th}", {})[str(dt).split(".")[1]] = {
+                "smem_bytes": da.bwd_smem_bytes(dt, th, th), "blocks_per_sm": blocks,
+                "warps_per_sm": warps}
+    k2_warps = min(v["bfloat16"]["warps_per_sm"] for v in k2_occupancy.values())
+    variant_ptxas = {name: [ln.strip() for ln in cuda_build.build_log(da.BWD_SOURCE, d).splitlines()
+                            if re.search(r"registers|spill", ln)]
+                     for name, d in K2_VARIANTS.items()}
+    emit({"phase": "build", "card": card, "source": da.BWD_SOURCE, "occupancy": k2_occupancy,
+          "min_bf16_warps_per_sm": k2_warps, "mma_instructions": k2_mma,
+          "shared_cas_instructions": k2_cas,
+          "sass_instructions": len(re.findall(r"/\*[0-9a-f]{4}\*/", sass)),
+          "attribution_builds_ptxas": variant_ptxas,
           "smem_bytes_max_per_block": torch.cuda.get_device_properties(0).shared_memory_per_block_optin})
+    check(k2_warps >= MIN_K2_WARPS,
+          f"build: K2 bf16 keeps {k2_warps} warps an SM resident, want >= {MIN_K2_WARPS}")
+    check(k2_mma > 0, "build: no HMMA/HGMMA instruction in K2's SASS")
     emit({"phase": "build", "card": card, "source": xb.SOURCE,
           "tiles": [{"C": C, "mode": name, "dtype": str(dt).split(".")[1],
                      "tile": [xb.tile_rows(dt, C, mode, k), 8],
@@ -286,26 +329,38 @@ def main() -> int:
     cases.append(dict(stages[2], B=2, pos_range=1.2, what="T++ stage 2, pos ~ U(-1.2, 1.2)"))
     cases.append(dict(B=2, g=2, h_g=2, Cg=64, H=32, W=32, Ns=49, th=55, hn=28, wn=28,
                       what="queries padded 28 -> 32 (hn = wn = 28), Ns 49"))
-    k1_only = [dict(B=1, g=1, h_g=2, Cg=64, H=224, W=299, Ns=1064, th=111,
-                    what="stage 0 of a 896x1195 image, Ns 1064 in chunks")]
-    max_err = 0.0
-    for c in cases + k1_only:
+    cases += [dict(B=2, g=1, h_g=2, Cg=64, H=CROP // 4, W=CROP // 4, Ns=289, th=111,
+                   what="stage 0 of a 544x544 crop, Ns 289"),
+              dict(B=1, g=1, h_g=2, Cg=64, H=224, W=299, Ns=1064, th=111,
+                   what="stage 0 of a 896x1195 image, Ns 1064 (K1 in chunks)")]
+    max_err = max_lse_err = 0.0
+    for c in cases:
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             q, k, v, pos, table = k1_inputs(dtype=dtype, **c)
             kw = dict(n_groups=c["g"], scale=scale, hn=c.get("hn", 0), wn=c.get("wn", 0))
             with torch.inference_mode():
                 got = da.deform_attn(q, k, v, pos, table, **kw)
-                ref = da.deform_attn_reference(q, k, v, pos, table, **kw)
+                ref, ref_lse = da.deform_attn_reference(q, k, v, pos, table, return_lse=True,
+                                                        **kw)
+                # the launch a training forward makes: with the log-sum-exp
+                got_t, lse = da._fwd_kernel(q, k, v, pos, table, kw["n_groups"], scale,
+                                            kw["hn"], kw["wn"], with_lse=True)
                 torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
-            max_err = max(max_err, err)
+            lse_err = (lse - ref_lse.float()).abs().max().item()
+            same = torch.equal(got, got_t)
+            max_err, max_lse_err = max(max_err, err), max(max_lse_err, lse_err)
             emit({"phase": "kernel_check", "card": card, "kernel": "deform_attn_fwd",
                   "case": c["what"], "dtype": str(dtype).split(".")[1],
                   "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
                   "samples_a_chunk": da.fwd_chunk(dtype, c["Ns"], c["th"], c["th"]),
-                  "max_abs_err": err, "tol": tol})
+                  "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+                  "tol_lse": TOL_LSE, "serving_output_equals_training_launch": same})
             check(err <= tol and got.shape == ref.shape,
                   f"kernel_check {c['what']} {dtype}: {err} > {tol}")
+            check(lse_err <= TOL_LSE, f"kernel_check K1 lse {c['what']} {dtype}: {lse_err}")
+            check(same, f"kernel_check K1 {c['what']} {dtype}: the log-sum-exp launch moved "
+                        "the output")
 
     # K2: all five gradients against autograd of the plain version
     max_err_bwd = max_rel_bwd = 0.0
@@ -631,11 +686,12 @@ def main() -> int:
     def no_warmup(model_cfg):
         return replace(ucfg, model=model_cfg, schedule=replace(ucfg.schedule, warmup_iters=0))
 
-    def seg_batch(B, seed, device):
+    def seg_batch(B, seed, device, size=IMG):
         rng = np.random.RandomState(seed)
-        label = rng.randint(0, mc.num_classes, (B, IMG, IMG))
-        label[rng.rand(B, IMG, IMG) < 0.05] = 255
-        return {"image": torch.tensor(rng.randn(B, IMG, IMG, 3), dtype=torch.float32, device=device),
+        label = rng.randint(0, mc.num_classes, (B, size, size))
+        label[rng.rand(B, size, size) < 0.05] = 255
+        return {"image": torch.tensor(rng.randn(B, size, size, 3), dtype=torch.float32,
+                                      device=device),
                 "label": torch.tensor(label, dtype=torch.long, device=device)}
 
     quiet = replace(
@@ -776,6 +832,78 @@ def main() -> int:
     want_p = {"x_block_fwd": n_x * PALLAS_STEPS, "deform_attn_fwd": n_d * PALLAS_STEPS,
               "deform_attn_bwd": n_d * PALLAS_STEPS}
     check(ptrain_launches == want_p, f"train_pallas: launches {ptrain_launches}, want {want_p}")
+    del pmets
+
+    # train_crop: one bf16 step at a 544x544 crop (Ns 289 at stage 0), counts
+    # set to 0 just before
+    torch.manual_seed(SEED)
+    cmodel = build_model(mc, device=dev)
+    cstate = create_train_state(cmodel, cfg_train)
+    cstep = make_train_step(cmodel, aux_weight=mc.aux_loss_weight,
+                            ignore_index=cfg_train.data.ignore_index,
+                            num_classes=mc.num_classes, compute_dtype=torch.bfloat16)
+    crop = seg_batch(CROP_BATCH, SEED + 8, dev, size=CROP)
+    torch.cuda.synchronize()
+    da.deform_attn.launches = da.deform_attn_bwd.launches = 0
+    t0 = time.perf_counter()
+    cmet = cstep(cstate, crop)[1]  # not the state: it would keep the model resident
+    torch.cuda.synchronize()
+    crop_s = time.perf_counter() - t0
+    crop_launches = {"deform_attn_fwd": da.deform_attn.launches,
+                     "deform_attn_bwd": da.deform_attn_bwd.launches}
+    crop_ok = bool(np.isfinite(cmet["loss"].item()) and np.isfinite(cmet["grad_norm"].item()))
+    emit({"phase": "train_crop", "card": card, "preset": TRAIN_PRESET, "dtype": "bfloat16",
+          "batch": CROP_BATCH, "crop": CROP, "stage0_samples": (CROP // 4 // 8) ** 2,
+          "loss": cmet["loss"].item(), "grad_norm": cmet["grad_norm"].item(),
+          "launches": crop_launches, "wall_s": crop_s})
+    check(crop_ok, f"train_crop: non-finite loss or grad norm {cmet}")
+    check(crop_launches == {"deform_attn_fwd": n_d, "deform_attn_bwd": n_d},
+          f"train_crop: launches {crop_launches}, want {n_d} each")
+    del cmodel, cstate, cstep, crop, cmet
+
+    # train_checkpoint: use_checkpoint=True at batch 16, counts set to 0 just
+    # before: every stage's forward runs again in the backward
+    kmc = replace(mc, backbone=replace(mc.backbone, use_checkpoint=True))
+    torch.manual_seed(SEED)
+    kmodel = build_model(kmc, device=dev)
+    kstate = create_train_state(kmodel, no_warmup(kmc))
+    kstep = make_train_step(kmodel, aux_weight=mc.aux_loss_weight,
+                            ignore_index=cfg_train.data.ignore_index,
+                            num_classes=mc.num_classes, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    da.deform_attn.launches = da.deform_attn_bwd.launches = 0
+    kmets = [kstep(kstate, b16)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    ck_launches = {"deform_attn_fwd": da.deform_attn.launches,
+                   "deform_attn_bwd": da.deform_attn_bwd.launches}
+    klosses = [m["loss"].item() for m in kmets]
+    emit({"phase": "train_checkpoint", "card": card, "preset": TRAIN_PRESET,
+          "use_checkpoint": True, "dtype": "bfloat16", "batch": TRAIN_BATCH, "steps": 2,
+          "losses": klosses, "losses_without": losses[:2], "launches": ck_launches,
+          "launches_per_step": {k: v / 2 for k, v in ck_launches.items()}})
+    check(all(np.isfinite(klosses)), f"train_checkpoint: non-finite loss {klosses}")
+    want_ck = {"deform_attn_fwd": 2 * n_d * 2, "deform_attn_bwd": n_d * 2}
+    check(ck_launches == want_ck, f"train_checkpoint: launches {ck_launches}, want {want_ck}")
+    # its time and peak memory beside the step without it, in turns, with the
+    # same models resident
+    ck = {"use_checkpoint": (kstep, kstate), "without": (step, state)}
+    ck_ms = {name: [] for name in ck}
+    ck_peak = {}
+    for name in ("without", "use_checkpoint", "use_checkpoint", "without"):
+        fn, st = ck[name]
+        ck_ms[name].append(timed(lambda: fn(st, b16), TIME_STEPS, warmup=1))
+    for name, (fn, st) in ck.items():
+        torch.cuda.reset_peak_memory_stats()
+        fn(st, b16)
+        torch.cuda.synchronize()
+        ck_peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit({"phase": "train_time", "card": card, "dtype": "bfloat16", "batch": TRAIN_BATCH,
+          "compare": "use_checkpoint vs without, in turns",
+          "order": "without ckpt ckpt without", "ms_per_step": ck_ms,
+          "img_per_s": {k: [TRAIN_BATCH / v * 1e3 for v in vs] for k, vs in ck_ms.items()},
+          "peak_mem_gib": ck_peak})
+    del kmodel, kstate, kstep, kmets, ck
+    torch.cuda.empty_cache()
 
     # ---- 9. train times: K2 per stage, the step, its profile ------------------
     btot = {key: 0.0 for key in totals}
@@ -786,7 +914,12 @@ def main() -> int:
         BG, H, W, Cg = q.shape
         Ns, h_g = s["Ns"], s["h_g"]
         kw = dict(n_groups=s["g"], scale=scale)
-        ms = timed(lambda: da.deform_attn_bwd(q, k, v, pos, table, dout, **kw), 10)
+        out, lse = da._fwd_kernel(q, k, v, pos, table, s["g"], scale, 0, 0, with_lse=True)
+        ms = timed(lambda: da.deform_attn_bwd(q, k, v, pos, table, dout, out=out, lse=lse,
+                                              **kw), 10)
+        variant_ms = {name: timed(lambda: da._bwd_launch(da._bwd_library(d), q, k, v, pos, table,
+                                                         dout, out, lse, s["g"], scale, 0, 0), 10)
+                      for name, d in K2_VARIANTS.items()}
         plain_ms = timed(lambda: da.deform_attn_bwd_reference(q, k, v, pos, table, dout, **kw), 3, 1)
         heads = [t.reshape(BG, -1, h_g, 32).transpose(1, 2).contiguous().requires_grad_(True)
                  for t in (q, k, v)]
@@ -796,18 +929,23 @@ def main() -> int:
         lib_ms = timed(lambda: torch.autograd.grad(out, heads + [bias], d_out, retain_graph=True), 5)
         del out, heads, bias
         ops = 10.0 * BG * H * W * Ns * Cg
+        # the gradient's own traffic: read q, k, v, table, dout (bf16) and pos;
+        # write dq (bf16), dk, dv, dpos, dtable (float32). The out and lse
+        # that this design also reads are not counted.
         nbytes = ((3 * q.numel() + k.numel() + v.numel() + table.numel()) * 2
                   + (k.numel() + v.numel() + 2 * pos.numel() + table.numel()) * 4)
         ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         n = s["launches_per_forward"]
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                         ("library_ms", lib_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
-            btot[key] += val * n
+                         ("library_ms", lib_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms),
+                         *((f"{v}_ms", t) for v, t in variant_ms.items())):
+            btot[key] = btot.get(key, 0.0) + val * n
         emit({"phase": "kernel_time", "card": card, "kernel": "deform_attn_bwd",
               "stage": s["stage"], "dtype": "bfloat16", "batch": TIME_BATCH,
               "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
               "launches_per_step": n, "ms": ms, "plain_ms": plain_ms,
+              "attribution_ms": variant_ms,
               "library": "scaled_dot_product_attention backward, bias prebuilt and requiring "
                          "grad (the bias -> pos, table chain not timed)",
               "library_ms": lib_ms, "bound_ms": bound_ms,
@@ -855,8 +993,13 @@ def main() -> int:
 
     k1 = line(KERNELS[0], train_launches["deform_attn_fwd"], max_err, totals)
     k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"]}
+    k1["lse_max_abs_err"] = max_lse_err
     k2 = line(KERNELS[1], train_launches["deform_attn_bwd"], max_err_bwd, btot)
-    k2["max_rel_err"] = max_rel_bwd
+    k2.update(max_rel_err=max_rel_bwd, warps_per_sm=k2_warps, mma_instructions=k2_mma,
+              attribution_ms={v: btot[f"{v}_ms"] for v in K2_VARIANTS},
+              launches_by_path={"train": train_launches["deform_attn_bwd"],
+                                "train_crop": crop_launches["deform_attn_bwd"],
+                                "train_checkpoint": ck_launches["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
     k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"],
               yardstick="no one PyTorch call computes the block: chain_ms is the unfused "

@@ -3,69 +3,89 @@
 // Replaces the TPU kernel fused_deform_attention_bwd_v2
 // (dat_segmentation_tpu/ops/pallas/deform_attn.py:1420, bodies
 // _kernel_v2_bwd :891 and _kernel_v4_bwd :1125). It computes the gradient
-// of K1 (csrc/deform_attn_fwd.cu) directly: for each batch*group bg, head
-// h, query i and sample j, with P recomputed in the block exactly as K1
-// computes it,
+// of K1 (csrc/deform_attn_fwd.cu): for each batch*group bg, head h, query
+// i and sample j,
 //
-//   S_ij  = scale * q_i·k_j + bias_ij,   P = softmax_j(S)
-//   dP_ij = dO_i·v_j,   D_i = sum_j P_ij dP_ij   (= dO_i·O_i: O is not
-//                                                 saved, D is recomputed)
+//   S_ij  = scale * q_i·k_j + bias_ij,   P_ij = exp(S_ij - lse_i)
+//   dP_ij = dO_i·v_j,   D_i = dO_i·O_i   (= sum_j P_ij dP_ij)
 //   dS_ij = P_ij (dP_ij - D_i)
-//   dq_i  = scale sum_j dS_ij k_j              (the block owns its queries)
+//   dq_i  = scale sum_j dS_ij k_j
 //   dk_j  = scale sum_i dS_ij q_i,  dv_j = sum_i P_ij dO_i
 //   dtable[bg % g, h, ty, tx] += dS_ij * wy * wx   over the four taps
 //   dpos_j += sum_i dS_ij * d bias_ij / d(fy, fx) * (-0.25 (th-1), -0.25 (tw-1))
 //
-// where the tap derivative is the -1/+1 pair of the bilinear weights
-// (deform_attn.py:1415-1417) and taps outside the table weigh 0 in every
-// term, as in the forward. pos is not clamped here: for
-// offset_range_factor >= 0 taps leave the table.
+// lse (the log-sum-exp of each query's scores) and O are K1's, saved by
+// the forward: so P comes a chunk of samples at a time, with no pass over
+// all of a query's samples. In bf16, D from the stored bf16 O differs from
+// sum_j P_ij dP_ij by O's rounding (one part in 2^9 of |dO||O|); the card
+// checks hold the result to the plain version within the bf16 gate. The
+// tap derivative is the -1/+1 pair of the bilinear weights
+// (deform_attn.py:1415-1417); taps outside the table weigh 0 in every
+// term, as in the forward; pos is not clamped.
 //
 // The tap coordinates fy, fx are formed with the plain version's own
 // operations, each rounded (no fused multiply-add): the bias is continuous
 // in them, but its slope jumps where floor(fy) does, so a coordinate one
 // ulp across an integer would move dpos by a whole tap's slope.
 //
-// What bounds it: by the shapes (q, dout, dq, k, v, dk, dv, pos, dpos,
-// table, dtable each moved once; about 10·HW·Ns·Cg flops for S, dP, dq,
-// dk and dv) it does about 800 flops a byte in bf16, above the card's
-// 295, so operations bound it: about 0.04 ms at stage 0 of a batch of 16
-// on the tensor cores. This kernel runs its products on the
-// CUDA cores in fp32 and adds four shared-memory atomics per score for
-// the table gradient, so instruction throughput bounds it in practice.
+// What bounds it: by the shapes (q, dout, out, dq, k, v, dk, dv, pos, dpos,
+// lse, table, dtable each moved once; 10·HW·Ns·Cg flops for S, dP, dq, dk
+// and dv) it does several hundred flops a byte in bf16, above the card's
+// 295, so the tensor cores bound it: about 0.2 ms a train step. Beside the
+// products, each score costs a bias lookup (four table taps) and a bias
+// gradient (four shared-memory atomic adds and the dpos slope), which run
+// on the CUDA cores and bound it in practice.
 //
-// Design. A block owns one head (32 channels) of one batch*group and a
-// tile of QB queries, a multiple of 16 chosen by query_tile() so that the
-// grid fills about WAVES waves of the card's SMs (one block an SM): large
-// tiles flush fewer partial sums, enough blocks keep every SM busy. Each
-// of its 4 warps takes 4 queries at a time (16 per block step):
-//   1. lane = sample: recompute S and P (K, V and the table in shared
-//      memory), dP = dO·v, D by a warp sum, dS; the bias gradient goes
-//      into a shared dtable accumulator (shared atomics) and a shared
-//      dpos accumulator;
-//   2. lane = channel: dq over all samples, written once (no atomics);
-//   3. after a block barrier, each warp owns a quarter of the samples and
-//      adds the step's 16 queries into the shared dk, dv accumulators of
-//      those samples (plain adds: no two warps write one row).
-// At the end a block flushes dk, dv, dpos and dtable to device memory
-// with one float32 atomic add per entry (the outputs start at zero), so
-// the sums over query tiles and, for dtable, over the batch, run in an
-// order that changes from run to run; the wrapper's tests allow for it
-// relative to the largest |gradient|.
+// Design (FlashAttention-2's backward, turned round the samples). A block
+// of 8 warps owns one head of one batch*group, a chunk of NC = 128
+// samples (16 a warp) and a run of query tiles; any Ns is a number of
+// chunks, so shared memory does not grow with Ns. The grid splits the
+// queries so that about WAVES blocks a slot fill the card. Per tile of QT =
+// 64 queries, loaded once into shared memory with their lse and D:
+//   1. each warp forms S^T and dP^T for its 16 samples x 32 queries at a
+//      time (samples are the rows: K and V stay in registers as the A
+//      operands all along), with mma.sync m16n8k16 (bf16 in, f32
+//      accumulate);
+//   2. each thread walks its 32 scores: bias, P, dS, the dpos slope into
+//      registers (a thread owns two samples) and the table gradient into a
+//      float32 table accumulator in shared memory. A float32 atomic add to
+//      shared memory is a compare-and-swap loop on this card (SASS
+//      ATOMS.CAST.SPIN), four a score at first, and they took three
+//      quarters of K2's time (PERF.md). So a thread's 8 queries of a
+//      sample are 8 consecutive queries (the mma column order is permuted
+//      to make them so): along a row their taps move right through the
+//      table by about 0.43 columns a query, and the gradient is summed in
+//      registers over a run of queries that share a pair of columns, then
+//      added once per column and row when the run moves on;
+//   3. P and dS, rounded to bf16, are the A operands of dv += P^T dO and
+//      dk += dS^T Q straight from the accumulator registers; dk, dv stay
+//      in registers over all the block's tiles;
+//   4. dS goes to shared memory, and after a barrier the warps form dq for
+//      the tile over the block's 128 samples (ldmatrix, mma.sync) and add
+//      it into a float32 dq with vector atomics (one add a chunk).
+// At the end dk, dv and dpos are added into the outputs with atomics (the
+// query runs of one chunk share them), and the table accumulator's
+// entries that were touched. The order of those sums changes from run to
+// run; the tests allow for it relative to the largest |gradient|.
 //
-// Shared memory at stage 0 (Ns 256, table 111 x 111): K and V rows padded
-// against bank conflicts, the dtable accumulator (49 KB f32), dk and dv
-// accumulators (64 KB f32), P and dS of 16 queries (32 KB) and 16 q and
-// dO rows. In bf16 the table itself also lives in shared memory (221,408
-// bytes a block). In float32 K and V take twice the room and the table
-// would push the block over the 232,448 bytes it may have, so a float32
-// block reads the table from device memory through the L1 cache
-// (229,520 bytes). float32 serves the checks; training runs bf16.
+// Resident warps: at stage 0 (table 111 x 111) a bf16 block takes about
+// 110 KB of shared memory, most of it the table (bf16) and its float32
+// gradient, so two blocks (16 warps) fit an SM; at the narrower stages the
+// registers (at most 128 a thread) allow two as well.
 //
-// Layout: q, dout, dq (BG, H, W, Cg); k, v (BG, Ns, Cg); pos (BG, Ns, 2)
-// fp32 as (y, x); table (g, h_g, th, tw); q, k, v, table, dout and dq in
-// one dtype, fp32 or bf16; dk, dv (BG, Ns, Cg), dpos (BG, Ns, 2) and
-// dtable (g, h_g, th, tw) fp32 and zero on entry. Cg = h_g * 32.
+// The float32 instance serves the card-vs-CPU checks: the same blocks and
+// the same ownership of scores, its products on the CUDA cores in full
+// float32 through shared memory, and the table read from device memory
+// through the L1 cache.
+//
+// Layout: q, out, dout (BG, H, W, Cg); k, v (BG, Ns, Cg); pos (BG, Ns, 2)
+// fp32 as (y, x); table (g, h_g, th, tw); lse (BG, h_g, H*W) fp32; q, k, v,
+// table, out and dout in one dtype, fp32 or bf16; dq (BG, H, W, Cg), dk,
+// dv (BG, Ns, Cg), dpos (BG, Ns, 2) and dtable (g, h_g, th, tw) fp32 and
+// zero on entry. Cg = h_g * 32.
+//
+// Attribution build (timed only, used nowhere): -DK2_NO_BIAS_GRAD leaves
+// out step 2's table and dpos gradients.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,70 +95,46 @@
 
 namespace {
 
-constexpr int HC = 32;          // head width: lane l owns channel l
-constexpr int WARPS = 4;        // warps per block
-constexpr int QW = 4;           // queries a warp carries at once
-constexpr int QS = WARPS * QW;  // queries a block takes per step
-constexpr int WAVES = 8;        // the grid aims at this many blocks per SM
+constexpr int HC = 32;               // head width
+constexpr int WARPS = 8;             // warps per block
+constexpr int THREADS = WARPS * 32;
+constexpr int NC = 16 * WARPS;       // samples a block: 16 a warp
+constexpr int QT = 64;               // queries a tile
+constexpr int QH = 32;               // queries a pass of steps 1-3
+constexpr int WAVES = 4;             // the grid aims at this many blocks a resident slot
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(QW == 4, "a warp's P and dS are stored as one float4 per sample");
+static_assert(QT * 4 == THREADS, "four threads a query load its lse and D");
+static_assert(WARPS == 8 && QT == 64, "step 4 gives each warp 16 queries x 16 channels");
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 // Byte offsets of the shared-memory arrays of one block.
 template <typename T>
 struct Smem {
-  static constexpr int KS = HC + 16 / (int)sizeof(T);  // padded K/V row
-  static constexpr bool TABLE = sizeof(T) == 2;        // table in shared memory
-  size_t ks, vs, tbl, py, px, dtbl, dk, dv, dpos, pbuf, dsbuf, qrow, dorow, total;
-  __host__ __device__ Smem(int Ns, int th, int tw) {
-    ks = 0;
-    vs = align16(ks + (size_t)Ns * KS * sizeof(T));
-    tbl = align16(vs + (size_t)Ns * KS * sizeof(T));
-    py = align16(tbl + (TABLE ? (size_t)th * tw * sizeof(T) : 0));
-    px = align16(py + (size_t)Ns * sizeof(float));
-    dtbl = align16(px + (size_t)Ns * sizeof(float));
-    dk = align16(dtbl + (size_t)th * tw * sizeof(float));
-    dv = align16(dk + (size_t)Ns * HC * sizeof(float));
-    dpos = align16(dv + (size_t)Ns * HC * sizeof(float));
-    pbuf = align16(dpos + (size_t)Ns * 2 * sizeof(float));
-    dsbuf = align16(pbuf + (size_t)WARPS * Ns * QW * sizeof(float));
-    qrow = align16(dsbuf + (size_t)WARPS * Ns * QW * sizeof(float));
-    dorow = align16(qrow + (size_t)QS * HC * sizeof(float));
-    total = dorow + (size_t)QS * HC * sizeof(float);
+  static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int RS = BF16 ? HC + 8 : HC + 1;  // row stride of K, V (elements)
+  static constexpr int TS = BF16 ? HC : HC + 1;      // of Q, dO: bf16 rows are swizzled
+  static constexpr int SS = BF16 ? NC + 8 : NC + 1;  // row stride of P, dS [query][sample]
+  size_t tbl, dtbl, ks, vs, qs, dos, ps, dss, lse, dd, yq, xq, total;
+  __host__ __device__ Smem(int th, int tw) {
+    tbl = 0;  // the table, bf16 only
+    dtbl = align16(tbl + (BF16 ? (size_t)th * tw * sizeof(T) : 0));
+    ks = align16(dtbl + (size_t)th * tw * sizeof(float));
+    vs = align16(ks + (size_t)NC * RS * sizeof(T));
+    qs = align16(vs + (BF16 ? 0 : (size_t)NC * RS * sizeof(T)));  // V: float32 only
+    dos = align16(qs + (size_t)QT * TS * sizeof(T));
+    ps = align16(dos + (size_t)QT * TS * sizeof(T));
+    dss = align16(ps + (BF16 ? 0 : (size_t)QT * SS * sizeof(T)));  // P: float32 only
+    lse = align16(dss + (size_t)QT * SS * sizeof(T));
+    dd = lse + QT * sizeof(float);
+    yq = dd + QT * sizeof(float);
+    xq = yq + QT * sizeof(float);
+    total = xq + QT * sizeof(float);
   }
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// 32 consecutive values (16-byte aligned) into registers as fp32.
-__device__ __forceinline__ void load_row(const float* p, float (&r)[HC]) {
-#pragma unroll
-  for (int i = 0; i < HC / 4; ++i) {
-    const float4 t = reinterpret_cast<const float4*>(p)[i];
-    r[4 * i] = t.x;
-    r[4 * i + 1] = t.y;
-    r[4 * i + 2] = t.z;
-    r[4 * i + 3] = t.w;
-  }
-}
-
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&r)[HC]) {
-#pragma unroll
-  for (int i = 0; i < HC / 8; ++i) {
-    const uint4 t = reinterpret_cast<const uint4*>(p)[i];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      r[8 * i + 2 * j] = f.x;
-      r[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
 
 // Normalised query coordinate of row (column) i: i / max(n - 1, 1) * 2 - 1.
 __device__ __forceinline__ float query_coord(int i, float denom) {
@@ -151,335 +147,486 @@ __device__ __forceinline__ float tap_coord(float query, float sample, float span
                    span);
 }
 
-// Bilinear sample of a (th, tw) table at unnormalised (fy, fx), zeros padding.
-template <typename T>
-__device__ __forceinline__ float table_tap(const T* tbl, int th, int tw, float fy, float fx) {
-  const float y0f = floorf(fy), x0f = floorf(fx);
-  const float ty = fy - y0f, tx = fx - x0f;
-  const int y0 = (int)y0f, x0 = (int)x0f;
-  float acc = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-    const int yy = y0 + dy;
-    if (yy < 0 || yy >= th) continue;
-    const float wy = dy ? ty : 1.f - ty;
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const int xx = x0 + dx;
-      if (xx < 0 || xx >= tw) continue;
-      const float wx = dx ? tx : 1.f - tx;
-      acc = fmaf(wy * wx, to_f(tbl[yy * tw + xx]), acc);
-    }
-  }
-  return acc;
+// The query (of a pass's QH) in column n of the pass's n8 tile j. A
+// thread holds columns 2tq and 2tq + 1 of the four tiles: the 8
+// consecutive queries 8tq .. 8tq + 7, so that along a query row its taps
+// walk the table from left to right (step 2).
+__device__ __forceinline__ int pass_query(int j, int n) { return 8 * (n >> 1) + 2 * j + (n & 1); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The bias gradient of one score: ds * (tap weight) into the four taps of
-// the shared dtable accumulator, and ds * d bias / d(fy, fx) into (gy, gx).
-template <typename T>
-__device__ __forceinline__ void tap_grad(const T* tbl, float* dtbl, int th, int tw, float fy,
-                                         float fx, float ds, float& gy, float& gx) {
-  const float y0f = floorf(fy), x0f = floorf(fx);
-  const float ty = fy - y0f, tx = fx - x0f;
-  const int y0 = (int)y0f, x0 = (int)x0f;
-  float t[2][2];
-#pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const int yy = y0 + dy, xx = x0 + dx;
-      const bool in = yy >= 0 && yy < th && xx >= 0 && xx < tw;
-      t[dy][dx] = in ? to_f(tbl[yy * tw + xx]) : 0.f;
-      if (in) atomicAdd(dtbl + yy * tw + xx, ds * (dy ? ty : 1.f - ty) * (dx ? tx : 1.f - tx));
-    }
-  }
-  gy = fmaf(ds, (1.f - tx) * (t[1][0] - t[0][0]) + tx * (t[1][1] - t[0][1]), gy);
-  gx = fmaf(ds, (1.f - ty) * (t[0][1] - t[0][0]) + ty * (t[1][1] - t[1][0]), gx);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// grid: (ceil(H*W / QB), h_g, BG); block: WARPS * 32 threads.
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a (16x16, row-major) · b (16x8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two neighbouring float32 sums into device memory (8-byte aligned).
+__device__ __forceinline__ void add2(float* p, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+
+// Element offset of row r, 16-byte chunk c of a bf16 Q or dO tile: rows of
+// 32 channels, the chunks of row r XOR-ed with (r / 8) % 4. The 8 rows one
+// ldmatrix matrix reads are 2j + {0, 1} + {0, 8, 16, 24} (pass_query), so
+// unswizzled rows 8 apart would share a bank group: a 4-way conflict.
+__device__ __forceinline__ int tile_off(int r, int c) { return r * HC + ((c ^ ((r >> 3) & 3)) << 3); }
+
+// Rows [row0, row0 + n) of one head's 32 channels of a (rows, Cg) array
+// into shared rows of stride RS (bf16 SWIZZLE: tile_off's layout); rows at
+// or past `limit` are zero.
+template <typename T, int RS, bool SWIZZLE = false>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, int n, int limit,
+                                          int Cg, int h) {
+  constexpr int V = 16 / (int)sizeof(T);  // elements a 16-byte load
+  for (int i = threadIdx.x; i < n * (HC / V); i += THREADS) {
+    const int r = i / (HC / V), c = (i % (HC / V)) * V;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < limit)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * Cg + h * HC + c);
+    if constexpr (SWIZZLE) {
+      static_assert(sizeof(T) == 2 && RS == HC, "swizzled tiles are bf16 rows of 32");
+      *reinterpret_cast<uint4*>(dst + tile_off(r, c / 8)) = val;
+    } else if constexpr (sizeof(T) == 2) {
+      *reinterpret_cast<uint4*>(dst + r * RS + c) = val;
+    } else {
+      const T* e = reinterpret_cast<const T*>(&val);
+#pragma unroll
+      for (int j = 0; j < V; ++j) dst[r * RS + c + j] = e[j];
+    }
+  }
+}
+
+// grid: (query runs, chunks * h_g, BG); block: THREADS.
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32, 1)
+__global__ void __launch_bounds__(THREADS, 2)
 deform_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const float* __restrict__ pos,
-                       const T* __restrict__ table, const T* __restrict__ dout,
-                       T* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                       const T* __restrict__ table, const T* __restrict__ out,
+                       const float* __restrict__ lse, const T* __restrict__ dout,
+                       float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
                        float* __restrict__ dpos, float* __restrict__ dtable,
-                       int H, int W, int Ns, int Cg, int g, int h_g, int th, int tw, int QB,
-                       float y_denom, float x_denom, float scale) {
+                       int H, int W, int Ns, int Cg, int h_g, int g, int th, int tw,
+                       int tiles_per_block, float y_denom, float x_denom, float scale) {
+  constexpr bool BF16 = Smem<T>::BF16;
+  constexpr int RS = Smem<T>::RS, TS = Smem<T>::TS, SS = Smem<T>::SS;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<T> lay(Ns, th, tw);
-  constexpr int KS = Smem<T>::KS;
+  const Smem<T> lay(th, tw);
+  T* tbl_s = reinterpret_cast<T*>(smem + lay.tbl);
+  [[maybe_unused]] float* dtbl = reinterpret_cast<float*>(smem + lay.dtbl);
   T* ks = reinterpret_cast<T*>(smem + lay.ks);
   T* vs = reinterpret_cast<T*>(smem + lay.vs);
-  T* tbl_s = reinterpret_cast<T*>(smem + lay.tbl);
-  float* pys = reinterpret_cast<float*>(smem + lay.py);
-  float* pxs = reinterpret_cast<float*>(smem + lay.px);
-  float* dtbl = reinterpret_cast<float*>(smem + lay.dtbl);
-  float* dks = reinterpret_cast<float*>(smem + lay.dk);
-  float* dvs = reinterpret_cast<float*>(smem + lay.dv);
-  float* dps = reinterpret_cast<float*>(smem + lay.dpos);
-  float* pbuf = reinterpret_cast<float*>(smem + lay.pbuf);
-  float* dsbuf = reinterpret_cast<float*>(smem + lay.dsbuf);
-  float* qrow = reinterpret_cast<float*>(smem + lay.qrow);
-  float* dorow = reinterpret_cast<float*>(smem + lay.dorow);
+  T* qs = reinterpret_cast<T*>(smem + lay.qs);
+  T* dos = reinterpret_cast<T*>(smem + lay.dos);
+  T* ps = reinterpret_cast<T*>(smem + lay.ps);
+  T* dss = reinterpret_cast<T*>(smem + lay.dss);
+  float* lse_s = reinterpret_cast<float*>(smem + lay.lse);
+  float* d_s = reinterpret_cast<float*>(smem + lay.dd);
+  float* yq_s = reinterpret_cast<float*>(smem + lay.yq);
+  float* xq_s = reinterpret_cast<float*>(smem + lay.xq);
 
-  const int bg = blockIdx.z, h = blockIdx.y;
+  const int bg = blockIdx.z, h = blockIdx.y % h_g, chunk = blockIdx.y / h_g;
   const int HW = H * W;
-  const int m_begin = blockIdx.x * QB;
-  const int m_end = min(m_begin + QB, HW);
+  const int n_base = chunk * NC;
+  const int tile0 = blockIdx.x * tiles_per_block;
+  const int tile1 = min(tile0 + tiles_per_block, (HW + QT - 1) / QT);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row group, column pair
 
-  // ---- this head's K, V, table and sample positions; zeroed accumulators ----
-  const T* kg = k + (size_t)bg * Ns * Cg + h * HC;
-  const T* vg = v + (size_t)bg * Ns * Cg + h * HC;
-  for (int i = threadIdx.x; i < Ns * HC; i += blockDim.x) {
-    const int n = i / HC, c = i % HC;
-    ks[n * KS + c] = kg[(size_t)n * Cg + c];
-    vs[n * KS + c] = vg[(size_t)n * Cg + c];
-    dks[i] = 0.f;
-    dvs[i] = 0.f;
-  }
+  // ---- the table, zeroed accumulators, this chunk's K (and V) ----
   const size_t tbl_off = ((size_t)(bg % g) * h_g + h) * th * tw;
-  if (Smem<T>::TABLE)
-    for (int i = threadIdx.x; i < th * tw; i += blockDim.x) tbl_s[i] = table[tbl_off + i];
-  const T* tb = Smem<T>::TABLE ? tbl_s : table + tbl_off;
-  for (int i = threadIdx.x; i < th * tw; i += blockDim.x) dtbl[i] = 0.f;
-  const float ay = 0.25f * (th - 1), ax = 0.25f * (tw - 1);  // -d fy / d pos_y, likewise x
-  const float spy = (float)(th - 1), spx = (float)(tw - 1);
-  for (int n = threadIdx.x; n < Ns; n += blockDim.x) {
-    const float2 p = reinterpret_cast<const float2*>(pos)[(size_t)bg * Ns + n];
-    pys[n] = p.x;
-    pxs[n] = p.y;
-    dps[2 * n] = 0.f;
-    dps[2 * n + 1] = 0.f;
+  if constexpr (BF16)
+    for (int i = threadIdx.x; i < th * tw; i += THREADS) tbl_s[i] = table[tbl_off + i];
+  const T* tb = BF16 ? tbl_s : table + tbl_off;
+  for (int i = threadIdx.x; i < th * tw; i += THREADS) dtbl[i] = 0.f;
+  const T* kg = k + (size_t)bg * Ns * Cg;
+  const T* vg = v + (size_t)bg * Ns * Cg;
+  load_rows<T, RS>(ks, kg, n_base, NC, Ns, Cg, h);
+  if constexpr (!BF16) load_rows<T, RS>(vs, vg, n_base, NC, Ns, Cg, h);
+
+  // a thread's two samples: rows gq and gq + 8 of its warp's 16
+  const int s_loc[2] = {warp * 16 + gq, warp * 16 + gq + 8};
+  bool s_live[2];
+  float py[2], px[2], gy[2] = {0.f, 0.f}, gx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = n_base + s_loc[r];
+    s_live[r] = n < Ns;
+    const float2 p = s_live[r] ? reinterpret_cast<const float2*>(pos)[(size_t)bg * Ns + n]
+                               : make_float2(0.f, 0.f);
+    py[r] = p.x;
+    px[r] = p.y;
   }
+  [[maybe_unused]] const float ay = 0.25f * (th - 1), ax = 0.25f * (tw - 1);  // -d fy / d pos_y
+  const float spy = (float)(th - 1), spx = (float)(tw - 1);
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* pw = pbuf + (size_t)warp * Ns * QW;    // this warp's P, [n][qi]
-  float* dsw = dsbuf + (size_t)warp * Ns * QW;  // this warp's dP, then dS
-
-  for (int base = m_begin; base < m_end; base += QS) {
-    // ---- queries m0 .. m0+QW-1; past m_end their dO is 0, so they add 0 ----
-    const int m0 = base + warp * QW;
-    float yq[QW], xq[QW];
-    size_t row[QW];
-    bool live[QW];
+  // bf16: K and V slabs (16 samples x 32 channels) as A fragments, kept
+  uint32_t aK[2][4], aV[2][4];
+  if constexpr (BF16) {
 #pragma unroll
-    for (int qi = 0; qi < QW; ++qi) {
-      const int m = min(m0 + qi, m_end - 1);
-      live[qi] = m0 + qi < m_end;
-      row[qi] = ((size_t)bg * HW + m) * Cg + h * HC;
-      yq[qi] = query_coord(m / W, y_denom);
-      xq[qi] = query_coord(m % W, x_denom);
-    }
-
-    // 1a. lane = sample: scores S (as K1), their row maxima
-    float mx[QW];
+    for (int kk = 0; kk < 2; ++kk) {
 #pragma unroll
-    for (int qi = 0; qi < QW; ++qi) mx[qi] = -CUDART_INF_F;
-    {
-      float qr[QW][HC];
-#pragma unroll
-      for (int qi = 0; qi < QW; ++qi) {
-        load_row(q + row[qi], qr[qi]);
-#pragma unroll
-        for (int c = 0; c < HC; ++c) qr[qi][c] *= scale;
-      }
-      for (int n = lane; n < Ns; n += 32) {
-        float kr[HC];
-        load_row(ks + n * KS, kr);
-        const float pyn = pys[n], pxn = pxs[n];
-        float s[QW];
-#pragma unroll
-        for (int qi = 0; qi < QW; ++qi) {
-          float acc = 0.f;
-#pragma unroll
-          for (int c = 0; c < HC; ++c) acc = fmaf(qr[qi][c], kr[c], acc);
-          acc += table_tap(tb, th, tw, tap_coord(yq[qi], pyn, spy), tap_coord(xq[qi], pxn, spx));
-          s[qi] = acc;
-          mx[qi] = fmaxf(mx[qi], acc);
-        }
-        *reinterpret_cast<float4*>(pw + n * QW) = make_float4(s[0], s[1], s[2], s[3]);
+      for (int i = 0; i < 4; ++i) {
+        const int s = s_loc[i & 1], c = 16 * kk + 2 * tq + 8 * (i >> 1);
+        aK[kk][i] = *reinterpret_cast<const uint32_t*>(ks + s * RS + c);
+        const int n = n_base + s;
+        aV[kk][i] = n < Ns ? *reinterpret_cast<const uint32_t*>(vg + (size_t)n * Cg + h * HC + c)
+                           : 0u;
       }
     }
-#pragma unroll
-    for (int qi = 0; qi < QW; ++qi)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx[qi] = fmaxf(mx[qi], __shfl_xor_sync(FULL, mx[qi], o));
-
-    // 1b. exponentials and their sums (each lane rewrites only its own samples)
-    float sum[QW] = {0.f, 0.f, 0.f, 0.f};
-    for (int n = lane; n < Ns; n += 32) {
-      float4 e = *reinterpret_cast<float4*>(pw + n * QW);
-      e.x = __expf(e.x - mx[0]);
-      e.y = __expf(e.y - mx[1]);
-      e.z = __expf(e.z - mx[2]);
-      e.w = __expf(e.w - mx[3]);
-      sum[0] += e.x;
-      sum[1] += e.y;
-      sum[2] += e.z;
-      sum[3] += e.w;
-      *reinterpret_cast<float4*>(pw + n * QW) = e;
-    }
-#pragma unroll
-    for (int qi = 0; qi < QW; ++qi)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum[qi] += __shfl_xor_sync(FULL, sum[qi], o);
-
-    // 1c. P = e / sum, dP = dO·v, and D = sum_n P dP
-    float dsum[QW] = {0.f, 0.f, 0.f, 0.f};
-    {
-      float dor[QW][HC];
-#pragma unroll
-      for (int qi = 0; qi < QW; ++qi) {
-        load_row(dout + row[qi], dor[qi]);
-#pragma unroll
-        for (int c = 0; c < HC; ++c) dor[qi][c] = live[qi] ? dor[qi][c] : 0.f;
-      }
-      float inv[QW];
-#pragma unroll
-      for (int qi = 0; qi < QW; ++qi) inv[qi] = 1.f / sum[qi];
-      for (int n = lane; n < Ns; n += 32) {
-        float vr[HC];
-        load_row(vs + n * KS, vr);
-        const float4 e = *reinterpret_cast<const float4*>(pw + n * QW);
-        const float p[QW] = {e.x * inv[0], e.y * inv[1], e.z * inv[2], e.w * inv[3]};
-        float dp[QW];
-#pragma unroll
-        for (int qi = 0; qi < QW; ++qi) {
-          float acc = 0.f;
-#pragma unroll
-          for (int c = 0; c < HC; ++c) acc = fmaf(dor[qi][c], vr[c], acc);
-          dp[qi] = acc;
-          dsum[qi] = fmaf(p[qi], acc, dsum[qi]);
-        }
-        *reinterpret_cast<float4*>(pw + n * QW) = make_float4(p[0], p[1], p[2], p[3]);
-        *reinterpret_cast<float4*>(dsw + n * QW) = make_float4(dp[0], dp[1], dp[2], dp[3]);
-      }
-    }
-#pragma unroll
-    for (int qi = 0; qi < QW; ++qi)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) dsum[qi] += __shfl_xor_sync(FULL, dsum[qi], o);
-
-    // 1d. dS = P (dP - D); the bias gradient into dtable and dpos
-    for (int n = lane; n < Ns; n += 32) {
-      const float4 p = *reinterpret_cast<const float4*>(pw + n * QW);
-      const float4 dp = *reinterpret_cast<const float4*>(dsw + n * QW);
-      const float ds[QW] = {p.x * (dp.x - dsum[0]), p.y * (dp.y - dsum[1]),
-                            p.z * (dp.z - dsum[2]), p.w * (dp.w - dsum[3])};
-      *reinterpret_cast<float4*>(dsw + n * QW) = make_float4(ds[0], ds[1], ds[2], ds[3]);
-      const float pyn = pys[n], pxn = pxs[n];
-      float gy = 0.f, gx = 0.f;
-#pragma unroll
-      for (int qi = 0; qi < QW; ++qi)
-        tap_grad(tb, dtbl, th, tw, tap_coord(yq[qi], pyn, spy), tap_coord(xq[qi], pxn, spx),
-                 ds[qi], gy, gx);
-      atomicAdd(dps + 2 * n, -ay * gy);
-      atomicAdd(dps + 2 * n + 1, -ax * gx);
-    }
-    __syncwarp();  // step 2 reads every lane's dS
-
-    // 2. lane = channel: dq = scale * sum_n dS k
-    {
-      float acc[QW] = {0.f, 0.f, 0.f, 0.f};
-      for (int n = 0; n < Ns; ++n) {
-        const float4 ds = *reinterpret_cast<const float4*>(dsw + n * QW);
-        const float kv = to_f(ks[n * KS + lane]);
-        acc[0] = fmaf(ds.x, kv, acc[0]);
-        acc[1] = fmaf(ds.y, kv, acc[1]);
-        acc[2] = fmaf(ds.z, kv, acc[2]);
-        acc[3] = fmaf(ds.w, kv, acc[3]);
-      }
-#pragma unroll
-      for (int qi = 0; qi < QW; ++qi) {
-        if (live[qi]) store(dq + row[qi] + lane, acc[qi] * scale);
-        const int j = warp * QW + qi;
-        qrow[j * HC + lane] = to_f(q[row[qi] + lane]) * scale;
-        dorow[j * HC + lane] = live[qi] ? to_f(dout[row[qi] + lane]) : 0.f;
-      }
-    }
-    __syncthreads();  // step 3 reads every warp's P, dS, q and dO
-
-    // 3. lane = channel, warp w owns samples w, w + WARPS, ...: dk and dv
-    {
-      float qc[QS], dc[QS];
-#pragma unroll
-      for (int j = 0; j < QS; ++j) {
-        qc[j] = qrow[j * HC + lane];
-        dc[j] = dorow[j * HC + lane];
-      }
-      for (int n = warp; n < Ns; n += WARPS) {
-        float dka = 0.f, dva = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
-          const float4 p = *reinterpret_cast<const float4*>(pbuf + ((size_t)w * Ns + n) * QW);
-          const float4 ds = *reinterpret_cast<const float4*>(dsbuf + ((size_t)w * Ns + n) * QW);
-          dka = fmaf(ds.x, qc[4 * w], dka);
-          dka = fmaf(ds.y, qc[4 * w + 1], dka);
-          dka = fmaf(ds.z, qc[4 * w + 2], dka);
-          dka = fmaf(ds.w, qc[4 * w + 3], dka);
-          dva = fmaf(p.x, dc[4 * w], dva);
-          dva = fmaf(p.y, dc[4 * w + 1], dva);
-          dva = fmaf(p.z, dc[4 * w + 2], dva);
-          dva = fmaf(p.w, dc[4 * w + 3], dva);
-        }
-        dks[n * HC + lane] += dka;
-        dvs[n * HC + lane] += dva;
-      }
-    }
-    __syncthreads();  // the next step overwrites P, dS, q and dO
   }
 
-  // ---- flush: one atomic add per entry into the zeroed outputs ----
-  float* dkg = dk + (size_t)bg * Ns * Cg + h * HC;
-  float* dvg = dv + (size_t)bg * Ns * Cg + h * HC;
-  for (int i = threadIdx.x; i < Ns * HC; i += blockDim.x) {
-    const int n = i / HC, c = i % HC;
-    atomicAdd(dkg + (size_t)n * Cg + c, dks[i]);
-    atomicAdd(dvg + (size_t)n * Cg + c, dvs[i]);
+  // dk, dv of the warp's 16 samples x 32 channels, in mma C layout:
+  // [channel tile n][r]: sample row gq + 8 (r >> 1), channel 8n + 2tq + (r & 1)
+  float dka[4][4], dva[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dka[n][r] = dva[n][r] = 0.f;
+
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int m_tile = tile * QT;
+    // ---- the tile's Q and dO; per query lse, D = dO·O and coordinates ----
+    {
+      const T* qg = q + (size_t)bg * HW * Cg;
+      const T* dg = dout + (size_t)bg * HW * Cg;
+      load_rows<T, TS, BF16>(qs, qg, m_tile, QT, HW, Cg, h);
+      load_rows<T, TS, BF16>(dos, dg, m_tile, QT, HW, Cg, h);
+      const int ql = threadIdx.x / 4, part = threadIdx.x % 4, m = m_tile + ql;
+      float d = 0.f;
+      if (m < HW) {
+        const size_t row = ((size_t)bg * HW + m) * Cg + h * HC + part * 8;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) d = fmaf(to_f(dout[row + c]), to_f(out[row + c]), d);
+      }
+      d += __shfl_xor_sync(FULL, d, 1);
+      d += __shfl_xor_sync(FULL, d, 2);
+      if (part == 0) {
+        d_s[ql] = d;
+        lse_s[ql] = m < HW ? lse[((size_t)bg * h_g + h) * HW + m] : CUDART_INF_F;
+        yq_s[ql] = m < HW ? query_coord(m / W, y_denom) : 0.f;
+        xq_s[ql] = m < HW ? query_coord(m % W, x_denom) : 0.f;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int qh = 0; qh < QT; qh += QH) {
+      // ---- 1. S^T and dP^T: [query tile j][r]: sample row gq + 8 (r >> 1),
+      //         query qh + pass_query(j, 2tq + (r & 1)) ----
+      float sa[4][4], da[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sa[j][r] = da[j][r] = 0.f;
+      if constexpr (BF16) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int off = tile_off(qh + pass_query(j, lane & 7), lane >> 3);
+          uint32_t b[4];
+          ldsm_x4(b, qs + off);
+          mma(sa[j], aK[0], b[0], b[1]);
+          mma(sa[j], aK[1], b[2], b[3]);
+          ldsm_x4(b, dos + off);
+          mma(da[j], aV[0], b[0], b[1]);
+          mma(da[j], aV[1], b[2], b[3]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int s = s_loc[r >> 1], ql = qh + pass_query(j, 2 * tq + (r & 1));
+            float acc = 0.f, accd = 0.f;
+#pragma unroll 8
+            for (int c = 0; c < HC; ++c) {
+              acc = fmaf(to_f(ks[s * RS + c]), to_f(qs[ql * TS + c]), acc);
+              accd = fmaf(to_f(vs[s * RS + c]), to_f(dos[ql * TS + c]), accd);
+            }
+            sa[j][r] = acc;
+            da[j][r] = accd;
+          }
+      }
+
+      // ---- 2. bias, P, dS; the bias gradient. Along a query row a
+      //         thread's taps of one sample move right through the table
+      //         (about 0.43 columns a query at every stage of the flagship):
+      //         the table gradient is summed in registers over a run of
+      //         queries of one row and one pair of columns, and added into
+      //         the shared accumulator when the run moves on ----
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        [[maybe_unused]] float run_yq = CUDART_INF_F, wy0 = 0.f, wy1 = 0.f, acc0 = 0.f,
+                               acc1 = 0.f;
+        [[maybe_unused]] int run_y0 = 0, run_x0 = 0;
+        // column x of the run (summed over its queries) into rows y0, y0 + 1
+        [[maybe_unused]] auto flush = [&](int x, float v) {
+          if (v == 0.f || x < 0 || x >= tw) return;
+#pragma unroll
+          for (int dy = 0; dy < 2; ++dy) {
+            const int yy = run_y0 + dy;
+            if (yy < 0 || yy >= th) continue;
+            atomicAdd(dtbl + yy * tw + x, (dy ? wy1 : wy0) * v);
+          }
+        };
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 2 * i + e, ql = qh + pass_query(j, 2 * tq + e);
+            const float yq = yq_s[ql];
+            const float fy = tap_coord(yq, py[i], spy);
+            const float fx = tap_coord(xq_s[ql], px[i], spx);
+            const float y0f = floorf(fy), x0f = floorf(fx);
+            const float ty = fy - y0f, tx = fx - x0f;
+            const int y0 = (int)y0f, x0 = (int)x0f;
+            float t[2][2], bias = 0.f;
+#pragma unroll
+            for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+              for (int dx = 0; dx < 2; ++dx) {
+                const int yy = y0 + dy, xx = x0 + dx;
+                const bool in = yy >= 0 && yy < th && xx >= 0 && xx < tw;
+                t[dy][dx] = in ? to_f(tb[yy * tw + xx]) : 0.f;
+                if (in) bias = fmaf((dy ? ty : 1.f - ty) * (dx ? tx : 1.f - tx), t[dy][dx], bias);
+              }
+            const float p = s_live[i] ? __expf(fmaf(sa[j][r], scale, bias) - lse_s[ql]) : 0.f;
+            const float ds = p * (da[j][r] - d_s[ql]);
+            sa[j][r] = p;
+            da[j][r] = ds;
+#ifndef K2_NO_BIAS_GRAD
+            gy[i] = fmaf(ds, (1.f - tx) * (t[1][0] - t[0][0]) + tx * (t[1][1] - t[0][1]), gy[i]);
+            gx[i] = fmaf(ds, (1.f - ty) * (t[0][1] - t[0][0]) + ty * (t[1][1] - t[1][0]), gx[i]);
+            if (yq != run_yq || (unsigned)(x0 - run_x0) > 1u) {  // a new run
+              flush(run_x0, acc0);
+              flush(run_x0 + 1, acc1);
+              run_yq = yq;
+              run_y0 = y0;
+              wy0 = 1.f - ty;
+              wy1 = ty;
+              run_x0 = x0;
+              acc0 = acc1 = 0.f;
+            } else if (x0 == run_x0 + 1) {  // the run moves one column on
+              flush(run_x0, acc0);
+              acc0 = acc1;
+              acc1 = 0.f;
+              run_x0 = x0;
+            }
+            acc0 = fmaf(ds, 1.f - tx, acc0);
+            acc1 = fmaf(ds, tx, acc1);
+#endif
+          }
+#ifndef K2_NO_BIAS_GRAD
+        flush(run_x0, acc0);
+        flush(run_x0 + 1, acc1);
+#endif
+      }
+
+      // ---- 3. dv += P^T dO, dk += dS^T Q over this pass's queries; dS kept ----
+      if constexpr (BF16) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint32_t aP[4] = {pack_bf16(sa[2 * kk][0], sa[2 * kk][1]),
+                                  pack_bf16(sa[2 * kk][2], sa[2 * kk][3]),
+                                  pack_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1]),
+                                  pack_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3])};
+          const uint32_t aS[4] = {pack_bf16(da[2 * kk][0], da[2 * kk][1]),
+                                  pack_bf16(da[2 * kk][2], da[2 * kk][3]),
+                                  pack_bf16(da[2 * kk + 1][0], da[2 * kk + 1][1]),
+                                  pack_bf16(da[2 * kk + 1][2], da[2 * kk + 1][3])};
+#pragma unroll
+          for (int cp = 0; cp < 2; ++cp) {
+            const int off = tile_off(qh + pass_query(2 * kk + ((lane >> 3) & 1), lane & 7),
+                                     2 * cp + (lane >> 4));
+            uint32_t b[4];
+            ldsm_x4_t(b, dos + off);
+            mma(dva[2 * cp], aP, b[0], b[1]);
+            mma(dva[2 * cp + 1], aP, b[2], b[3]);
+            ldsm_x4_t(b, qs + off);
+            mma(dka[2 * cp], aS, b[0], b[1]);
+            mma(dka[2 * cp + 1], aS, b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            dss[(qh + pass_query(j, 2 * tq + (r & 1))) * SS + s_loc[r >> 1]] =
+                __float2bfloat16(da[j][r]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int ql = qh + pass_query(j, 2 * tq + (r & 1));
+            ps[ql * SS + s_loc[r >> 1]] = sa[j][r];
+            dss[ql * SS + s_loc[r >> 1]] = da[j][r];
+          }
+        __syncwarp();  // a warp's dv, dk read its own samples' P and dS
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int s = s_loc[r >> 1], c = 8 * n + 2 * tq + (r & 1);
+            float av = dva[n][r], ak = dka[n][r];
+            for (int ql = qh; ql < qh + QH; ++ql) {
+              av = fmaf(to_f(ps[ql * SS + s]), to_f(dos[ql * TS + c]), av);
+              ak = fmaf(to_f(dss[ql * SS + s]), to_f(qs[ql * TS + c]), ak);
+            }
+            dva[n][r] = av;
+            dka[n][r] = ak;
+          }
+      }
+    }
+    __syncthreads();  // every warp's dS is in shared memory
+
+    // ---- 4. dq of the tile: warp -> 16 queries x 16 channels, over NC samples ----
+    {
+      const int q0 = 16 * (warp & 3), c0 = 16 * (warp >> 2);
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      if constexpr (BF16) {
+        const int row = (lane & 7) + 8 * ((lane >> 3) & 1), col = 8 * (lane >> 4);
+#pragma unroll
+        for (int kk = 0; kk < NC / 16; ++kk) {
+          uint32_t a[4], b[4];
+          ldsm_x4(a, dss + (q0 + row) * SS + 16 * kk + col);
+          ldsm_x4_t(b, ks + (16 * kk + row) * RS + c0 + col);
+          mma(acc[0], a, b[0], b[1]);
+          mma(acc[1], a, b[2], b[3]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int ql = q0 + gq + 8 * (r >> 1), c = c0 + 8 * n + 2 * tq + (r & 1);
+            float a = 0.f;
+            for (int s = 0; s < NC; ++s) a = fmaf(to_f(dss[ql * SS + s]), to_f(ks[s * RS + c]), a);
+            acc[n][r] = a;
+          }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int m = m_tile + q0 + gq + 8 * rr;
+        if (m < HW) {
+          float* dst = dq + ((size_t)bg * HW + m) * Cg + h * HC + c0 + 2 * tq;
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            add2(dst + 8 * n, acc[n][2 * rr] * scale, acc[n][2 * rr + 1] * scale);
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites Q, dO and dS
   }
-  for (int i = threadIdx.x; i < 2 * Ns; i += blockDim.x)
-    atomicAdd(dpos + (size_t)bg * Ns * 2 + i, dps[i]);
-  for (int i = threadIdx.x; i < th * tw; i += blockDim.x)
+
+  // ---- flush: dk, dv, dpos of the warp's samples; the touched table entries ----
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    gy[i] += __shfl_xor_sync(FULL, gy[i], 1);
+    gy[i] += __shfl_xor_sync(FULL, gy[i], 2);
+    gx[i] += __shfl_xor_sync(FULL, gx[i], 1);
+    gx[i] += __shfl_xor_sync(FULL, gx[i], 2);
+    if (!s_live[i]) continue;
+    const size_t n = (size_t)bg * Ns + n_base + s_loc[i];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const size_t off = n * Cg + h * HC + 8 * c + 2 * tq;
+      add2(dk + off, dka[c][2 * i] * scale, dka[c][2 * i + 1] * scale);
+      add2(dv + off, dva[c][2 * i], dva[c][2 * i + 1]);
+    }
+#ifndef K2_NO_BIAS_GRAD
+    if (tq == 0) add2(dpos + 2 * n, -ay * gy[i], -ax * gx[i]);
+#endif
+  }
+  for (int i = threadIdx.x; i < th * tw; i += THREADS)
     if (dtbl[i] != 0.f) atomicAdd(dtable + tbl_off + i, dtbl[i]);
 }
 
-// Queries per block for `heads` = BG * h_g: a multiple of QS whose tiles
-// cover the HW queries, in about WAVES * sms blocks.
-int query_tile(int HW, int heads, int sms) {
-  const int steps = (HW + QS - 1) / QS, fill = WAVES * sms / (heads > 1 ? heads : 1);
-  const int tiles = fill < 1 ? 1 : (fill < steps ? fill : steps);
-  const int per_tile = (HW + tiles - 1) / tiles;
-  return (per_tile + QS - 1) / QS * QS;
-}
-
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* pos,
-                   const void* table, const void* dout, void* dq, float* dk, float* dv,
-                   float* dpos, float* dtable, int BG, int H, int W, int Ns, int Cg, int g,
-                   int h_g, int th, int tw, int hn, int wn, float scale, cudaStream_t stream) {
-  const Smem<T> lay(Ns, th, tw);
-  int dev = 0, max_smem = 0, sms = 0;
+cudaError_t prepare(int th, int tw, size_t* smem) {
+  int dev = 0, max_smem = 0;
+  *smem = Smem<T>(th, tw).total;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*smem > (size_t)max_smem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(deform_attn_bwd_kernel<T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+// Blocks of K2 resident on one SM (0 if a block does not fit).
+template <typename T>
+int resident_blocks(int th, int tw) {
+  size_t smem = 0;
+  int n = 0;
+  if (prepare<T>(th, tw, &smem) != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, deform_attn_bwd_kernel<T>, THREADS,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* pos,
+                   const void* table, const void* out, const float* lse, const void* dout,
+                   float* dq, float* dk, float* dv, float* dpos, float* dtable, int BG, int H,
+                   int W, int Ns, int Cg, int g, int h_g, int th, int tw, int hn, int wn,
+                   float scale, cudaStream_t stream) {
+  size_t smem = 0;
+  cudaError_t err = prepare<T>(th, tw, &smem);
   if (err != cudaSuccess) return err;
-  if (lay.total > (size_t)max_smem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(deform_attn_bwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
-  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, deform_attn_bwd_kernel<T>,
+                                                           THREADS, smem)) != cudaSuccess)
+    return err;
+  // split each (batch*group, head, chunk)'s query tiles into runs, so that
+  // about WAVES blocks a resident slot cover the card
+  const int tiles = (H * W + QT - 1) / QT, chunks = (Ns + NC - 1) / NC;
+  const int groups = BG * h_g * chunks;
+  const int want = WAVES * sms * (per_sm > 0 ? per_sm : 1);
+  int runs = want / groups;
+  runs = runs < 1 ? 1 : (runs > tiles ? tiles : runs);
+  const int per_run = (tiles + runs - 1) / runs;
+  runs = (tiles + per_run - 1) / per_run;
   const float y_denom = (float)(hn > 1 ? hn - 1 : 1);
   const float x_denom = (float)(wn > 1 ? wn - 1 : 1);
-  const int QB = query_tile(H * W, BG * h_g, sms);
-  const dim3 grid((H * W + QB - 1) / QB, h_g, BG);
-  deform_attn_bwd_kernel<T><<<grid, WARPS * 32, lay.total, stream>>>(
+  const dim3 grid(runs, chunks * h_g, BG);
+  deform_attn_bwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<const T*>(table), static_cast<const T*>(dout), static_cast<T*>(dq), dk, dv,
-      dpos, dtable, H, W, Ns, Cg, g, h_g, th, tw, QB, y_denom, x_denom, scale);
+      static_cast<const T*>(table), static_cast<const T*>(out), lse,
+      static_cast<const T*>(dout), dq, dk, dv, dpos, dtable, H, W, Ns, Cg, h_g, g, th, tw,
+      per_run, y_denom, x_denom, scale);
   return cudaGetLastError();
 }
 
@@ -489,26 +636,35 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
 int dat_deform_attn_bwd(const void* q, const void* k, const void* v, const float* pos,
-                        const void* table, const void* dout, void* dq, float* dk, float* dv,
-                        float* dpos, float* dtable, int BG, int H, int W, int Ns, int Cg, int g,
-                        int h_g, int th, int tw, int hn, int wn, float scale, int dtype,
-                        void* stream) {
+                        const void* table, const void* out, const float* lse, const void* dout,
+                        float* dq, float* dk, float* dv, float* dpos, float* dtable, int BG,
+                        int H, int W, int Ns, int Cg, int g, int h_g, int th, int tw, int hn,
+                        int wn, float scale, int dtype, void* stream) {
   if (Cg != h_g * HC) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, pos, table, dout, dq, dk, dv, dpos, dtable, BG, H, W,
-                              Ns, Cg, g, h_g, th, tw, hn, wn, scale, s);
+    return (int)launch<float>(q, k, v, pos, table, out, lse, dout, dq, dk, dv, dpos, dtable, BG,
+                              H, W, Ns, Cg, g, h_g, th, tw, hn, wn, scale, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, pos, table, dout, dq, dk, dv, dpos, dtable, BG,
-                                      H, W, Ns, Cg, g, h_g, th, tw, hn, wn, scale, s);
+    return (int)launch<__nv_bfloat16>(q, k, v, pos, table, out, lse, dout, dq, dk, dv, dpos,
+                                      dtable, BG, H, W, Ns, Cg, g, h_g, th, tw, hn, wn, scale,
+                                      s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Bytes of dynamic shared memory one block takes.
-long long dat_deform_attn_bwd_smem_bytes(int dtype, int Ns, int th, int tw) {
-  return dtype == 0 ? (long long)Smem<float>(Ns, th, tw).total
-                    : (long long)Smem<__nv_bfloat16>(Ns, th, tw).total;
+// Bytes of dynamic shared memory one block takes (any Ns).
+long long dat_deform_attn_bwd_smem_bytes(int dtype, int th, int tw) {
+  return dtype == 0 ? (long long)Smem<float>(th, tw).total
+                    : (long long)Smem<__nv_bfloat16>(th, tw).total;
 }
+
+// Blocks resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// each has 8 warps.
+int dat_deform_attn_bwd_resident_blocks(int dtype, int th, int tw) {
+  return dtype == 0 ? resident_blocks<float>(th, tw) : resident_blocks<__nv_bfloat16>(th, tw);
+}
+
+int dat_deform_attn_bwd_warps_per_block() { return WARPS; }
 
 const char* dat_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

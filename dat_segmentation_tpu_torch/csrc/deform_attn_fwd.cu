@@ -38,6 +38,12 @@
 // 900 x 1200 (Ns 1064), the samples are taken in chunks that do, with an
 // online softmax (the running max rescales the sums); up to one chunk, the
 // arithmetic is that of a single pass.
+//
+// For training, a launch with an ``lse`` pointer also writes each query's
+// log-sum-exp of the scores, max + log(sum of exponentials), float32 in
+// (BG, h_g, H*W): the backward (K2) takes P = exp(s - lse) from it a
+// chunk of samples at a time. The output's arithmetic is the same with or
+// without it (serving passes none).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,7 +138,8 @@ __global__ void __launch_bounds__(WARPS * 32)
 deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const float* __restrict__ pos,
                        const T* __restrict__ table, T* __restrict__ out,
-                       int H, int W, int Ns, int Cg, int g, int h_g, int th, int tw,
+                       float* __restrict__ lse, int H, int W, int Ns, int Cg, int g, int h_g,
+                       int th, int tw,
                        int nsc, float qy_step, float qx_step, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<T> lay(nsc, th, tw);  // nsc: samples a chunk (Ns when they all fit)
@@ -274,8 +281,11 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int qi = 0; qi < QW; ++qi) {
-      if (m0 + qi < m_end)
+      if (m0 + qi < m_end) {
         store(out + ((size_t)bg * HW + m0 + qi) * Cg + h * HC + lane, acc[qi] / sum[qi]);
+        if (lse != nullptr && lane == 0)
+          lse[((size_t)bg * h_g + h) * HW + m0 + qi] = run[qi] + logf(sum[qi]);
+      }
     }
   }
 }
@@ -300,8 +310,8 @@ int max_smem_optin() {
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* pos,
-                   const void* table, void* out, int BG, int H, int W, int Ns, int Cg,
-                   int g, int h_g, int th, int tw, int hn, int wn, float scale,
+                   const void* table, void* out, float* lse, int BG, int H, int W, int Ns,
+                   int Cg, int g, int h_g, int th, int tw, int hn, int wn, float scale,
                    cudaStream_t stream) {
   const int nsc = chunk_samples<T>(Ns, th, tw, max_smem_optin());
   if (nsc == 0) return cudaErrorInvalidValue;
@@ -314,7 +324,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* pos
   const dim3 grid((H * W + QB - 1) / QB, h_g, BG);
   deform_attn_fwd_kernel<T><<<grid, WARPS * 32, lay.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<const T*>(table), static_cast<T*>(out), H, W, Ns, Cg, g, h_g, th, tw, nsc,
+      static_cast<const T*>(table), static_cast<T*>(out), lse, H, W, Ns, Cg, g, h_g, th, tw, nsc,
       qy_step, qx_step, scale);
   return cudaGetLastError();
 }
@@ -323,19 +333,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* pos
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; lse may be null (no log-sum-exp
+// written). Returns a cudaError_t (0 = launched).
 int dat_deform_attn_fwd(const void* q, const void* k, const void* v, const float* pos,
-                        const void* table, void* out, int BG, int H, int W, int Ns, int Cg,
-                        int g, int h_g, int th, int tw, int hn, int wn, float scale,
+                        const void* table, void* out, float* lse, int BG, int H, int W, int Ns,
+                        int Cg, int g, int h_g, int th, int tw, int hn, int wn, float scale,
                         int dtype, void* stream) {
   if (Cg != h_g * HC) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, pos, table, out, BG, H, W, Ns, Cg, g, h_g, th, tw,
+    return (int)launch<float>(q, k, v, pos, table, out, lse, BG, H, W, Ns, Cg, g, h_g, th, tw,
                               hn, wn, scale, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, pos, table, out, BG, H, W, Ns, Cg, g, h_g,
-                                      th, tw, hn, wn, scale, s);
+    return (int)launch<__nv_bfloat16>(q, k, v, pos, table, out, lse, BG, H, W, Ns, Cg, g,
+                                      h_g, th, tw, hn, wn, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,14 +12,16 @@ compile-economy settings (``bucket``, ``exact``, ``transfer_dtype``) have
 no counterpart. The forward runs on the device in ``compute_dtype`` (bf16
 on the card); everything after it (the bilinear resizes, the softmax, the
 averaging, the argmax) runs there too, in float32, as PyTorch ops. The
-resizes are ``F.interpolate(mode='bilinear', align_corners=False,
-antialias=False)``, cv2's ``INTER_LINEAR`` on float data; cv2 resizes the
-raw uint8 image in fixed point, so an augmented input may differ from the
-JAX package's by one grey level at some pixels.
+logits' resizes are ``F.interpolate(mode='bilinear', align_corners=False,
+antialias=False)``, cv2's ``INTER_LINEAR`` on float data; the raw uint8
+image's test-time resizes are cv2's fixed-point ``INTER_LINEAR`` in integer
+PyTorch ops (``ops/interpolate.py:resize_uint8_linear``), so the augmented
+inputs equal the JAX package's, bit for bit.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Iterator, Optional, Sequence, Tuple, Union
 
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.interpolate import resize_bilinear
+from ..ops.interpolate import resize_bilinear, resize_uint8_linear
 from ..utils.device import resolve_device
 
 # ImageNet mean and std in RGB order (dat_segmentation_tpu/data/ade20k.py:33-34)
@@ -47,8 +49,10 @@ def _resize(x: torch.Tensor, out_hw) -> torch.Tensor:
 class SegInferencer:
     """Serve a segmentor: images in, logits or class maps out.
 
-    ``model`` (an ``EncoderDecoder`` with its weights) is moved to
-    ``device`` and cast to ``compute_dtype`` in place. ``mode`` is
+    ``model`` (an ``EncoderDecoder`` with its weights) is left as it is:
+    the inferencer runs a copy, moved to ``device`` and cast to
+    ``compute_dtype`` (as the JAX one casts a copy of the variables), so a
+    trainer's float32 master weights survive a validation pass. ``mode`` is
     ``'whole'`` or ``'slide'`` (mmseg's test_cfg); slide mode runs
     ``crop_size`` (W, H) windows at ``stride`` (W, H), ``slide_batch``
     windows a forward.
@@ -70,7 +74,7 @@ class SegInferencer:
         if mode not in ("whole", "slide"):
             raise ValueError(f"mode {mode!r}: 'whole' or 'slide'")
         self.device = resolve_device(device)
-        self.model = model.to(device=self.device, dtype=compute_dtype).eval()
+        self.model = copy.deepcopy(model).to(device=self.device, dtype=compute_dtype).eval()
         self.num_classes = num_classes
         self.mode = mode
         self.crop_size = tuple(crop_size)
@@ -161,8 +165,8 @@ class SegInferencer:
         """Yield (normalised (h, w, 3) float32 image on the device, flipped)
         for every TTA variant of a raw RGB uint8 image (mmseg
         MultiScaleFlipAug: ``img_scale`` (W, H) times each ratio, keeping
-        the aspect ratio; each resize rounded to whole grey levels, as cv2
-        returns uint8)."""
+        the aspect ratio; each resize cv2's uint8 ``INTER_LINEAR``, bit for
+        bit)."""
         raw = torch.as_tensor(raw_img).to(self.device)
         h, w = raw.shape[:2]
         for ratio in ratios:
@@ -172,7 +176,7 @@ class SegInferencer:
                 rw, rh = int(w * f + 0.5), int(h * f + 0.5)
             else:
                 rw, rh = tw, th
-            resized = _resize(raw.float(), (rh, rw)).round_().clamp_(0.0, 255.0)
+            resized = resize_uint8_linear(raw, (rh, rw)).float()
             norm = (resized - self._mean) / self._std
             for do_flip in ((False, True) if flip else (False,)):
                 yield (torch.flip(norm, dims=[1]) if do_flip else norm), do_flip

@@ -9,7 +9,6 @@ Queue 1).
 
 from __future__ import annotations
 
-import inspect
 from typing import Optional, Union
 
 import torch
@@ -22,10 +21,9 @@ from .segmentor import EncoderDecoder
 
 
 def build_backbone(cfg: BackboneConfig) -> DAT:
-    """The config fields DAT takes, ``kernel_impl`` among them
-    (``use_checkpoint``, activation checkpointing, is not ported yet)."""
-    params = inspect.signature(DAT).parameters
-    return DAT(**{f: getattr(cfg, f) for f in BackboneConfig.__dataclass_fields__ if f in params})
+    """DAT from every field of ``BackboneConfig`` (``kernel_impl`` and
+    ``use_checkpoint`` among them); a field DAT does not take raises."""
+    return DAT(**{f: getattr(cfg, f) for f in BackboneConfig.__dataclass_fields__})
 
 
 def build_head(cfg: HeadConfig, in_channels, align_corners: bool = False) -> torch.nn.Module:

@@ -26,20 +26,28 @@ on every backend but the TPU. The JAX package's TPU switch
 PyTorch runs every input at its true shape. K1 (the deformable attention)
 runs on the card whatever ``kernel_impl`` says.
 
+``use_checkpoint`` recomputes each stage's activations in the backward
+during training (``torch.utils.checkpoint``), one stage at a time as the
+JAX package's ``nn.remat`` over ``TransformerStage`` (``models/dat.py:
+288-293`` there): the numbers do not change, the activations held do.
+
 Submodules carry the JAX package's names (``lpu_0``, ``attn_1``, ...), so
 its variables map onto this state_dict by name (``utils/convert.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.x_block import fused_conv_mlp, fused_x_block
 from .deformable_attention import DeformableAttention
-from .layers import CmtConvMlp, Conv2d, ConvMlp, DropPath, LayerNorm2d, LayerScale, Mlp, gelu
+from .layers import (CmtConvMlp, Conv2d, ConvMlp, DropPath, Dropout, LayerNorm2d, LayerScale,
+                     Mlp, gelu)
 
 
 class TransformerStage(nn.Module):
@@ -177,6 +185,53 @@ class TransformerStage(nn.Module):
         return x
 
 
+@contextlib.contextmanager
+def _replay(generators, states, stats):
+    """Run the body with each generator at its saved state, then put each
+    back where it was, so that a recompute draws the forward's masks and
+    leaves the stream of later draws alone; and put back the BatchNorm
+    statistics ``stats``, which the forward has already moved (flax's
+    ``nn.remat`` keeps the forward's update alone)."""
+    now = [g.get_state() for g in generators]
+    kept = [t.clone() for t in stats]
+    for g, st in zip(generators, states):
+        g.set_state(st)
+    try:
+        yield
+    finally:
+        for g, st in zip(generators, now):
+            g.set_state(st)
+        with torch.no_grad():
+            for t, k in zip(stats, kept):
+                t.copy_(k)
+
+
+def checkpointed(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``stage(x)`` whose activations are recomputed in the backward.
+
+    The recompute sees what the forward saw. Its parameters and buffers
+    are the tensors the stage holds at the forward (under the train
+    step's ``functional_call`` these are the bf16 casts, gone by the time
+    of the backward), passed in as arguments. Drop path and dropout draw
+    from a generator the caller owns, which ``torch.utils.checkpoint``
+    does not restore (it restores the global RNG only): its state at the
+    forward is replayed for the recompute. The BatchNorms' running
+    statistics (the stage's CMT MLPs) move in the forward only.
+    """
+    tensors = dict(stage.named_parameters())
+    tensors.update(stage.named_buffers())
+    generators = list({id(m.generator): m.generator for m in stage.modules()
+                       if isinstance(m, Dropout) and m.generator is not None}.values())
+    states = [g.get_state() for g in generators]
+    stats = [tensors[f"{name}.{b}"] for name, m in stage.named_modules()
+             if isinstance(m, nn.BatchNorm2d) for b, _ in m.named_buffers(recurse=False)]
+    return checkpoint(
+        lambda inp, t: torch.func.functional_call(stage, t, (inp,)), x, tensors,
+        use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _replay(generators, states, stats)),
+    )
+
+
 class DAT(nn.Module):
     """DAT backbone returning one NHWC feature map per ``out_indices``."""
 
@@ -212,9 +267,11 @@ class DAT(nn.Module):
         log_cpb: Sequence[bool] = (False,) * 4,
         out_indices: Sequence[int] = (0, 1, 2, 3),
         kernel_impl: str = "xla",
+        use_checkpoint: bool = False,
     ):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.use_checkpoint = use_checkpoint
         self.use_conv_patches = use_conv_patches
         if use_conv_patches:
             self.stem_conv1 = Conv2d(3, dim_stem // 2, 3, stride=patch_size // 2, padding=1)
@@ -279,8 +336,10 @@ class DAT(nn.Module):
         if self.use_conv_patches:
             x = self.stem_ln2(self.stem_conv2(gelu(x)))
         outs = []
+        remat = self.use_checkpoint and self.training and torch.is_grad_enabled()
         for i in range(4):
-            x = getattr(self, f"stage_{i}")(x)
+            stage = getattr(self, f"stage_{i}")
+            x = checkpointed(stage, x) if remat else stage(x)
             if i in self.out_indices:
                 outs.append(getattr(self, f"out_norm_{i}")(x))
             if i < 3:

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is a plain-C shared library, compiled by ``nvcc``
 for ``sm_90a`` (Hopper) into ``dat_segmentation_tpu_torch/_build/``,
 under a name keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing is
-built or loaded when this module is imported: the CPU has no ``nvcc``,
-and the tests import every module.
+source is rebuilt and an unchanged one is loaded as it is. ``defines``
+(``-D`` macros) build a variant of a source beside it, under its own
+name. Nothing is built or loaded when this module is imported: the CPU
+has no ``nvcc``, and the tests import every module.
 """
 
 from __future__ import annotations
@@ -44,29 +45,35 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    """Where ``source``'s library lives once built."""
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(source: str, defines=()) -> Path:
+    """Where ``source``'s library (built with ``defines``) lives once built."""
     src = CSRC / source
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(_flags(defines)).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    variant = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"{src.stem}{variant}-{digest}.so"
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library exists; return its path.
+def build(source: str, defines=()) -> Path:
+    """Compile ``csrc/<source>`` (with ``-D`` ``defines``) unless its
+    library exists; return its path.
 
     The compiler's output (``-Xptxas -v``) is kept beside the library as
     ``.log``. The library is written under a temporary name and renamed,
     so processes that build at once never load a half-written file.
     """
-    so = library_path(source)
+    so = library_path(source, defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        [nvcc_path(), *_flags(defines), "-o", str(tmp), str(CSRC / source)],
         capture_output=True,
         text=True,
     )
@@ -77,13 +84,14 @@ def build(source: str) -> Path:
     return so
 
 
-def build_log(source: str) -> str:
+def build_log(source: str, defines=()) -> str:
     """The compiler output kept by ``build`` (empty if none was kept)."""
-    log = library_path(source).with_suffix(".log")
+    log = library_path(source, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)
-def load(source: str) -> ctypes.CDLL:
-    """Build if needed and load ``csrc/<source>``; one handle per process."""
-    return ctypes.CDLL(str(build(source)))
+def load(source: str, defines=()) -> ctypes.CDLL:
+    """Build if needed and load ``csrc/<source>`` (with ``defines``, a
+    tuple); one handle per process."""
+    return ctypes.CDLL(str(build(source, tuple(defines))))

@@ -14,12 +14,15 @@ and query K1 computes
 
 where ``bias`` samples the head's (th, tw) relative-position table
 bilinearly at half the query-to-sample displacement, with taps outside the
-table weighing zero. K2 recomputes P and returns the gradients of q, k, v,
-pos and the table. The scores, the bias and P never reach device memory.
+table weighing zero. When a gradient is wanted, K1 also writes each
+query's log-sum-exp of the scores; K2 takes P from it and the output, a
+chunk of samples at a time, and returns the gradients of q, k, v, pos and
+the table. The scores, the bias and P never reach device memory.
 
-``deform_attn`` runs on CUDA tensors through ``DeformAttnFunction``, whose
-forward launches K1 and whose backward launches K2 (``deform_attn_bwd``),
-with grad or without; on CPU tensors it is the plain version
+``deform_attn`` runs on CUDA tensors through K1 alone when no gradient is
+wanted (serving), and through ``DeformAttnFunction`` when one is, whose
+forward launches K1 (with the log-sum-exp) and whose backward launches K2
+(``deform_attn_bwd``); on CPU tensors it is the plain version
 ``deform_attn_reference``, which autograd differentiates. It never falls
 back from one to the other. The plain version is ``_xla_reference``
 (``:1549``) written in PyTorch; ``deform_attn_bwd_reference`` is autograd
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -44,9 +48,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def query_coords(n: int, n_true: int, device=None) -> torch.Tensor:
     """Normalised query coordinates of rows (or columns) 0..n-1; corners of
-    the true extent ``n_true`` at exactly -1 and +1."""
+    the true extent ``n_true`` at exactly -1 and +1.
+
+    A correctly rounded division on every device, as the JAX package and
+    the kernels compute it: on the card PyTorch divides by a Python number
+    as a multiplication by its reciprocal, an ulp off at some rows, which
+    moves the bias gradient by a tap's slope wherever a table coordinate
+    lies that close to an integer."""
     idx = torch.arange(n, dtype=torch.float32, device=device)
-    return idx / max(n_true - 1.0, 1.0) * 2.0 - 1.0
+    return idx / torch.tensor(max(n_true - 1.0, 1.0), device=device) * 2.0 - 1.0
 
 
 def rpe_bias(
@@ -89,13 +99,16 @@ def deform_attn_reference(
     scale: float,
     hn: int = 0,
     wn: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain PyTorch version of K1 (the JAX ``_xla_reference``).
 
     q (BG, H, W, Cg); k, v (BG, Ns, Cg); pos (BG, Ns, 2) normalised (y, x);
     table (g, h_g, th, tw). Products and the softmax in float32 (float64
     for float64 inputs, which the tests use as ground truth); the output
-    has q's shape and dtype.
+    has q's shape and dtype. ``return_lse``: also each query's log-sum-exp
+    of the scores, (BG, h_g, H*W) in the compute dtype, as K1 writes it
+    for K2.
     """
     BG, H, W, Cg = q.shape
     Ns = k.shape[1]
@@ -110,7 +123,10 @@ def deform_attn_reference(
     attn = attn + rpe_bias(pos, table, H, W, hn, wn).to(dt)
     p = torch.softmax(attn, dim=-1)
     out = torch.einsum("bhmn,bnhc->bmhc", p.to(v.dtype).to(dt), vh.to(dt))
-    return out.reshape(BG, H, W, Cg).to(q.dtype)
+    out = out.reshape(BG, H, W, Cg).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(attn, dim=-1)
+    return out
 
 
 def deform_attn_bwd_reference(
@@ -176,8 +192,8 @@ def _library() -> ctypes.CDLL:
 
     lib = cuda_build.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # q, k, v, pos, table, out; BG H W Ns Cg g h_g th tw hn wn; scale; dtype; stream
-    lib.dat_deform_attn_fwd.argtypes = [ptr] * 6 + [i32] * 11 + [ctypes.c_float, i32, ptr]
+    # q, k, v, pos, table, out, lse; BG H W Ns Cg g h_g th tw hn wn; scale; dtype; stream
+    lib.dat_deform_attn_fwd.argtypes = [ptr] * 7 + [i32] * 11 + [ctypes.c_float, i32, ptr]
     lib.dat_deform_attn_fwd.restype = i32
     lib.dat_deform_attn_fwd_smem_bytes.argtypes = [i32] * 4
     lib.dat_deform_attn_fwd_smem_bytes.restype = ctypes.c_longlong
@@ -189,17 +205,24 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_library() -> ctypes.CDLL:
+def _bwd_library(defines=()) -> ctypes.CDLL:
+    """K2's library; ``defines`` build an attribution variant of it
+    (``csrc/deform_attn_bwd.cu``'s header), which only ``chip_smoke.py``
+    times."""
     from . import cuda_build
 
-    lib = cuda_build.load(BWD_SOURCE)
+    lib = cuda_build.load(BWD_SOURCE, defines)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # q k v pos table dout dq dk dv dpos dtable; BG H W Ns Cg g h_g th tw hn wn;
+    # q k v pos table out lse dout dq dk dv dpos dtable; BG H W Ns Cg g h_g th tw hn wn;
     # scale; dtype; stream
-    lib.dat_deform_attn_bwd.argtypes = [ptr] * 11 + [i32] * 11 + [ctypes.c_float, i32, ptr]
+    lib.dat_deform_attn_bwd.argtypes = [ptr] * 13 + [i32] * 11 + [ctypes.c_float, i32, ptr]
     lib.dat_deform_attn_bwd.restype = i32
-    lib.dat_deform_attn_bwd_smem_bytes.argtypes = [i32] * 4
+    lib.dat_deform_attn_bwd_smem_bytes.argtypes = [i32] * 3
     lib.dat_deform_attn_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.dat_deform_attn_bwd_resident_blocks.argtypes = [i32] * 3
+    lib.dat_deform_attn_bwd_resident_blocks.restype = i32
+    lib.dat_deform_attn_bwd_warps_per_block.argtypes = []
+    lib.dat_deform_attn_bwd_warps_per_block.restype = i32
     lib.dat_cuda_error_string.argtypes = [i32]
     lib.dat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -217,9 +240,17 @@ def fwd_chunk(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:
     return _library().dat_deform_attn_fwd_chunk(_DTYPE_CODE[dtype], Ns, th, tw)
 
 
-def bwd_smem_bytes(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:
-    """Dynamic shared memory a block of K2 takes (builds it)."""
-    return _bwd_library().dat_deform_attn_bwd_smem_bytes(_DTYPE_CODE[dtype], Ns, th, tw)
+def bwd_smem_bytes(dtype: torch.dtype, th: int, tw: int) -> int:
+    """Dynamic shared memory a block of K2 takes, for any Ns (builds it)."""
+    return _bwd_library().dat_deform_attn_bwd_smem_bytes(_DTYPE_CODE[dtype], th, tw)
+
+
+def bwd_resident_warps(dtype: torch.dtype, th: int, tw: int):
+    """(blocks, warps) of K2 resident on one SM of the current card, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (builds it)."""
+    lib = _bwd_library()
+    blocks = lib.dat_deform_attn_bwd_resident_blocks(_DTYPE_CODE[dtype], th, tw)
+    return blocks, blocks * lib.dat_deform_attn_bwd_warps_per_block()
 
 
 def _launch_error(kernel, lib, rc, q, Ns, th, tw, smem):
@@ -230,19 +261,21 @@ def _launch_error(kernel, lib, rc, q, Ns, th, tw, smem):
     )
 
 
-def _fwd_kernel(q, k, v, pos, table, n_groups, scale, hn, wn) -> torch.Tensor:
-    """Launch K1 on checked CUDA tensors."""
+def _fwd_kernel(q, k, v, pos, table, n_groups, scale, hn, wn, with_lse=False):
+    """Launch K1 on checked CUDA tensors: the output, and with ``with_lse``
+    also each query's log-sum-exp, (BG, h_g, H*W) float32."""
     _check(q, k, v, pos, table, n_groups, hn, wn)
     BG, H, W, Cg = q.shape
     Ns = k.shape[1]
     g, h_g, th, tw = table.shape
     out = torch.empty_like(q)
+    lse = torch.empty((BG, h_g, H * W), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dat_deform_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            table.data_ptr(), out.data_ptr(),
+            table.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
             BG, H, W, Ns, Cg, g, h_g, th, tw, hn or H, wn or W,
             float(scale), _DTYPE_CODE[q.dtype], stream,
         )
@@ -250,7 +283,33 @@ def _fwd_kernel(q, k, v, pos, table, n_groups, scale, hn, wn) -> torch.Tensor:
         raise _launch_error("deform_attn_fwd", lib, rc, q, Ns, th, tw,
                             smem_bytes(q.dtype, Ns, th, tw))
     deform_attn.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _bwd_launch(lib, q, k, v, pos, table, dout, out, lse, n_groups, scale, hn, wn):
+    """Launch a K2 library on checked CUDA tensors; uncounted."""
+    BG, H, W, Cg = q.shape
+    Ns = k.shape[1]
+    g, h_g, th, tw = table.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.zeros(q.shape, **f32)  # summed over the sample chunks
+    dk = torch.zeros(k.shape, **f32)
+    dv = torch.zeros(v.shape, **f32)
+    dpos = torch.zeros(pos.shape, **f32)
+    dtable = torch.zeros(table.shape, **f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dat_deform_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            table.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dpos.data_ptr(), dtable.data_ptr(),
+            BG, H, W, Ns, Cg, g, h_g, th, tw, hn or H, wn or W,
+            float(scale), _DTYPE_CODE[q.dtype], stream,
+        )
+    if rc != 0:
+        raise _launch_error("deform_attn_bwd", lib, rc, q, Ns, th, tw,
+                            lib.dat_deform_attn_bwd_smem_bytes(_DTYPE_CODE[q.dtype], th, tw))
+    return dq.to(q.dtype), dk, dv, dpos, dtable
 
 
 def deform_attn_bwd(
@@ -265,13 +324,17 @@ def deform_attn_bwd(
     scale: float,
     hn: int = 0,
     wn: int = 0,
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ):
     """K2 on CUDA tensors, its plain version on CPU tensors.
 
     Returns (dq, dk, dv, dpos, dtable): dq in q's dtype, the rest float32
-    (the kernel sums them in float32 across query tiles and, for dtable,
-    across the batch). Shapes as in ``deform_attn_reference``; ``dout``
-    like q.
+    (the kernel sums them in float32 across query runs and sample chunks
+    and, for dtable, across the batch). Shapes as in
+    ``deform_attn_reference``; ``dout`` like q. ``out`` and ``lse`` are
+    K1's output and log-sum-exp for these inputs (``DeformAttnFunction``
+    saves them); on the card, without them, K1 is launched for them first.
     """
     if q.device.type == "cpu":
         return deform_attn_bwd_reference(
@@ -280,61 +343,47 @@ def deform_attn_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"deform_attn_bwd runs on cuda or cpu, not {q.device}")
     _check(q, k, v, pos, table, n_groups, hn, wn)
-    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
-        raise ValueError(f"deform_attn_bwd: dout {tuple(dout.shape)} {dout.dtype} "
-                         f"does not match q {tuple(q.shape)} {q.dtype}")
-    if not dout.is_contiguous() or dout.data_ptr() % 16:
-        raise ValueError("deform_attn_bwd: dout must be contiguous and 16-byte aligned")
-    BG, H, W, Cg = q.shape
-    Ns = k.shape[1]
-    g, h_g, th, tw = table.shape
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.empty_like(q)
-    dk = torch.zeros(k.shape, **f32)
-    dv = torch.zeros(v.shape, **f32)
-    dpos = torch.zeros(pos.shape, **f32)
-    dtable = torch.zeros(table.shape, **f32)
-    lib = _bwd_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dat_deform_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            table.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dpos.data_ptr(), dtable.data_ptr(),
-            BG, H, W, Ns, Cg, g, h_g, th, tw, hn or H, wn or W,
-            float(scale), _DTYPE_CODE[q.dtype], stream,
-        )
-    if rc != 0:
-        raise _launch_error("deform_attn_bwd", lib, rc, q, Ns, th, tw,
-                            bwd_smem_bytes(q.dtype, Ns, th, tw))
+    if out is None or lse is None:
+        out, lse = _fwd_kernel(q, k, v, pos, table, n_groups, scale, hn, wn, with_lse=True)
+    BG, H, W, _ = q.shape
+    for name, t, shape, dtype in (("dout", dout, q.shape, q.dtype), ("out", out, q.shape, q.dtype),
+                                  ("lse", lse, (BG, table.shape[1], H * W), torch.float32)):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"deform_attn_bwd: {name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, want {tuple(shape)} {dtype} on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"deform_attn_bwd: {name} must be contiguous and 16-byte aligned")
+    grads = _bwd_launch(_bwd_library(), q, k, v, pos, table, dout, out, lse,
+                        n_groups, scale, hn, wn)
     deform_attn_bwd.launches += 1
-    return dq, dk, dv, dpos, dtable
+    return grads
 
 
 class DeformAttnFunction(torch.autograd.Function):
     """K1 forward, K2 backward, on CUDA tensors.
 
     The table is cast to q's dtype for both kernels; its gradient comes
-    back in the table's own dtype, pos's in float32. Only the inputs are
-    saved, as the TPU wrapper's ``_fda_fwd`` saves them: K2 recomputes P
-    and D, so neither the output nor the (HW x Ns) attention is kept.
+    back in the table's own dtype, pos's in float32. The inputs, the
+    output and K1's log-sum-exp (one float a query and head) are saved:
+    K2 takes P from them a chunk of samples at a time, and the (HW x Ns)
+    attention is never kept.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, pos, table, n_groups, scale, hn, wn):
         table_k = table.to(q.dtype).contiguous()
-        out = _fwd_kernel(q, k, v, pos, table_k, n_groups, scale, hn, wn)
-        ctx.save_for_backward(q, k, v, pos, table_k)
+        out, lse = _fwd_kernel(q, k, v, pos, table_k, n_groups, scale, hn, wn, with_lse=True)
+        ctx.save_for_backward(q, k, v, pos, table_k, out, lse)
         ctx.args = (n_groups, scale, hn, wn, table.dtype)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, pos, table_k = ctx.saved_tensors
+        q, k, v, pos, table_k, out, lse = ctx.saved_tensors
         n_groups, scale, hn, wn, table_dtype = ctx.args
         dq, dk, dv, dpos, dtable = deform_attn_bwd(
             q, k, v, pos, table_k, dout.contiguous(),
-            n_groups=n_groups, scale=scale, hn=hn, wn=wn,
+            n_groups=n_groups, scale=scale, hn=hn, wn=wn, out=out, lse=lse,
         )
         return (dq, dk.to(k.dtype), dv.to(v.dtype), dpos, dtable.to(table_dtype),
                 None, None, None, None)
@@ -352,8 +401,8 @@ def deform_attn(
     hn: int = 0,
     wn: int = 0,
 ) -> torch.Tensor:
-    """K1 (with K2 as its gradient) on CUDA tensors, the plain version on
-    CPU tensors.
+    """K1 (with K2 as its gradient when one is wanted) on CUDA tensors, the
+    plain version on CPU tensors.
 
     Shapes as in ``deform_attn_reference``. ``hn``/``wn`` are the true
     height and width when q's rows and columns were padded (0: unpadded).
@@ -366,7 +415,10 @@ def deform_attn(
         )
     if q.device.type != "cuda":
         raise ValueError(f"deform_attn runs on cuda or cpu, not {q.device}")
-    return DeformAttnFunction.apply(q, k, v, pos, table, n_groups, float(scale), hn, wn)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, pos, table)):
+        return DeformAttnFunction.apply(q, k, v, pos, table, n_groups, float(scale), hn, wn)
+    return _fwd_kernel(q, k, v, pos, table.to(q.dtype).contiguous(), n_groups, float(scale),
+                       hn, wn)
 
 
 deform_attn.launches = 0  # K1 launches; chip_smoke.py reads and resets it

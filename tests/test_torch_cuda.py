@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from dat_segmentation_tpu_torch import build_model, create_train_state, get_config, make_train_step
+from dat_segmentation_tpu_torch.ops import deform_attn as da
 from dat_segmentation_tpu_torch.ops import x_block as xb
 from dat_segmentation_tpu_torch.ops.deform_attn import (
     deform_attn,
@@ -147,6 +148,8 @@ def _rel_errs(got, ref):
         dict(g=8, H=16, W=16, Ns=256, th=13, pos_range=1.0),  # T++ stage 3
         dict(g=2, h_g=3, H=64, W=64, Ns=256, th=55, pos_range=1.0),  # S++ stage 1
         dict(B=1, g=1, H=3, W=5, Ns=4, th=13),  # fewer queries than a block step
+        dict(g=1, H=136, W=136, Ns=289, th=111, pos_range=1.0),  # stage 0 of a 544² crop
+        dict(B=1, g=1, H=224, W=299, Ns=1064, th=111, pos_range=1.0),  # 896x1195, Ns 1064
     ],
 )
 def test_bwd_kernel_matches_plain(cuda, dtype, shape):
@@ -160,6 +163,25 @@ def test_bwd_kernel_matches_plain(cuda, dtype, shape):
     assert [t.shape for t in got] == [t.shape for t in ref]
     errs = _rel_errs(got, ref)
     assert max(errs.values()) <= BWD_TOL[dtype], errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k1_log_sum_exp_leaves_the_output_alone(cuda, dtype):
+    """With a gradient wanted K1 also writes each query's log-sum-exp (to
+    1e-4 of the plain version's); its output is bit for bit the serving
+    launch's, which writes none."""
+    q, k, v, pos, table = _inputs(cuda, dtype, g=1, H=128, W=128, Ns=256, th=111, pos_range=1.0)
+    kw = dict(n_groups=1, scale=32 ** -0.5)
+    with torch.inference_mode():
+        serve = deform_attn(q, k, v, pos, table, **kw)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, pos, table)]
+    train = deform_attn(*leaves, **kw)
+    out, lse = da._fwd_kernel(q, k, v, pos, table, 1, kw["scale"], 0, 0, with_lse=True)
+    _, ref_lse = deform_attn_reference(q, k, v, pos, table, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(train.detach(), serve) and torch.equal(out, serve)
+    assert (lse - ref_lse.float()).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
@@ -205,16 +227,14 @@ def test_small_model_kernel_path_matches_plain_path(cuda):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
-@pytest.mark.cuda
-def test_small_upernet_train_step_matches_cpu(cuda):
+def _small_upernet_step_card_vs_cpu(cuda, use_checkpoint):
     """One float32 train step of the small UperNet (head width 32) on the
-    card, through K1 and K2, against the same step on the CPU: loss to
-    1e-5 relative, all gradients to 1e-4 (||g_card - g_cpu|| / ||g_cpu||),
-    BN running statistics to 1e-5; one K1 and one K2 launch per 'D'
-    block."""
+    card and on the CPU; returns the card's (K1, K2) launches."""
     torch.manual_seed(0)
     cfg = get_config("upn_tiny_160k_dp03_lr6")
     model_cfg = small_upernet(get_config, head_width=32)
+    model_cfg = dataclasses.replace(model_cfg, backbone=dataclasses.replace(
+        model_cfg.backbone, use_checkpoint=use_checkpoint))
     cfg = dataclasses.replace(cfg, model=model_cfg,
                               schedule=dataclasses.replace(cfg.schedule, warmup_iters=0))
     gpu = build_model(model_cfg, device=cuda)
@@ -230,7 +250,6 @@ def test_small_upernet_train_step_matches_cpu(cuda):
         _, metrics = make_train_step(m, num_classes=8, compute_dtype=torch.float32)(state, batch)
         out[name] = (metrics, deform_attn.launches - fwd0, deform_attn_bwd.launches - bwd0)
     (gm, gf, gb), (cm, _, _) = out["gpu"], out["cpu"]
-    assert (gf, gb) == (4, 4)
     assert abs(gm["loss"].item() - cm["loss"].item()) <= 1e-5 * abs(cm["loss"].item())
     dsq = sum((pg.grad.cpu() - pc.grad).square().sum() for pg, pc in zip(gpu.parameters(), cpu.parameters()))
     gsq = sum(pc.grad.square().sum() for pc in cpu.parameters())
@@ -238,6 +257,24 @@ def test_small_upernet_train_step_matches_cpu(cuda):
     for (n, bg), (_, bc) in zip(gpu.named_buffers(), cpu.named_buffers()):
         if n.endswith(("running_mean", "running_var")):
             assert (bg.cpu() - bc).abs().max().item() <= 1e-5, n
+    return gf, gb
+
+
+@pytest.mark.cuda
+def test_small_upernet_train_step_matches_cpu(cuda):
+    """One float32 train step of the small UperNet (head width 32) on the
+    card, through K1 and K2, against the same step on the CPU: loss to
+    1e-5 relative, all gradients to 1e-4 (||g_card - g_cpu|| / ||g_cpu||),
+    BN running statistics to 1e-5; one K1 and one K2 launch per 'D'
+    block."""
+    assert _small_upernet_step_card_vs_cpu(cuda, use_checkpoint=False) == (4, 4)
+
+
+@pytest.mark.cuda
+def test_small_upernet_checkpointed_train_step_matches_cpu(cuda):
+    """The same with ``use_checkpoint=True``: the same gates, and each 'D'
+    block's K1 twice (the stages run again in the backward)."""
+    assert _small_upernet_step_card_vs_cpu(cuda, use_checkpoint=True) == (8, 4)
 
 
 def _xb_inputs(device, dtype, B=2, H=16, W=24, C=64, k=7, mode="lpu", seed=0):
