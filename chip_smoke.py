@@ -14,15 +14,17 @@ line each:
 1. device: the card's name and power limit (as nvidia-smi gives them),
    the torch, CUDA and nvcc versions.
 2. build: every CUDA source of the port, built at once (one nvcc each,
-   K2's attribution variant beside them), with the registers, spills
-   and shared memory ptxas and the launchers report; K2's resident blocks
-   and warps an SM at each stage's table (bf16 must reach 8 warps) and
-   the count of tensor-core instructions (HMMA/HGMMA) in its SASS (must be
-   more than 0).
+   the attribution variants of K1 and K2 beside them), with the
+   registers, spills and shared memory ptxas and the launchers report;
+   K1's and K2's resident blocks and warps an SM at each stage's table
+   (bf16 must reach 16 warps for K1, 8 for K2) and the count of
+   tensor-core instructions (HMMA/HGMMA) in each one's SASS (must be more
+   than 0).
 3. kernel_check: each kernel against its plain PyTorch version on the card
    at the shapes the main paths give it, in float32 and bf16 (K1: also
    its log-sum-exp, and its serving output bit for bit that of the launch
-   that writes the log-sum-exp; K2: all five gradients, also at Ns 289, a
+   that writes the log-sum-exp; K1 and K2 also with pos ~ U(-3, 3), taps
+   wholly outside the table; K2: all five gradients, also at Ns 289, a
    544x544 crop's stage 0, and Ns 1064; K3: both modes at the four T++
    stage shapes, the four S++ widths, no LPU, a rectangular image,
    windows 3 and 5).
@@ -41,7 +43,8 @@ line each:
    request's K3 count must equal the count the JAX package's gate gives
    for the sizes its forwards ran at. serve_small: DAT-S++ UperNet
    (``upn_small_160k``) with ``kernel_impl='pallas'``, one bf16 batch.
-6. times: K1 per stage and K3 per (stage, mode) (CUDA events, after
+6. times: K1 per stage (beside its attribution build: no bias) and K3
+   per (stage, mode) (CUDA events, after
    warm-up) beside its plain version, one PyTorch library call computing
    the same function (K3: none computes it, so the yardstick is the
    unfused stock-op chain the model runs without K3; used nowhere in the
@@ -98,7 +101,9 @@ TIME_BATCH = 16
 TRAIN_BATCH, TRAIN_STEPS, TIME_STEPS = 16, 10, 5
 PALLAS_STEPS = 3
 CROP, CROP_BATCH = 544, 2  # a train crop above 512²: Ns 289 at stage 0
+K1_VARIANTS = {"no_bias": ("K1_NO_BIAS",)}  # K1 without the bias lookup, timed only
 K2_VARIANTS = {"no_bias_grad": ("K2_NO_BIAS_GRAD",)}  # K2 without its bias gradient, timed only
+MIN_K1_WARPS = 16  # resident warps an SM that K1's bf16 blocks must reach
 MIN_K2_WARPS = 8  # resident warps an SM that K2's bf16 blocks must reach
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -244,7 +249,8 @@ def main() -> int:
     # ---- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
     sources = [k["source"].rsplit("/", 1)[1] for k in KERNELS]
-    builds = [(src, ()) for src in sources] + [(da.BWD_SOURCE, d) for d in K2_VARIANTS.values()]
+    builds = ([(src, ()) for src in sources] + [(da.SOURCE, d) for d in K1_VARIANTS.values()]
+              + [(da.BWD_SOURCE, d) for d in K2_VARIANTS.values()])
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: cuda_build.build(*b), builds))
     build_s = time.perf_counter() - t0
@@ -254,28 +260,54 @@ def main() -> int:
               "flags": " ".join(cuda_build.NVCC_FLAGS),
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if re.search(r"registers|spill", ln)]})
-    emit({"phase": "build", "card": card, "source": da.SOURCE,
+    def sass_of(src):
+        return subprocess.run(
+            [str(Path(cuda_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+             str(cuda_build.library_path(src))], capture_output=True, text=True).stdout
+
+    def mma_count(sass):
+        return len(re.findall(r"\bH(?:G)?MMA\b", sass))
+
+    def variants_ptxas(src, variants):
+        return {name: [ln.strip() for ln in cuda_build.build_log(src, d).splitlines()
+                       if re.search(r"registers|spill", ln)]
+                for name, d in variants.items()}
+
+    cfg_bb = get_config(PRESET).model.backbone
+    tables = sorted({2 * (cfg_bb.img_size // cfg_bb.patch_size >> i) - 1 for i in range(4)},
+                    reverse=True)
+    k1_sass = sass_of(da.SOURCE)
+    k1_mma = mma_count(k1_sass)
+    k1_occupancy = {}
+    for th in tables:
+        for dt in (torch.bfloat16, torch.float32):
+            blocks, warps = da.fwd_resident_warps(dt, 256, th, th)
+            k1_occupancy.setdefault(f"table {th}", {})[str(dt).split(".")[1]] = {
+                "smem_bytes": da.smem_bytes(dt, 256, th, th), "blocks_per_sm": blocks,
+                "warps_per_sm": warps}
+    k1_warps = min(v["bfloat16"]["warps_per_sm"] for v in k1_occupancy.values())
+    emit({"phase": "build", "card": card, "source": da.SOURCE, "occupancy_ns256": k1_occupancy,
           "smem_bytes_stage0": {"float32": da.smem_bytes(torch.float32, 256, 111, 111),
-                                "bfloat16": da.smem_bytes(torch.bfloat16, 256, 111, 111)}})
-    sass = subprocess.run(
-        [str(Path(cuda_build.nvcc_path()).parent / "cuobjdump"), "-sass",
-         str(cuda_build.library_path(da.BWD_SOURCE))], capture_output=True, text=True).stdout
-    k2_mma = len(re.findall(r"\bH(?:G)?MMA\b", sass))
+                                "bfloat16": da.smem_bytes(torch.bfloat16, 256, 111, 111)},
+          "min_bf16_warps_per_sm": k1_warps, "mma_instructions": k1_mma,
+          "sass_instructions": len(re.findall(r"/\*[0-9a-f]{4}\*/", k1_sass)),
+          "attribution_builds_ptxas": variants_ptxas(da.SOURCE, K1_VARIANTS)})
+    check(k1_warps >= MIN_K1_WARPS,
+          f"build: K1 bf16 keeps {k1_warps} warps an SM resident, want >= {MIN_K1_WARPS}")
+    check(k1_mma > 0, "build: no HMMA/HGMMA instruction in K1's SASS")
+    sass = sass_of(da.BWD_SOURCE)
+    k2_mma = mma_count(sass)
     # a float32 atomic add to shared memory is a compare-and-swap loop here
     k2_cas = len(re.findall(r"\bATOMS\.CAST?\b", sass))
     k2_occupancy = {}
-    cfg_bb = get_config(PRESET).model.backbone
-    for th in sorted({2 * (cfg_bb.img_size // cfg_bb.patch_size >> i) - 1 for i in range(4)},
-                    reverse=True):
+    for th in tables:
         for dt in (torch.bfloat16, torch.float32):
             blocks, warps = da.bwd_resident_warps(dt, th, th)
             k2_occupancy.setdefault(f"table {th}", {})[str(dt).split(".")[1]] = {
                 "smem_bytes": da.bwd_smem_bytes(dt, th, th), "blocks_per_sm": blocks,
                 "warps_per_sm": warps}
     k2_warps = min(v["bfloat16"]["warps_per_sm"] for v in k2_occupancy.values())
-    variant_ptxas = {name: [ln.strip() for ln in cuda_build.build_log(da.BWD_SOURCE, d).splitlines()
-                            if re.search(r"registers|spill", ln)]
-                     for name, d in K2_VARIANTS.items()}
+    variant_ptxas = variants_ptxas(da.BWD_SOURCE, K2_VARIANTS)
     emit({"phase": "build", "card": card, "source": da.BWD_SOURCE, "occupancy": k2_occupancy,
           "min_bf16_warps_per_sm": k2_warps, "mma_instructions": k2_mma,
           "shared_cas_instructions": k2_cas,
@@ -327,6 +359,8 @@ def main() -> int:
     cases.append(dict(B=2, g=2, h_g=3, Cg=96, H=64, W=64, Ns=256, th=55,
                       what="S++ stage 1 (h_g 3, Cg 96)"))
     cases.append(dict(stages[2], B=2, pos_range=1.2, what="T++ stage 2, pos ~ U(-1.2, 1.2)"))
+    cases.append(dict(stages[1], B=2, pos_range=3.0,
+                      what="T++ stage 1, pos ~ U(-3, 3) (taps wholly outside the table)"))
     cases.append(dict(B=2, g=2, h_g=2, Cg=64, H=32, W=32, Ns=49, th=55, hn=28, wn=28,
                       what="queries padded 28 -> 32 (hn = wn = 28), Ns 49"))
     cases += [dict(B=2, g=1, h_g=2, Cg=64, H=CROP // 4, W=CROP // 4, Ns=289, th=111,
@@ -573,7 +607,7 @@ def main() -> int:
 
     # ---- 6. times -------------------------------------------------------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-              "ops_ms": 0.0, "bytes_ms": 0.0}
+              "ops_ms": 0.0, "bytes_ms": 0.0, **{f"{v}_ms": 0.0 for v in K1_VARIANTS}}
     for s in stages:
         q, k, v, pos, table = k1_inputs(B=TIME_BATCH, dtype=torch.bfloat16, **s)
         BG, H, W, Cg = q.shape
@@ -581,6 +615,9 @@ def main() -> int:
         kw = dict(n_groups=s["g"], scale=scale)
         with torch.inference_mode():
             ms = timed(lambda: da.deform_attn(q, k, v, pos, table, **kw), 20)
+            variant_ms = {name: timed(lambda: da._fwd_launch(da._library(d), q, k, v, pos, table,
+                                                             s["g"], scale, 0, 0), 20)
+                          for name, d in K1_VARIANTS.items()}
             plain_ms = timed(lambda: da.deform_attn_reference(q, k, v, pos, table, **kw), 3, 1)
             qs = q.reshape(BG, H * W, h_g, 32).transpose(1, 2).contiguous()
             ks = k.reshape(BG, Ns, h_g, 32).transpose(1, 2).contiguous()
@@ -595,12 +632,14 @@ def main() -> int:
         bound_ms = max(ops_ms, bytes_ms)
         n = s["launches_per_forward"]
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                         ("library_ms", lib_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                         ("library_ms", lib_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms),
+                         *((f"{v}_ms", t) for v, t in variant_ms.items())):
             totals[key] += val * n
         emit({"phase": "kernel_time", "card": card, "kernel": "deform_attn_fwd",
               "stage": s["stage"], "dtype": "bfloat16", "batch": TIME_BATCH,
               "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
               "launches_per_forward": n, "ms": ms, "plain_ms": plain_ms,
+              "attribution_ms": variant_ms,
               "library": "scaled_dot_product_attention, bias prebuilt (lookup not timed)",
               "library_ms": lib_ms, "bound_ms": bound_ms,
               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -993,7 +1032,8 @@ def main() -> int:
 
     k1 = line(KERNELS[0], train_launches["deform_attn_fwd"], max_err, totals)
     k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"]}
-    k1["lse_max_abs_err"] = max_lse_err
+    k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
+              attribution_ms={v: totals[f"{v}_ms"] for v in K1_VARIANTS})
     k2 = line(KERNELS[1], train_launches["deform_attn_bwd"], max_err_bwd, btot)
     k2.update(max_rel_err=max_rel_bwd, warps_per_sm=k2_warps, mma_instructions=k2_mma,
               attribution_ms={v: btot[f"{v}_ms"] for v in K2_VARIANTS},
@@ -1018,7 +1058,7 @@ def main() -> int:
     return 0
 
 
-KERNEL_NAMES = ("deform_attn_fwd_kernel", "deform_attn_bwd_kernel", "x_block_fwd_kernel")
+KERNEL_NAMES = tuple(k["name"] for k in KERNELS)  # each a part of its CUDA kernels' names
 
 
 def xb_inputs(torch, np, dev, dtype, B, H, W, C, k=7, mode="lpu", seed=SEED, **_):

@@ -93,6 +93,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "fragments.cuh"
+
 namespace {
 
 constexpr int HC = 32;               // head width
@@ -105,8 +107,6 @@ constexpr int WAVES = 4;             // the grid aims at this many blocks a resi
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(QT * 4 == THREADS, "four threads a query load its lse and D");
 static_assert(WARPS == 8 && QT == 64, "step 4 gives each warp 16 queries x 16 channels");
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 // Byte offsets of the shared-memory arrays of one block.
 template <typename T>
@@ -136,11 +136,6 @@ struct Smem {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Normalised query coordinate of row (column) i: i / max(n - 1, 1) * 2 - 1.
-__device__ __forceinline__ float query_coord(int i, float denom) {
-  return __fsub_rn(__fmul_rn(__fdiv_rn((float)i, denom), 2.f), 1.f);
-}
-
 // Table coordinate ((query - sample) * 0.5 + 1) * 0.5 * (size - 1).
 __device__ __forceinline__ float tap_coord(float query, float sample, float span) {
   return __fmul_rn(__fmul_rn(__fadd_rn(__fmul_rn(__fsub_rn(query, sample), 0.5f), 1.f), 0.5f),
@@ -152,40 +147,6 @@ __device__ __forceinline__ float tap_coord(float query, float sample, float span
 // consecutive queries 8tq .. 8tq + 7, so that along a query row its taps
 // walk the table from left to right (step 2).
 __device__ __forceinline__ int pass_query(int j, int n) { return 8 * (n >> 1) + 2 * j + (n & 1); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c += a (16x16, row-major) · b (16x8, column-major), bf16 in, f32 sums.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Two neighbouring float32 sums into device memory (8-byte aligned).
 __device__ __forceinline__ void add2(float* p, float a, float b) {

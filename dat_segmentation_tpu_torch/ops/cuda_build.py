@@ -5,7 +5,8 @@ for ``sm_90a`` (Hopper) into ``dat_segmentation_tpu_torch/_build/``,
 under a name keyed by a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. ``defines``
 (``-D`` macros) build a variant of a source beside it, under its own
-name. Nothing is built or loaded when this module is imported: the CPU
+name. The headers of ``csrc/`` (``*.cuh``) are part of every source's
+hash. Nothing is built or loaded when this module is imported: the CPU
 has no ``nvcc``, and the tests import every module.
 """
 
@@ -52,8 +53,9 @@ def _flags(defines=()) -> tuple:
 def library_path(source: str, defines=()) -> Path:
     """Where ``source``'s library (built with ``defines``) lives once built."""
     src = CSRC / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_flags(defines)).encode()
+        src.read_bytes() + headers + " ".join(_flags(defines)).encode()
     ).hexdigest()[:16]
     variant = "".join(f"-{d.lower()}" for d in defines)
     return BUILD_DIR / f"{src.stem}{variant}-{digest}.so"

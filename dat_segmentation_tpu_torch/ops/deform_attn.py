@@ -187,10 +187,13 @@ def _check(q, k, v, pos, table, n_groups, hn, wn):
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _library(defines=()) -> ctypes.CDLL:
+    """K1's library; ``defines`` build an attribution variant of it
+    (``csrc/deform_attn_fwd.cu``'s header), which only ``chip_smoke.py``
+    times."""
     from . import cuda_build
 
-    lib = cuda_build.load(SOURCE)
+    lib = cuda_build.load(SOURCE, defines)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # q, k, v, pos, table, out, lse; BG H W Ns Cg g h_g th tw hn wn; scale; dtype; stream
     lib.dat_deform_attn_fwd.argtypes = [ptr] * 7 + [i32] * 11 + [ctypes.c_float, i32, ptr]
@@ -199,6 +202,10 @@ def _library() -> ctypes.CDLL:
     lib.dat_deform_attn_fwd_smem_bytes.restype = ctypes.c_longlong
     lib.dat_deform_attn_fwd_chunk.argtypes = [i32] * 4
     lib.dat_deform_attn_fwd_chunk.restype = i32
+    lib.dat_deform_attn_fwd_resident_blocks.argtypes = [i32] * 4
+    lib.dat_deform_attn_fwd_resident_blocks.restype = i32
+    lib.dat_deform_attn_fwd_warps_per_block.argtypes = [i32]
+    lib.dat_deform_attn_fwd_warps_per_block.restype = i32
     lib.dat_cuda_error_string.argtypes = [i32]
     lib.dat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -234,10 +241,18 @@ def smem_bytes(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:
 
 
 def fwd_chunk(dtype: torch.dtype, Ns: int, th: int, tw: int) -> int:
-    """Samples a block of K1 takes a chunk: Ns when the head's K and V fit
-    in shared memory beside its table, fewer (with an online softmax) when
-    they do not (builds it)."""
+    """Samples a block of K1 takes a chunk, with an online softmax across
+    chunks: bf16 64 (Ns if fewer); float32 Ns when the head's K and V fit
+    in shared memory beside its table, fewer when they do not (builds it)."""
     return _library().dat_deform_attn_fwd_chunk(_DTYPE_CODE[dtype], Ns, th, tw)
+
+
+def fwd_resident_warps(dtype: torch.dtype, Ns: int, th: int, tw: int):
+    """(blocks, warps) of K1 resident on one SM of the current card, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (builds it)."""
+    lib = _library()
+    blocks = lib.dat_deform_attn_fwd_resident_blocks(_DTYPE_CODE[dtype], Ns, th, tw)
+    return blocks, blocks * lib.dat_deform_attn_fwd_warps_per_block(_DTYPE_CODE[dtype])
 
 
 def bwd_smem_bytes(dtype: torch.dtype, th: int, tw: int) -> int:
@@ -261,16 +276,13 @@ def _launch_error(kernel, lib, rc, q, Ns, th, tw, smem):
     )
 
 
-def _fwd_kernel(q, k, v, pos, table, n_groups, scale, hn, wn, with_lse=False):
-    """Launch K1 on checked CUDA tensors: the output, and with ``with_lse``
-    also each query's log-sum-exp, (BG, h_g, H*W) float32."""
-    _check(q, k, v, pos, table, n_groups, hn, wn)
+def _fwd_launch(lib, q, k, v, pos, table, n_groups, scale, hn, wn, with_lse=False):
+    """Launch a K1 library on checked CUDA tensors; uncounted."""
     BG, H, W, Cg = q.shape
     Ns = k.shape[1]
     g, h_g, th, tw = table.shape
     out = torch.empty_like(q)
     lse = torch.empty((BG, h_g, H * W), dtype=torch.float32, device=q.device) if with_lse else None
-    lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dat_deform_attn_fwd(
@@ -281,9 +293,17 @@ def _fwd_kernel(q, k, v, pos, table, n_groups, scale, hn, wn, with_lse=False):
         )
     if rc != 0:
         raise _launch_error("deform_attn_fwd", lib, rc, q, Ns, th, tw,
-                            smem_bytes(q.dtype, Ns, th, tw))
-    deform_attn.launches += 1
+                            lib.dat_deform_attn_fwd_smem_bytes(_DTYPE_CODE[q.dtype], Ns, th, tw))
     return (out, lse) if with_lse else out
+
+
+def _fwd_kernel(q, k, v, pos, table, n_groups, scale, hn, wn, with_lse=False):
+    """Launch K1 on checked CUDA tensors: the output, and with ``with_lse``
+    also each query's log-sum-exp, (BG, h_g, H*W) float32."""
+    _check(q, k, v, pos, table, n_groups, hn, wn)
+    res = _fwd_launch(_library(), q, k, v, pos, table, n_groups, scale, hn, wn, with_lse)
+    deform_attn.launches += 1
+    return res
 
 
 def _bwd_launch(lib, q, k, v, pos, table, dout, out, lse, n_groups, scale, hn, wn):

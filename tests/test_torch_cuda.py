@@ -78,6 +78,11 @@ def _inputs(device, dtype, B=2, g=2, h_g=2, H=16, W=24, Ns=49, th=27, pos_range=
         # fit in shared memory beside the 111 x 111 table, so K1 takes the
         # samples in chunks
         dict(B=1, g=1, H=30, W=37, Ns=1064, th=111, pos_range=1.0),
+        dict(g=2, H=32, W=32, Ns=256, th=27, pos_range=3.0),  # taps wholly outside the table
+        dict(g=1, H=136, W=136, Ns=289, th=111, pos_range=1.0),  # stage 0 of a 544² crop
+        # T++ stage 3: 16 x 16 queries, so a block's 128-query tile spans 8
+        # image rows
+        dict(g=8, H=16, W=16, Ns=256, th=13, pos_range=1.0),
     ],
 )
 def test_kernel_matches_plain(cuda, dtype, shape):
@@ -104,6 +109,21 @@ def test_kernel_padded_queries(cuda):
         )
     assert (got - ref).abs().max().item() <= TOL[torch.float32]
     assert (got[:, :28, :28] - unpadded).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_kernel_padded_queries_bf16(cuda):
+    """As above, in bf16 (the tensor-core instance)."""
+    q, k, v, pos, table = _inputs(cuda, torch.bfloat16, H=32, W=32)
+    kw = dict(n_groups=2, scale=32 ** -0.5, hn=28, wn=28)
+    with torch.inference_mode():
+        got = deform_attn(q, k, v, pos, table, **kw)
+        ref = deform_attn_reference(q, k, v, pos, table, **kw)
+        unpadded = deform_attn_reference(
+            q[:, :28, :28].contiguous(), k, v, pos, table, n_groups=2, scale=32 ** -0.5
+        )
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert (got[:, :28, :28].float() - unpadded.float()).abs().max().item() <= TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda
@@ -167,11 +187,19 @@ def test_bwd_kernel_matches_plain(cuda, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_k1_log_sum_exp_leaves_the_output_alone(cuda, dtype):
+@pytest.mark.parametrize(
+    "shape",
+    [
+        dict(g=1, H=128, W=128, Ns=256, th=111, pos_range=1.0),  # T++ stage 0
+        dict(g=1, H=30, W=37, Ns=49, th=27),  # ragged: Ns and H*W not multiples of a tile
+    ],
+    ids=["stage0", "ragged"],
+)
+def test_k1_log_sum_exp_leaves_the_output_alone(cuda, dtype, shape):
     """With a gradient wanted K1 also writes each query's log-sum-exp (to
     1e-4 of the plain version's); its output is bit for bit the serving
     launch's, which writes none."""
-    q, k, v, pos, table = _inputs(cuda, dtype, g=1, H=128, W=128, Ns=256, th=111, pos_range=1.0)
+    q, k, v, pos, table = _inputs(cuda, dtype, **shape)
     kw = dict(n_groups=1, scale=32 ** -0.5)
     with torch.inference_mode():
         serve = deform_attn(q, k, v, pos, table, **kw)

@@ -33,6 +33,7 @@ from dat_segmentation_tpu_torch.ops.deform_attn import (
 )
 
 ATOL = 1e-5  # float32 on both sides; only the order of the sums differs
+torch.set_num_threads(2)  # as tests/torch_port_helpers.py: one of several xdist workers
 
 
 def _inputs(B=2, g=2, h_g=2, hc=16, H=16, W=8, Ns=16, th=15, tw=15, seed=0,
@@ -63,6 +64,7 @@ def _port(arrays, **kw):
         dict(g=1, h_g=4, hc=8),  # one group, more heads
         dict(th=21, tw=9),  # asymmetric table
         dict(pos_range=1.2),  # pos outside [-1, 1]: table taps out of range
+        dict(pos_range=3.0),  # taps wholly outside the table: no bias there
         dict(B=1, g=2, h_g=2, hc=32, H=16, W=16, Ns=256, th=13, tw=13),  # stage 3
     ],
 )

@@ -23,6 +23,7 @@ from dat_segmentation_tpu_torch.ops import grid_sample as tgs
 from dat_segmentation_tpu_torch.ops import interpolate as tint
 
 ATOL = 1e-5
+torch.set_num_threads(2)  # as tests/torch_port_helpers.py: one of several xdist workers
 
 
 def _x(shape=(2, 6, 10, 5), seed=0):

@@ -15,6 +15,12 @@ import torch
 
 from dat_segmentation_tpu_torch.utils.convert import convert_variables
 
+# The suite runs in several pytest-xdist workers on one machine; torch's
+# default intra-op pool, a thread a core in each worker, oversubscribes its
+# cores. Two threads a worker (the port's test files that do not import
+# this module set the same).
+torch.set_num_threads(2)
+
 
 def small_fpn(get_config, head_width=16):
     """fpn_tiny_80k_dp04_lr2 cut to a few narrow blocks, with a 'D' block in
