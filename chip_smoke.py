@@ -72,6 +72,21 @@ line each:
    peak memory) and a profile of its device time; the step with 'auto'
    and 'pallas' in turns; the step with ``use_checkpoint`` (ms, peak
    memory).
+10. eval: ADE20K val to mIoU on the fixture ``tests/data/ade20k_tiny``
+   (six images, masks labelled 0-150). decode: the port's readers against
+   cv2's decodes stored there (masks bit for bit; the JPEG decoder's
+   difference and share of differing pixels gated), with the decoder's
+   name and ms an image. load: the flagship at full width and depth,
+   random weights from the seed, written as a mmseg-schema ``.pth`` and
+   read back through ``load_pretrained`` + ``merge_pretrained`` (empty
+   report, every tensor equal). The port's test CLI
+   (``tools/test.py:main``) in bf16 whole mode at the preset's
+   ``img_scale``, batch 1 and batch 4 (counts set to 0 just before: 14 K1
+   launches a forward; batch 4's counts within a stated share of batch
+   1's), and one image with ``--aug-test`` (12 forwards). The float32 eval
+   card against CPU, per pixel. img/s of the bf16 eval at batch 1 and 4
+   in turns, and the share of batch 1's wall time in decode, ``predict``
+   and the IoU update.
 
 Then a ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -148,6 +163,29 @@ TOL_TRAIN_LOSS = 1e-5
 TOL_GRAD = 3e-3
 TOL_GRAD_PARAM = 2e-2
 TOL_BN = 1e-4
+
+# 10. eval: the fixture, and its gates.
+EVAL_DATA = "tests/data/ade20k_tiny"
+# The JPEG decoder against cv2's decodes stored in the fixture: Pillow and
+# cv2 both run libjpeg-turbo with its defaults (integer slow DCT, fancy
+# upsampling), so they agree unless their builds round a chroma-upsampled
+# pixel one grey level apart. A swapped channel order, a missed EXIF
+# rotation or another DCT moves most pixels by many levels.
+DECODE_MAX_DIFF = 1
+DECODE_MAX_SHARE = 0.01
+# bf16 eval, batch 4 against batch 1, as a share of the pixels: the batched
+# forward (the two 512x512 images) runs other cuDNN and cuBLAS algorithms,
+# whose sums round elsewhere, and bf16 keeps 8 bits, so pixels whose top two
+# logits are that close may flip; each flip moves the summed |d inter| by at
+# most 1 and |d union| by at most 2.
+EVAL_BATCH_SHARE = 0.01
+# float32 eval, card against CPU, TF32 off: the logits agree within
+# TOL_MODEL (phase 4; a bilinear resize does not widen it), so a pixel may
+# differ only where the CPU's top two logits are within 2 TOL_MODEL. The
+# share bounds how many such ties the random weights may give before the
+# comparison says little.
+EVAL_F32_TIE = 2 * TOL_MODEL
+EVAL_F32_SHARE = 0.01
 
 KERNELS = [
     {
@@ -1023,6 +1061,9 @@ def main() -> int:
           "img_per_s": {k: [TRAIN_BATCH / v * 1e3 for v in vs] for k, vs in sms.items()},
           "peak_mem_gib": speak})
 
+    # ---- 10. eval: ADE20K val to mIoU through the port's test CLI ----------
+    eval_launches = eval_phase(torch, np, card, dev, get_config(PRESET), n_d)
+
     # ---- kernels line, card, verdict ----------------------------------------
     def line(kernel, n, err, tot):
         return dict(kernel, launches=n, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -1031,7 +1072,8 @@ def main() -> int:
                     library_ms=tot["library_ms"])
 
     k1 = line(KERNELS[0], train_launches["deform_attn_fwd"], max_err, totals)
-    k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"]}
+    k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"],
+                              "eval": eval_launches}
     k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
               attribution_ms={v: totals[f"{v}_ms"] for v in K1_VARIANTS})
     k2 = line(KERNELS[1], train_launches["deform_attn_bwd"], max_err_bwd, btot)
@@ -1059,6 +1101,221 @@ def main() -> int:
 
 
 KERNEL_NAMES = tuple(k["name"] for k in KERNELS)  # each a part of its CUDA kernels' names
+
+
+def eval_phase(torch, np, card, dev, full_cfg, n_d):
+    """10. eval: ADE20K val to mIoU on the card through the port's test CLI,
+    on the fixture ``tests/data/ade20k_tiny`` (six images, 512x512 to
+    512x768, masks labelled 0-150), with the flagship at full width and
+    depth, random weights from the seed, bf16. Returns K1's launches in
+    the batch-1 CLI run (counts set to 0 just before)."""
+    import hashlib
+    import tempfile
+
+    import PIL
+
+    from dat_segmentation_tpu_torch import SegInferencer, build_model
+    from dat_segmentation_tpu_torch.data.ade20k import ADE20KDataset
+    from dat_segmentation_tpu_torch.data.image_io import imread_gray, imread_rgb
+    from dat_segmentation_tpu_torch.eval import evaluate as ev
+    from dat_segmentation_tpu_torch.eval.inference import MS_RATIOS
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.ops.interpolate import resize_bilinear
+    from dat_segmentation_tpu_torch.tools import test as test_cli
+    from dat_segmentation_tpu_torch.tools.reference_schema import save_reference
+    from dat_segmentation_tpu_torch.train.checkpoint import load_pretrained, merge_pretrained
+
+    root = Path(__file__).resolve().parent / EVAL_DATA
+    digests = json.loads((root / "cv2_digests.json").read_text())
+    ds = ADE20KDataset(root, "val")
+    n_img = len(ds)
+    cfg, scale = full_cfg.model, tuple(full_cfg.data.img_scale)
+
+    def resized(h, w):  # keep-ratio fit to scale, as SegInferencer.tta_inputs
+        f = min(scale[0] / w, scale[1] / h)
+        return int(h * f + 0.5), int(w * f + 0.5)
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+
+    # -- decode: the port's readers against cv2's decodes ----------------------
+    masks_equal = {n: sha(imread_gray(root / "annotations" / "validation" / n)) == d["sha256"]
+                   for n, d in digests["masks"].items()}
+    images_equal = {n: sha(imread_rgb(root / "images" / "validation" / n)) == d["sha256"]
+                    for n, d in digests["images"].items()}
+    dec = {}
+    for path in sorted((root / "decode").glob("*.jpg")):
+        got = imread_rgb(path).astype(np.int16)
+        ref = np.load(path.with_suffix(".npz"))["rgb"].astype(np.int16)
+        diff = np.abs(got - ref) if got.shape == ref.shape else np.full(ref.shape, 255)
+        dec[path.name] = {"max_abs_diff": int(diff.max()), "share_differing": float((diff > 0).mean())}
+    jpeg_s = png_s = 0.0
+    for i in range(n_img):
+        t0 = time.perf_counter()
+        imread_rgb(ds.images[i])
+        t1 = time.perf_counter()
+        imread_gray(ds.masks[i])
+        jpeg_s, png_s = jpeg_s + t1 - t0, png_s + time.perf_counter() - t1
+    decoder = f"Pillow {PIL.__version__}"
+    emit({"phase": "eval", "card": card, "step": "decode", "jpeg_decoder": decoder,
+          "png_decoder": "image_io.read_png_gray8 (zlib)", "masks_equal_cv2": masks_equal,
+          "images_equal_cv2": images_equal, "decode_vs_cv2": dec,
+          "tol_max_abs_diff": DECODE_MAX_DIFF, "tol_share_differing": DECODE_MAX_SHARE,
+          "jpeg_ms_per_img": jpeg_s / n_img * 1e3, "png_ms_per_img": png_s / n_img * 1e3})
+    check(all(masks_equal.values()), f"eval decode: masks differ from cv2's: {masks_equal}")
+    for name, d in dec.items():
+        check(d["max_abs_diff"] <= DECODE_MAX_DIFF and d["share_differing"] <= DECODE_MAX_SHARE,
+              f"eval decode {name}: {d} beyond ({DECODE_MAX_DIFF}, {DECODE_MAX_SHARE})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- load: a mmseg-schema .pth of the flagship, loaded back ------------
+        torch.manual_seed(SEED)
+        model = build_model(cfg, device=dev)
+        ckpt = save_reference(model, cfg, Path(tmp) / f"{PRESET}_mmseg.pth", mmseg=True)
+        torch.manual_seed(SEED + 5)
+        fresh = build_model(cfg, device=dev)
+        t0 = time.perf_counter()
+        _, report = merge_pretrained(fresh, load_pretrained(str(ckpt), cfg), verbose=False,
+                                     return_report=True)
+        load_s = time.perf_counter() - t0
+        want = model.state_dict()
+        unequal = [k for k, v in fresh.state_dict().items() if not torch.equal(v, want[k])]
+        emit({"phase": "eval", "card": card, "step": "load", "preset": PRESET,
+              "schema": "mmseg", "pth_mib": ckpt.stat().st_size / 2 ** 20,
+              "tensors": len(want), "missing": len(report["missing"]),
+              "unexpected": len(report["unexpected"]), "mismatched": len(report["mismatched"]),
+              "tensors_unequal": len(unequal), "load_s": load_s})
+        check(not any(report.values()), f"eval load: report not empty: {report}")
+        check(not unequal, f"eval load: {len(unequal)} tensors differ, e.g. {unequal[:3]}")
+        del fresh
+
+        # -- evaluate through the CLI: batch 1, batch 4, one image with TTA ----
+        def forwards(batch):
+            """Forwards of a batched whole-mode eval: runs of consecutive
+            images whose resized inputs share a shape, ``batch`` at most."""
+            shapes = [resized(*ds.load_raw(i)[1].shape) for i in range(n_img)]
+            n, run = 0, 0
+            for i, s in enumerate(shapes):
+                run = 1 if i == 0 or s != shapes[i - 1] or run == batch else run + 1
+                n += run == 1
+            return n
+
+        results, k1 = {}, {}
+        for name, extra, n_fwd in (("batch1", ["--batch-size", "1"], n_img),
+                                   ("batch4", ["--batch-size", "4"], forwards(4)),
+                                   ("aug_test", ["--batch-size", "1", "--aug-test",
+                                                 "--max-images", "1"], 2 * len(MS_RATIOS))):
+            out = Path(tmp) / f"{name}.json"
+            da.deform_attn.launches = 0
+            t0 = time.perf_counter()
+            res = test_cli.main([PRESET, str(ckpt), "--data-root", str(root), "--mode", "whole",
+                                 "--out", str(out), *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1[name] = da.deform_attn.launches
+            results[name] = res
+            n_want = 1 if name == "aug_test" else n_img
+            ok = bool(json.loads(out.read_text()) == json.loads(json.dumps(res))
+                      and sum(res["union"]) >= sum(res["inter"]) >= 0 < sum(res["union"])
+                      and 0.0 <= res["aAcc"] <= 1.0 and np.isfinite(res["mIoU"]))
+            emit({"phase": "eval", "card": card, "step": f"cli {name}", "dtype": "bfloat16",
+                  "args": extra, "img_scale": list(scale), "num_images": res["num_images"],
+                  "forwards": n_fwd, "k1_launches": k1[name], "k1_launches_per_forward":
+                  k1[name] / n_fwd, "mIoU": res["mIoU"], "aAcc": res["aAcc"],
+                  "classes_present": sum(u > 0 for u in res["union"]), "result_ok": ok,
+                  "wall_s_with_model_build_and_load": wall})
+            check(res["num_images"] == n_want, f"eval {name}: {res['num_images']} images")
+            check(k1[name] == n_d * n_fwd, f"eval {name}: {k1[name]} K1 launches, "
+                                           f"want {n_d} a forward x {n_fwd}")
+            check(ok, f"eval {name}: result dict inconsistent")
+        pixels = sum(np.prod(ds.load_raw(i)[1].shape) for i in range(n_img))
+        d_inter = int(np.abs(np.subtract(results["batch4"]["inter"],
+                                         results["batch1"]["inter"])).sum())
+        d_union = int(np.abs(np.subtract(results["batch4"]["union"],
+                                         results["batch1"]["union"])).sum())
+        emit({"phase": "eval", "card": card, "step": "batch4 vs batch1", "dtype": "bfloat16",
+              "pixels": int(pixels), "sum_abs_d_inter": d_inter, "sum_abs_d_union": d_union,
+              "tol_share": EVAL_BATCH_SHARE})
+        check(d_inter <= EVAL_BATCH_SHARE * pixels and d_union <= 2 * EVAL_BATCH_SHARE * pixels,
+              f"eval batch4 vs batch1: counts differ by {d_inter}, {d_union} of {pixels} pixels")
+
+    # -- card vs CPU, float32, TF32 off: per pixel -----------------------------
+    preds, secs = {}, {}
+    infs = {name: SegInferencer(model, num_classes=cfg.num_classes, compute_dtype=torch.float32,
+                                device=d) for name, d in (("card", dev), ("cpu", "cpu"))}
+    for d, inf in infs.items():
+        preds[d] = {}
+        t0 = time.perf_counter()
+        ev.evaluate_dataset(inf, ds, img_scale=scale, verbose=False,
+                            on_pred=lambda i, p, d=d: preds[d].__setitem__(i, p))
+        secs[d] = time.perf_counter() - t0
+    flipped, worst_gap = 0, 0.0
+    for i in range(n_img):
+        differ = preds["card"][i] != preds["cpu"][i]
+        if differ.any():
+            raw, gt = ds.load_raw(i)
+            (inp, _), = infs["cpu"].tta_inputs(raw, img_scale=scale)
+            with torch.inference_mode():
+                lg = resize_bilinear(torch.from_numpy(infs["cpu"].logits(inp))[None],
+                                     gt.shape)[0]
+                top2 = lg.topk(2, dim=-1).values
+            gap = (top2[..., 0] - top2[..., 1]).numpy()[differ]
+            worst_gap = max(worst_gap, float(gap.max()))
+            flipped += int(differ.sum())
+    emit({"phase": "eval", "card": card, "step": "card vs cpu", "dtype": "float32",
+          "tf32": False, "pixels": int(pixels), "pixels_differing": flipped,
+          "share_differing": flipped / pixels, "max_top2_logit_gap_at_differing": worst_gap,
+          "tol_gap": EVAL_F32_TIE, "tol_share": EVAL_F32_SHARE,
+          "card_s": secs["card"], "cpu_s": secs["cpu"]})
+    check(flipped <= EVAL_F32_SHARE * pixels and worst_gap <= EVAL_F32_TIE,
+          f"eval card vs cpu: {flipped} pixels differ, top-2 gap up to {worst_gap}")
+    del infs
+
+    # -- time: bf16 eval in turns, and where batch 1's wall goes (its last run) --
+    server = SegInferencer(model, num_classes=cfg.num_classes, device=dev)
+    del model
+    spent = {"decode": 0.0, "predict": 0.0, "iou_update": 0.0}  # decode: load_raw, JPEG and PNG
+
+    def timed_attr(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    class TimedIoU(ev.StreamingIoU):
+        def update(self, *a, **k):
+            t0 = time.perf_counter()
+            super().update(*a, **k)
+            spent["iou_update"] += time.perf_counter() - t0
+
+    walls, plain_iou = {1: [], 4: []}, ev.StreamingIoU
+    for batch in (1, 4, 4, 1) * 3:  # six images take about 0.3 s: three rounds
+        for key in spent:
+            spent[key] = 0.0
+        tds = ADE20KDataset(root, "val")
+        tds.load_raw = timed_attr(tds, "load_raw", "decode")
+        server.predict = timed_attr(server, "predict", "predict")
+        ev.StreamingIoU = TimedIoU
+        try:
+            t0 = time.perf_counter()
+            ev.evaluate_dataset(server, tds, img_scale=scale, batch_size=batch, verbose=False)
+            walls[batch].append(time.perf_counter() - t0)
+        finally:
+            ev.StreamingIoU = plain_iou
+            del server.predict
+        if batch == 1:
+            split = {k: v / walls[1][-1] for k, v in spent.items()}
+    emit({"phase": "eval", "card": card, "step": "time", "dtype": "bfloat16",
+          "images": n_img, "order": "(1 4 4 1) x 3", "wall_s": {str(k): v for k, v in walls.items()},
+          "img_per_s": {str(k): [n_img / w for w in v] for k, v in walls.items()},
+          "batch1_wall_share": split, "jpeg_decoder": decoder})
+    emit(profile_device(torch, lambda: ev.evaluate_dataset(server, ds, img_scale=scale,
+                                                           verbose=False),
+                        card, min(walls[1]) * 1e3, "eval_pass"))
+    return k1["batch1"]
 
 
 def xb_inputs(torch, np, dev, dtype, B, H, W, C, k=7, mode="lpu", seed=SEED, **_):

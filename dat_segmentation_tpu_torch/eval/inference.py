@@ -29,13 +29,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..data.ade20k import IMG_NORM_MEAN, IMG_NORM_STD, IMG_SCALE
 from ..ops.interpolate import resize_bilinear, resize_uint8_linear
 from ..utils.device import resolve_device
 
-# ImageNet mean and std in RGB order (dat_segmentation_tpu/data/ade20k.py:33-34)
-IMG_NORM_MEAN = np.array([123.675, 116.28, 103.53], dtype=np.float32)
-IMG_NORM_STD = np.array([58.395, 57.12, 57.375], dtype=np.float32)
-IMG_SCALE = (2048, 512)  # (W, H) of the ADE20K test pipeline
 MS_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)  # tools/test.py --aug-test
 
 Image = Union[np.ndarray, torch.Tensor]
@@ -150,6 +147,22 @@ class SegInferencer:
         """(H, W, C) float32 logits in this inferencer's mode."""
         return self._logits(self._image(img)).cpu().numpy()
 
+    def _class_map(self, logits: torch.Tensor, ori) -> np.ndarray:
+        """(h, w, C) logits -> (H_ori, W_ori) int32 class map on the host:
+        resized to the original size, then the argmax (the softmax does
+        not change it)."""
+        if tuple(logits.shape[:2]) != tuple(ori):
+            logits = _resize(logits, ori)
+        return logits.argmax(-1).to(torch.int32).cpu().numpy()
+
+    @torch.inference_mode()
+    def _predict_whole_batch(self, inputs: Sequence[torch.Tensor], ori_shapes) -> list:
+        """Whole-mode single-scale class maps of normalised inputs of one
+        shape, in one forward: each as ``predict`` makes it."""
+        small = self.forward_batch(torch.stack(list(inputs)))
+        logits = self._up(small, inputs[0].shape[:2])
+        return [self._class_map(lg, ori) for lg, ori in zip(logits, ori_shapes)]
+
     # -- test-time augmentation ------------------------------------------------
 
     @torch.inference_mode()
@@ -206,10 +219,7 @@ class SegInferencer:
                                    keep_ratio=keep_ratio)
         if len(ratios) == 1 and not flip:
             (inp, _), = variants
-            logits = self._logits(inp)
-            if tuple(logits.shape[:2]) != ori:
-                logits = _resize(logits, ori)
-            return logits.argmax(-1).to(torch.int32).cpu().numpy()
+            return self._class_map(self._logits(inp), ori)
         prob_sum = torch.zeros(*ori, self.num_classes, device=self.device)
         n = 0
         for inp, do_flip in variants:

@@ -1,0 +1,94 @@
+"""Evaluation CLI of the port: a preset, a reference checkpoint and ADE20K
+val -> mIoU, on the card.
+
+    python -m dat_segmentation_tpu_torch.tools.test fpn_tiny_80k_dp04_lr2 CKPT.pth \\
+        --data-root /data/ade20k [--aug-test] [--mode slide] [--out r.json]
+
+The port's ``tools/test.py`` (the JAX package's ``tools/test.py:22-61``)
+for what it has: ``CKPT.pth`` is a reference checkpoint (mmseg's head
+names or the standalone ones), translated and merged tolerantly, with
+the report printed. ``--aug-test`` uses the reference's ratios
+(0.5 ... 1.75) and horizontal flip. It prints the per-class table and
+mIoU, and writes the result dict (mIoU, aAcc, per-class IoU and Acc,
+``inter``, ``union``, ``num_images``) to ``--out``. ``--device`` is the
+card unless named (``cpu`` runs the plain PyTorch versions).
+
+Not yet here (ROADMAP.md, Queue 1): ``--set`` and config files,
+``--show-dir`` and ``--format-dir``, ``--distributed``; the JAX
+package's ``--pad-bucket``, ``--no-exact`` and ``--postproc-workers``
+have no counterpart (the port runs true shapes and resizes on the device).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+from ..configs import get_config
+from ..data.ade20k import ADE20K_CLASSES, ADE20KDataset
+from ..eval.evaluate import evaluate_dataset
+from ..eval.inference import SegInferencer
+from ..models.builder import build_model
+from ..train.checkpoint import load_pretrained, merge_pretrained
+from ..utils.device import resolve_device
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="DAT segmentation evaluation (PyTorch port)")
+    p.add_argument("config", help="preset name")
+    p.add_argument("checkpoint", help="reference torch .pth")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--aug-test", action="store_true", help="multi-scale + flip TTA")
+    p.add_argument("--mode", default=None, choices=[None, "whole", "slide"])
+    p.add_argument("--max-images", type=int, default=None)
+    p.add_argument("--out", default=None, help="json results path")
+    p.add_argument("--shard", default=None, metavar="RANK/WORLD",
+                   help="evaluate a shard (merge with merge_shard_results)")
+    p.add_argument("--batch-size", type=int, default=4,
+                   help="whole-mode images a forward, of one input shape (1 = per image)")
+    p.add_argument("--device", default=None, help="torch device (default: the card)")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.config)
+    torch.manual_seed(0)  # keys the checkpoint lacks stay at a reproducible init
+    model = build_model(cfg.model, device=device)
+    state = load_pretrained(args.checkpoint, cfg.model)
+    _, report = merge_pretrained(model, state, return_report=True)
+    print(f"[load] {args.checkpoint}: {len(state)} tensors; "
+          + ", ".join(f"{k} {len(v)}" for k, v in report.items()))
+    inferencer = SegInferencer(
+        model, num_classes=cfg.model.num_classes, mode=args.mode or cfg.model.test_mode,
+        crop_size=cfg.model.crop_size, stride=cfg.model.slide_stride,
+        slide_batch=args.batch_size, device=device,
+    )
+    del model
+    shard_info = tuple(map(int, args.shard.split("/"))) if args.shard else None
+    res = evaluate_dataset(
+        inferencer, ADE20KDataset(args.data_root, "val"), num_classes=cfg.model.num_classes,
+        img_scale=cfg.data.img_scale, aug_test=args.aug_test, max_images=args.max_images,
+        shard_info=shard_info, batch_size=args.batch_size,
+    )
+    names = (ADE20K_CLASSES if cfg.model.num_classes == len(ADE20K_CLASSES)
+             else [str(i) for i in range(cfg.model.num_classes)])
+    width = max(len(n) for n in names)
+    print(f"{'Class':<{width}}  {'IoU':>6}  {'Acc':>6}")
+    for name, iou_v, acc_v in zip(names, res["per_class_iou"], res["per_class_acc"]):
+        iou_s = "nan" if iou_v is None else f"{iou_v * 100:.2f}"
+        acc_s = "nan" if acc_v is None else f"{acc_v * 100:.2f}"
+        print(f"{name:<{width}}  {iou_s:>6}  {acc_s:>6}")
+    print(f"mIoU: {res['mIoU'] * 100:.2f}  aAcc: {res['aAcc'] * 100:.2f}")
+    if args.out:
+        Path(args.out).write_text(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

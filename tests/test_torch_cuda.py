@@ -6,6 +6,10 @@ without them, with the JAX-pinning conftest left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
+The last three tests run the eval slice on the card's machine: its JPEG
+decoder against the fixture's stored cv2 decodes, ``evaluate_dataset``
+card against CPU, and a reference ``.pth`` loaded on the card.
+
 Tolerances, as in chip_smoke.py: float32 1e-4 (the kernel sums in another
 order and uses the fast exp), bf16 1e-2 (outputs rounded to bf16, and the
 plain version rounds P to bf16 before P·V); the small model's logits 1e-4
@@ -15,12 +19,21 @@ and the train step: see the constants below.
 
 import copy
 import dataclasses
+import hashlib
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from dat_segmentation_tpu_torch import build_model, create_train_state, get_config, make_train_step
+from dat_segmentation_tpu_torch import (
+    SegInferencer, build_model, create_train_state, get_config, make_train_step)
+from dat_segmentation_tpu_torch.data.ade20k import ADE20KDataset
+from dat_segmentation_tpu_torch.data.image_io import imread_gray, imread_rgb
+from dat_segmentation_tpu_torch.eval.evaluate import evaluate_dataset
+from dat_segmentation_tpu_torch.tools.reference_schema import save_reference
+from dat_segmentation_tpu_torch.train.checkpoint import load_pretrained, merge_pretrained
 from dat_segmentation_tpu_torch.ops import deform_attn as da
 from dat_segmentation_tpu_torch.ops import x_block as xb
 from dat_segmentation_tpu_torch.ops.deform_attn import (
@@ -437,3 +450,79 @@ def test_small_upernet_pallas_train_step_matches_cpu(cuda):
     dsq = sum((pg.grad.cpu() - pc.grad).square().sum() for pg, pc in zip(gpu.parameters(), cpu.parameters()))
     gsq = sum(pc.grad.square().sum() for pc in cpu.parameters())
     assert (dsq / gsq).sqrt().item() <= 1e-4
+
+
+# -- the ADE20K val path on the card's machine ----------------------------------
+
+ADE_TINY = Path(__file__).resolve().parent / "data" / "ade20k_tiny"
+# The JPEG decoder against cv2's stored decodes, as chip_smoke.py gates it:
+# both run libjpeg-turbo's defaults; builds may round a chroma-upsampled
+# pixel one grey level apart.
+DECODE_MAX_DIFF, DECODE_MAX_SHARE = 1, 0.01
+
+
+@pytest.mark.cuda
+def test_image_reads_against_cv2_decodes(cuda):
+    """The machine's JPEG decoder (Pillow) against the fixture's stored cv2
+    decodes within the gate, and the PNG reader's masks bit for bit."""
+    digests = json.loads((ADE_TINY / "cv2_digests.json").read_text())
+    for name, d in digests["masks"].items():
+        mask = imread_gray(ADE_TINY / "annotations" / "validation" / name)
+        assert hashlib.sha256(mask.tobytes()).hexdigest() == d["sha256"], name
+    for path in sorted((ADE_TINY / "decode").glob("*.jpg")):
+        got = imread_rgb(path).astype(np.int16)
+        ref = np.load(path.with_suffix(".npz"))["rgb"].astype(np.int16)
+        assert got.shape == ref.shape
+        diff = np.abs(got - ref)
+        assert diff.max() <= DECODE_MAX_DIFF and (diff > 0).mean() <= DECODE_MAX_SHARE, path.name
+
+
+@pytest.mark.cuda
+def test_small_evaluate_card_vs_cpu(cuda):
+    """evaluate_dataset of the small SemanticFPN (head width 32, 150
+    classes) on the fixture at img_scale (128, 64), float32, card against
+    CPU: a pixel may differ only where the CPU's top two logits are within
+    2e-4 (the logits agree within 1e-4), and such pixels stay under 1e-3."""
+    torch.manual_seed(0)
+    model = build_model(small_fpn(get_config, head_width=32, num_classes=150), device="cpu")
+    ds = ADE20KDataset(ADE_TINY, "val")
+    preds, infs = {}, {}
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        infs[name] = SegInferencer(model, num_classes=150, compute_dtype=torch.float32, device=dev)
+        preds[name] = {}
+        before = deform_attn.launches
+        res = evaluate_dataset(infs[name], ds, img_scale=(128, 64), verbose=False,
+                               on_pred=lambda i, p, n=name: preds[n].__setitem__(i, p))
+        assert res["num_images"] == 6
+        assert (deform_attn.launches - before > 0) == (name == "card")
+    flipped = total = 0
+    for i, pred in preds["card"].items():
+        differ = pred != preds["cpu"][i]
+        if differ.any():
+            raw, gt = ds.load_raw(i)
+            (inp, _), = infs["cpu"].tta_inputs(raw, img_scale=(128, 64))
+            lg = torch.nn.functional.interpolate(
+                torch.from_numpy(infs["cpu"].logits(inp))[None].permute(0, 3, 1, 2),
+                size=gt.shape, mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+            top2 = lg.topk(2, dim=-1).values
+            assert ((top2[..., 0] - top2[..., 1]).numpy()[differ] <= 2e-4).all()
+        flipped, total = flipped + int(differ.sum()), total + pred.size
+    assert flipped <= 1e-3 * total
+
+
+@pytest.mark.cuda
+def test_load_pretrained_on_the_card(cuda, tmp_path):
+    """A mmseg-schema .pth of the small UperNet loads into a model on the
+    card with an empty report and equal tensors."""
+    cfg = small_upernet(get_config, head_width=32)
+    torch.manual_seed(0)
+    src = build_model(cfg, device=cuda)
+    path = save_reference(src, cfg, tmp_path / "upn_mmseg.pth")
+    torch.manual_seed(1)
+    dst = build_model(cfg, device=cuda)
+    _, report = merge_pretrained(dst, load_pretrained(str(path), cfg), verbose=False,
+                                 return_report=True)
+    assert report == {"missing": [], "unexpected": [], "mismatched": []}
+    want = src.state_dict()
+    for k, v in dst.state_dict().items():
+        assert v.device.type == "cuda" and torch.equal(v, want[k]), k

@@ -22,10 +22,11 @@ from dat_segmentation_tpu_torch.utils.convert import convert_variables
 torch.set_num_threads(2)
 
 
-def small_fpn(get_config, head_width=16):
+def small_fpn(get_config, head_width=16, num_classes=8):
     """fpn_tiny_80k_dp04_lr2 cut to a few narrow blocks, with a 'D' block in
-    every stage and heads ``head_width`` wide, from either package's
-    ``get_config``. (The CUDA kernel takes head width 32, as every preset.)"""
+    every stage, heads ``head_width`` wide and ``num_classes`` classes, from
+    either package's ``get_config``. (The CUDA kernel takes head width 32,
+    as every preset.)"""
     cfg = get_config("fpn_tiny_80k_dp04_lr2").model
     hw = head_width
     bb = dataclasses.replace(
@@ -41,8 +42,8 @@ def small_fpn(get_config, head_width=16):
         cfg,
         backbone=bb,
         neck=dataclasses.replace(cfg.neck, out_channels=32),
-        decode_head=dataclasses.replace(cfg.decode_head, channels=16, num_classes=8),
-        num_classes=8,
+        decode_head=dataclasses.replace(cfg.decode_head, channels=16, num_classes=num_classes),
+        num_classes=num_classes,
     )
 
 
