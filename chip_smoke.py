@@ -17,17 +17,19 @@ line each:
    the attribution variants of K1 and K2 beside them), with the
    registers, spills and shared memory ptxas and the launchers report;
    K1's and K2's resident blocks and warps an SM at each stage's table
-   (bf16 must reach 16 warps for K1, 8 for K2) and the count of
-   tensor-core instructions (HMMA/HGMMA) in each one's SASS (must be more
-   than 0).
+   (bf16 must reach 16 warps for K1, 8 for K2); K3's tile, shared memory,
+   registers and resident blocks and warps an SM per (width, mode, dtype)
+   (every width must have a tile that fits); the count of tensor-core
+   instructions (HMMA/HGMMA) in each one's SASS (must be more than 0).
 3. kernel_check: each kernel against its plain PyTorch version on the card
    at the shapes the main paths give it, in float32 and bf16 (K1: also
    its log-sum-exp, and its serving output bit for bit that of the launch
    that writes the log-sum-exp; K1 and K2 also with pos ~ U(-3, 3), taps
    wholly outside the table; K2: all five gradients, also at Ns 289, a
    544x544 crop's stage 0, and Ns 1064; K3: both modes at the four T++
-   stage shapes, the four S++ widths, no LPU, a rectangular image,
-   windows 3 and 5).
+   stage shapes, the four S++ widths, the four B++ widths in both modes,
+   no LPU, a rectangular image, sides that are not tile multiples,
+   windows 3, 5 and 9, each case twice and equal bit for bit).
 4. model: the full-width, full-depth DAT-T++ SemanticFPN (preset
    fpn_tiny_80k_dp04_lr2, 26 blocks) at 512x512 with random weights from
    a fixed seed, in float32 with TF32 off: the kernel path on the card
@@ -108,6 +110,7 @@ SEED = 0
 PRESET = "fpn_tiny_80k_dp04_lr2"
 TRAIN_PRESET = "upn_tiny_160k_dp03_lr6"
 SMALL_PRESET = "upn_small_160k"  # DAT-S++: K3 at C = 96 ... 768
+BASE_PRESET = "upn_base_160k"  # DAT-B++: K3 at C = 128 ... 1024 (checked, not served)
 IMG = 512
 SERVE_BATCH, SERVE_REQUESTS = 4, 4
 PREDICT_HW = (512, 683)  # a raw image whose sides are not multiples of 32
@@ -253,6 +256,7 @@ def main() -> int:
     from dat_segmentation_tpu_torch.ops import cuda_build
     from dat_segmentation_tpu_torch.ops import deform_attn as da
     from dat_segmentation_tpu_torch.ops import x_block as xb
+    from dat_segmentation_tpu_torch.tools.k3_time import stock_chain, xb_inputs
 
     card = nvidia_smi_card()
     dev = torch.device("cuda")
@@ -289,12 +293,19 @@ def main() -> int:
     sources = [k["source"].rsplit("/", 1)[1] for k in KERNELS]
     builds = ([(src, ()) for src in sources] + [(da.SOURCE, d) for d in K1_VARIANTS.values()]
               + [(da.BWD_SOURCE, d) for d in K2_VARIANTS.values()])
+
+    def build_timed(b):  # one source's nvcc wall time, all started together
+        t = time.perf_counter()
+        cuda_build.build(*b)
+        return time.perf_counter() - t
+
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda b: cuda_build.build(*b), builds))
+        source_s = list(pool.map(build_timed, builds))
     build_s = time.perf_counter() - t0
-    for src in sources:
+    for src, own_s in zip(sources, source_s):
         log = cuda_build.build_log(src)
         emit({"phase": "build", "card": card, "source": src, "seconds": build_s,
+              "source_seconds": own_s,
               "flags": " ".join(cuda_build.NVCC_FLAGS),
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if re.search(r"registers|spill", ln)]})
@@ -355,13 +366,25 @@ def main() -> int:
     check(k2_warps >= MIN_K2_WARPS,
           f"build: K2 bf16 keeps {k2_warps} warps an SM resident, want >= {MIN_K2_WARPS}")
     check(k2_mma > 0, "build: no HMMA/HGMMA instruction in K2's SASS")
-    emit({"phase": "build", "card": card, "source": xb.SOURCE,
-          "tiles": [{"C": C, "mode": name, "dtype": str(dt).split(".")[1],
-                     "tile": [xb.tile_rows(dt, C, mode, k), 8],
-                     "smem_bytes": xb.smem_bytes(dt, C, mode, k)}
-                    for C in (64, 96, 128, 192, 256, 384, 512, 768)
-                    for name, mode, k in (("X", xb.MODE_X_LPU, 7), ("mlp", xb.MODE_MLP, 1))
-                    for dt in (torch.bfloat16, torch.float32)]})
+    k3_mma = mma_count(sass_of(xb.SOURCE))
+    k3_tiles = []
+    for C in (64, 96, 128, 192, 256, 384, 512, 768, 1024):
+        for name, mode, k in (("X", xb.MODE_X_LPU, 7), ("mlp", xb.MODE_MLP, 1)):
+            for dt in (torch.bfloat16, torch.float32):
+                blocks, warps = xb.resident_warps(dt, C, mode, k)
+                k3_tiles.append({"C": C, "mode": name, "dtype": str(dt).split(".")[1],
+                                 "tile": [xb.tile_rows(dt, C, mode, k), 8],
+                                 "smem_bytes": xb.smem_bytes(dt, C, mode, k),
+                                 "registers": xb.registers(dt, C, mode, k),
+                                 "blocks_per_sm": blocks, "warps_per_sm": warps})
+    # the flagship's bf16 instances (T++ widths)
+    k3_warps = min(t["warps_per_sm"] for t in k3_tiles
+                   if t["dtype"] == "bfloat16" and t["C"] in cfg_bb.dims)
+    emit({"phase": "build", "card": card, "source": xb.SOURCE, "tiles": k3_tiles,
+          "min_bf16_warps_per_sm": k3_warps, "mma_instructions": k3_mma})
+    check(k3_mma > 0, "build: no HMMA/HGMMA instruction in K3's SASS")
+    check(all(t["tile"][0] > 0 and t["blocks_per_sm"] > 0 for t in k3_tiles),
+          "build: a K3 width without a tile that fits the card")
 
     # ---- stage geometry of the flagship at 512x512 ---------------------------
     cfg = get_config(PRESET).model
@@ -460,8 +483,11 @@ def main() -> int:
                   f"kernel_check K2 {c['what']} {dtype}: {rel} > {tol}")
 
     # K3: both modes at the four T++ stage shapes (batch 2), the four S++
-    # widths, no LPU, a rectangular image, windows 3 and 5
+    # widths, the four B++ widths in both modes, no LPU, a rectangular image,
+    # sides that are not multiples of the tile, windows 3, 5 and 9; each
+    # case launched twice, equal bit for bit (K3 has no atomics)
     sdims = get_config(SMALL_PRESET).model.backbone.dims
+    bdims = get_config(BASE_PRESET).model.backbone.dims
     xcases = [dict(B=2, H=s["H"], W=s["W"], C=cfg.backbone.dims[s["stage"]], mode=m,
                    what=f"T++ stage {s['stage']} {m}") for s in stages for m in ("lpu", "mlp")]
     xcases += [dict(B=1, H=s["H"], W=s["W"], C=sdims[s["stage"]],
@@ -470,25 +496,33 @@ def main() -> int:
     xcases += [dict(B=2, H=64, W=64, C=128, mode="x", what="no LPU"),
                dict(B=2, H=48, W=80, C=64, mode="lpu", what="rectangular 48x80"),
                dict(B=2, H=32, W=32, C=64, k=3, mode="lpu", what="window 3"),
-               dict(B=2, H=32, W=32, C=64, k=5, mode="lpu", what="window 5")]
+               dict(B=2, H=32, W=32, C=64, k=5, mode="lpu", what="window 5"),
+               dict(B=2, H=32, W=32, C=64, k=9, mode="lpu", what="window 9"),
+               dict(B=2, H=20, W=36, C=64, mode="lpu", what="20x36 (sides not tile multiples)"),
+               dict(B=2, H=20, W=36, C=64, mode="mlp", what="20x36 mlp")]
+    xcases += [dict(B=1, H=h, W=h, C=C, mode=m, what=f"B++ C={C} {m}")
+               for C, h in zip(bdims, (32, 32, 16, 16)) for m in ("lpu", "mlp")]
     max_err_xb = max_rel_xb = 0.0
     for c in xcases:
         for dtype, tol in ((torch.float32, TOL_XB_F32), (torch.bfloat16, TOL_XB_BF16)):
-            x, prm = xb_inputs(torch, np, dev, dtype, **c)
+            x, prm = xb_inputs(dev, dtype, **c)
             args = [prm[n] for n in XB_PARAMS]
             with torch.inference_mode():
                 got = xb.x_block_fwd(x, *args, with_lpu=c["mode"] == "lpu")
+                again = xb.x_block_fwd(x, *args, with_lpu=c["mode"] == "lpu")
                 ref = xb.x_block_reference(x, *args, with_lpu=c["mode"] == "lpu")
                 torch.cuda.synchronize()
+            same = torch.equal(got, again)
             err = (got.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
             max_err_xb, max_rel_xb = max(max_err_xb, err), max(max_rel_xb, rel)
             emit({"phase": "kernel_check", "card": card, "kernel": "x_block_fwd",
                   "case": c["what"], "dtype": str(dtype).split(".")[1], "x": list(x.shape),
                   "k": c.get("k", 7), "mode": c["mode"], "max_abs_err": err,
-                  "max_rel_err": rel, "tol_rel": tol})
+                  "max_rel_err": rel, "tol_rel": tol, "two_launches_equal": same})
             check(rel <= tol and got.shape == ref.shape and got.dtype == dtype,
                   f"kernel_check K3 {c['what']} {dtype}: {rel} > {tol}")
+            check(same, f"kernel_check K3 {c['what']} {dtype}: two launches differ")
 
     # ---- 4. model: kernel path on the card vs the plain path on the CPU ------
     torch.manual_seed(SEED)
@@ -688,14 +722,13 @@ def main() -> int:
     for row in xb_bound["rows"]:
         mode = "lpu" if row["mode"] == "X" else "mlp"
         B, H, W, C = row["x"]
-        x, prm = xb_inputs(torch, np, dev, torch.bfloat16, B=B, H=H, W=W, C=C, k=row["k"],
-                           mode=mode)
+        x, prm = xb_inputs(dev, torch.bfloat16, B=B, H=H, W=W, C=C, k=row["k"], mode=mode)
         args = [prm[n] for n in XB_PARAMS]
         lpu = mode == "lpu"
         with torch.inference_mode():
             ms = timed(lambda: xb.x_block_fwd(x, *args, with_lpu=lpu), 20)
             plain_ms = timed(lambda: xb.x_block_reference(x, *args, with_lpu=lpu), 5, 1)
-            chain_ms = timed(lambda: stock_chain(F, x, prm, mode), 10)
+            chain_ms = timed(lambda: stock_chain(x, prm, mode), 10)
         n = row["calls_per_forward"]
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", row["bound_ms"]),
                          ("chain_ms", chain_ms), ("ops_ms", row["ops_ms"]),
@@ -1083,7 +1116,8 @@ def main() -> int:
                                 "train_crop": crop_launches["deform_attn_bwd"],
                                 "train_checkpoint": ck_launches["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
-    k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"],
+    k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"], mma_instructions=k3_mma,
+              warps_per_sm=k3_warps,
               yardstick="no one PyTorch call computes the block: chain_ms is the unfused "
                         "stock-op chain the model runs without K3, per forward",
               launches_by_path={"serve": pserve_launches["x_block_fwd"],
@@ -1316,44 +1350,6 @@ def eval_phase(torch, np, card, dev, full_cfg, n_d):
                                                            verbose=False),
                         card, min(walls[1]) * 1e3, "eval_pass"))
     return k1["batch1"]
-
-
-def xb_inputs(torch, np, dev, dtype, B, H, W, C, k=7, mode="lpu", seed=SEED, **_):
-    """x and the port's parameter tensors of one fused X block (mode 'lpu',
-    'x' without the LPU, or 'mlp'), weights at 1/sqrt(fan-in), from a seed."""
-    rng = np.random.RandomState(seed)
-    E = 4 * C
-
-    def t(*shape, scale=1.0, shift=0.0):
-        return torch.tensor(rng.randn(*shape) * scale + shift, dtype=torch.float32,
-                            device=dev).to(dtype)
-
-    p = dict(w3=None, b3=None, w7=None, b7=None)
-    if mode == "lpu":
-        p.update(w3=t(C, 1, 3, 3, scale=1 / 3), b3=t(C, scale=0.1))
-    if mode != "mlp":
-        p.update(w7=t(C, 1, k, k, scale=1 / k), b7=t(C, scale=0.1))
-    p.update(g=t(C, scale=0.1, shift=1.0), be=t(C, scale=0.1), wf1=t(E, C, scale=C ** -0.5),
-             bf1=t(E, scale=0.1), wd=t(E, 1, 3, 3, scale=1 / 3), bd=t(E, scale=0.1),
-             wf2=t(C, E, scale=E ** -0.5), bf2=t(C, scale=0.1))
-    return t(B, H, W, C), p
-
-
-def stock_chain(F, x, p, mode):
-    """K3's yardstick: the unfused chain the model runs without it (the
-    port's Conv2d, LayerNorm2d and ConvMlp modules: cuDNN depthwise convs on
-    channels-last views, LayerNorm, cuBLAS linears with their bias, GELU)."""
-    def dw(v, w, b):
-        return F.conv2d(v.permute(0, 3, 1, 2), w, b, padding=w.shape[-1] // 2,
-                        groups=v.shape[-1]).permute(0, 2, 3, 1)
-
-    if mode == "lpu":
-        x = x + dw(x, p["w3"], p["b3"])
-    y = x if mode == "mlp" else dw(x, p["w7"], p["b7"])
-    y = F.layer_norm(y, (y.shape[-1],), p["g"], p["be"])
-    h = F.linear(y, p["wf1"], p["bf1"])
-    h = F.gelu(h + dw(h, p["wd"], p["bd"]))
-    return F.linear(h, p["wf2"], p["bf2"])
 
 
 def k3_gate_count(bb, h, w):

@@ -139,6 +139,11 @@ def _library() -> ctypes.CDLL:
     lib.dat_x_block_fwd_tile.restype = i32
     lib.dat_x_block_fwd_smem_bytes.argtypes = [i32] * 5
     lib.dat_x_block_fwd_smem_bytes.restype = ctypes.c_longlong
+    for fn in (lib.dat_x_block_fwd_resident_blocks, lib.dat_x_block_fwd_registers):
+        fn.argtypes = [i32] * 4
+        fn.restype = i32
+    lib.dat_x_block_fwd_warps_per_block.argtypes = []
+    lib.dat_x_block_fwd_warps_per_block.restype = i32
     lib.dat_cuda_error_string.argtypes = [i32]
     lib.dat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,10 +161,17 @@ def smem_bytes(dtype: torch.dtype, C: int, mode: int, k: int) -> int:
     return lib.dat_x_block_fwd_smem_bytes(_DTYPE_CODE[dtype], C, mode, k, th)
 
 
-def _taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(C, 1, k, k) depthwise weight -> (k*k, C), tap-major with channels
-    contiguous, the layout the kernel reads."""
-    return w.reshape(w.shape[0], -1).t().to(dtype).contiguous()
+def resident_warps(dtype: torch.dtype, C: int, mode: int, k: int):
+    """(blocks, warps) of K3 resident on one SM of the current card at these
+    widths, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (builds it)."""
+    lib = _library()
+    blocks = lib.dat_x_block_fwd_resident_blocks(_DTYPE_CODE[dtype], C, mode, k)
+    return blocks, blocks * lib.dat_x_block_fwd_warps_per_block()
+
+
+def registers(dtype: torch.dtype, C: int, mode: int, k: int) -> int:
+    """Registers a thread of the kernel instance these widths launch (builds it)."""
+    return _library().dat_x_block_fwd_registers(_DTYPE_CODE[dtype], C, mode, k)
 
 
 def _vec(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -186,10 +198,11 @@ def x_block_fwd(
     """K3 on a CUDA tensor, its plain version on a CPU tensor; no autograd.
 
     Arguments as in ``x_block_reference``. For the kernel every parameter
-    is cast to x's dtype, and the depthwise weights are permuted here from
-    (C, 1, k, k) to tap-major (k*k, C); the linear weights are taken as
-    ``nn.Linear`` stores them, (out, in), which is the column-major B
-    operand of the kernel's products.
+    is cast to x's dtype (no copy when it already is, as in a bf16 serving
+    model); the kernel reads every weight as the module stores it: the
+    depthwise ones (C, 1, k, k), which it stages into shared memory a
+    channel chunk at a time, and the linear ones (out, in), the column-major
+    B operand of its products.
     """
     if x.device.type == "cpu":
         return x_block_reference(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2,
@@ -205,12 +218,9 @@ def x_block_fwd(
     dt = x.dtype
     mode = MODE_MLP if w7 is None else (MODE_X_LPU if with_lpu else MODE_X)
     k = window or 1
-    args = [
-        _taps(w3, dt) if with_lpu else None, _vec(b3, dt) if with_lpu else None,
-        _taps(w7, dt) if w7 is not None else None, _vec(b7, dt) if w7 is not None else None,
-        _vec(g, dt), _vec(be, dt), _vec(wf1, dt), _vec(bf1, dt), _taps(wd, dt), _vec(bd, dt),
-        _vec(wf2, dt), _vec(bf2, dt),
-    ]
+    args = [None if p is None else _vec(p, dt)
+            for p in (w3 if with_lpu else None, b3 if with_lpu else None, w7, b7,
+                      g, be, wf1, bf1, wd, bd, wf2, bf2)]
     for name, a in zip(_PARAMS, args):
         if a is not None and a.data_ptr() % 16:
             raise ValueError(f"x_block: {name} must be 16-byte aligned")

@@ -356,6 +356,18 @@ def _xb_rel(got, ref):
         dict(B=1, H=20, W=36, C=128, mode="x"),  # no LPU; sides not multiples of the tile
         dict(H=8, W=8, C=64, k=3),
         dict(H=8, W=16, C=32, k=5),
+        dict(H=12, W=16, C=64, k=9),
+        dict(B=1, H=20, W=36, C=64),  # sides not multiples of the 16 x 8 tile
+        dict(B=1, H=20, W=36, C=64, mode="mlp"),
+        # the DAT-B++ widths in both modes (C = 1024: the widest weight stream)
+        dict(B=1, H=16, W=24, C=128),
+        dict(B=1, H=16, W=24, C=128, mode="mlp"),
+        dict(B=1, H=16, W=16, C=256),
+        dict(B=1, H=16, W=16, C=256, mode="mlp"),
+        dict(B=1, H=8, W=16, C=512),
+        dict(B=1, H=8, W=16, C=512, mode="mlp"),
+        dict(B=1, H=6, W=12, C=1024),
+        dict(B=1, H=8, W=8, C=1024, mode="mlp"),
     ],
 )
 def test_x_block_kernel_matches_plain(cuda, dtype, shape):
@@ -370,6 +382,33 @@ def test_x_block_kernel_matches_plain(cuda, dtype, shape):
     assert xb.x_block_fwd.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     assert _xb_rel(got, ref) <= XB_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["lpu", "mlp"])
+def test_x_block_two_launches_agree_bit_for_bit(cuda, dtype, mode):
+    """K3 has no atomics and no order that changes between runs."""
+    x, p = _xb_inputs(cuda, dtype, B=1, H=20, W=36, C=96, mode=mode)
+    names = ("w3", "b3", "w7", "b7", "g", "be", "wf1", "bf1", "wd", "bd", "wf2", "bf2")
+    with torch.inference_mode():
+        a = xb.x_block_fwd(x, *(p[n] for n in names), with_lpu=mode == "lpu")
+        b = xb.x_block_fwd(x, *(p[n] for n in names), with_lpu=mode == "lpu")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("preset", ["upn_tiny_160k_dp03_lr6", "upn_small_160k", "upn_base_160k"])
+def test_x_block_tile_fits_every_preset_width(cuda, dtype, preset):
+    """A tile that fits the card's shared memory at each width of the T++,
+    S++ and B++ presets, in both modes (the window the presets use)."""
+    bb = get_config(preset).model.backbone
+    for C, k in zip(bb.dims, bb.window_sizes):
+        for mode, kk in ((xb.MODE_X_LPU, k), (xb.MODE_X, k), (xb.MODE_MLP, 1)):
+            assert xb.tile_rows(dtype, C, mode, kk) > 0, (C, mode)
+            assert xb.resident_warps(dtype, C, mode, kk)[0] > 0, (C, mode)
 
 
 @pytest.mark.cuda
