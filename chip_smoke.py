@@ -89,6 +89,30 @@ line each:
    card against CPU, per pixel. img/s of the bf16 eval at batch 1 and 4
    in turns, and the share of batch 1's wall time in decode, ``predict``
    and the IoU update.
+11. train_loop: the seg trainer end to end through the train CLI
+   (``tools/train.py:main``), the recipe as it is (upn_tiny_160k_dp03_lr6:
+   full width and depth, drop path 0.3, dropout 0.1, bf16 on float32
+   masters, batch 16, the auto-sized threaded loader), on a train split of
+   the fixture's six images each copied three times (18 items: one batch an
+   epoch) and its six val images; warm-up 0, checkpoints every 3, val at 6,
+   a log line every step. Run 1, 6 iterations: finite losses, 14 K1 and 14
+   K2 launches a step (counts set to 0 just before), every batch read back
+   on the card equal to its host batch, ``ckpt_3``, ``ckpt_6`` and
+   ``ckpt_best`` with 150 classes in their meta, the in-run val on six
+   images, and the test CLI on ``ckpt_best`` giving its counts exactly.
+   Run 2: 3 iterations, ``ckpt_3`` restored bit for bit (model, AdamW, step,
+   generator), then ``--resume`` to 6. Run 3: 2 iterations with
+   ``kernel_impl='pallas'`` (26 K3 launches a step). Prints the loop's ms a
+   step and img/s over steps 2-6 and the share of each step spent waiting
+   for ``device_prefetch``; the loader alone (img/s at batch 16 with its
+   threads on a 48-item split, three batches an epoch, and per item the ms
+   of decode, resize, crop, photometric and normalise); the steady state,
+   steps 8-14 of 14-iteration runs without checkpoints on the 48-item split,
+   with the loader at the preset's log interval, on batches made beforehand
+   and held on the card at the preset's log interval, and on those with a
+   log line every step (finite losses and 14 K1 and 14 K2 launches a step in
+   each); checkpoint save and load seconds, the in-run val's seconds and
+   the peak device memory.
 
 Then a ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -98,6 +122,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import itertools
 import json
 import re
 import statistics
@@ -169,6 +194,21 @@ TOL_BN = 1e-4
 
 # 10. eval: the fixture, and its gates.
 EVAL_DATA = "tests/data/ade20k_tiny"
+LOOP_COPIES = 3  # each fixture image three times in the train split: 18 items
+LOOP_ITERS, LOOP_RESUME_AT, LOOP_PALLAS_ITERS = 6, 3, 2
+# The loop in steady state: iterations 8-14 of runs without checkpoints and
+# with the preset's log interval (no per-step read-back), on a split of 48
+# items, three batches an epoch, so the loader runs its two-batches-ahead
+# pipeline as on ADE20K (at one batch an epoch it computes one batch at a
+# time); by iteration 8 the batches the loader and device_prefetch hold
+# ahead (up to five) are spent. Once with the loader, once on batches made
+# beforehand and held on the card (no loader threads), and once on those with
+# a log line every step: the three split the loop's time into the loader's
+# share and the per-step log's.
+LOOP_STEADY_COPIES = 8
+LOOP_STEADY_FROM, LOOP_STEADY_ITERS = 8, 14
+LOOP_SETS = ("schedule.warmup_iters=0", "checkpoint_interval=3", "eval_interval=6",
+             "log_interval=1")
 # The JPEG decoder against cv2's decodes stored in the fixture: Pillow and
 # cv2 both run libjpeg-turbo with its defaults (integer slow DCT, fancy
 # upsampling), so they agree unless their builds round a chroma-upsampled
@@ -1097,6 +1137,11 @@ def main() -> int:
     # ---- 10. eval: ADE20K val to mIoU through the port's test CLI ----------
     eval_launches = eval_phase(torch, np, card, dev, get_config(PRESET), n_d)
 
+    # ---- 11. train_loop: the seg trainer through the train CLI --------------
+    del steps, step, state, model, pstep, pstate, pmodel, b16
+    torch.cuda.empty_cache()
+    loop_launches = train_loop_phase(torch, np, card, n_d, n_x)
+
     # ---- kernels line, card, verdict ----------------------------------------
     def line(kernel, n, err, tot):
         return dict(kernel, launches=n, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -1106,7 +1151,8 @@ def main() -> int:
 
     k1 = line(KERNELS[0], train_launches["deform_attn_fwd"], max_err, totals)
     k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"],
-                              "eval": eval_launches}
+                              "eval": eval_launches,
+                              "train_loop": loop_launches["deform_attn_fwd"]}
     k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
               attribution_ms={v: totals[f"{v}_ms"] for v in K1_VARIANTS})
     k2 = line(KERNELS[1], train_launches["deform_attn_bwd"], max_err_bwd, btot)
@@ -1114,7 +1160,8 @@ def main() -> int:
               attribution_ms={v: btot[f"{v}_ms"] for v in K2_VARIANTS},
               launches_by_path={"train": train_launches["deform_attn_bwd"],
                                 "train_crop": crop_launches["deform_attn_bwd"],
-                                "train_checkpoint": ck_launches["deform_attn_bwd"]})
+                                "train_checkpoint": ck_launches["deform_attn_bwd"],
+                                "train_loop": loop_launches["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
     k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"], mma_instructions=k3_mma,
               warps_per_sm=k3_warps,
@@ -1122,7 +1169,8 @@ def main() -> int:
                         "stock-op chain the model runs without K3, per forward",
               launches_by_path={"serve": pserve_launches["x_block_fwd"],
                                 "predict": predict_launches,
-                                "train": ptrain_launches["x_block_fwd"]})
+                                "train": ptrain_launches["x_block_fwd"],
+                                "train_loop": loop_launches["x_block_fwd"]})
     emit({"kernels": [k1, k2, k3]})
     print(f"chip_smoke: wall {time.perf_counter() - T_START:.1f} s", file=sys.stderr, flush=True)
     if failures:
@@ -1350,6 +1398,357 @@ def eval_phase(torch, np, card, dev, full_cfg, n_d):
                                                            verbose=False),
                         card, min(walls[1]) * 1e3, "eval_pass"))
     return k1["batch1"]
+
+
+class LoopProbe:
+    """Instruments the trainer from outside while a train CLI call runs:
+    K1/K2/K3 launches, the loss (kept on the card, read after the run) and
+    wall time per step (around ``make_train_step``'s step), the wait for each
+    batch from ``device_prefetch`` (and, with ``keep``, a copy of each batch
+    as the step sees it beside its host batch), each
+    ``CheckpointManager.save`` and each in-run ``evaluate_dataset`` (each
+    timed after a ``synchronize``, so the steps' queued work is not counted
+    as theirs). With ``premade`` (batches on the card) the trainer's loader
+    is closed unstarted and the step takes those batches in turn. With
+    ``sync_at`` the card is synchronized before the batch requests of those
+    indices, so a window of iterations starts with no work queued. Everything
+    it patches is put back on exit."""
+
+    def __init__(self, torch, keep=False, premade=None, sync_at=()):
+        from dat_segmentation_tpu_torch.ops import deform_attn as da
+        from dat_segmentation_tpu_torch.ops import x_block as xb
+        from dat_segmentation_tpu_torch.train import trainer_seg
+        from dat_segmentation_tpu_torch.train.checkpoint import CheckpointManager
+
+        self.torch, self.keep, self.premade, self.sync_at = torch, keep, premade, set(sync_at)
+        self.da, self.xb, self.ts, self.cm = da, xb, trainer_seg, CheckpointManager
+        self.steps, self.requests, self.saves, self.evals, self.losses = [], [], [], [], []
+        self.hosts, self.seen = [], []
+
+    def counts(self):
+        return (self.da.deform_attn.launches, self.da.deform_attn_bwd.launches,
+                self.xb.x_block_fwd.launches)
+
+    def __enter__(self):
+        ts, cm, probe = self.ts, self.cm, self
+        self.real = (ts.make_train_step, ts.device_prefetch, ts.evaluate_dataset, cm.save)
+        make, prefetch, evaluate, save = self.real
+
+        def make_step(*a, **k):
+            step = make(*a, **k)
+
+            def counted(state, batch):
+                before = probe.counts()
+                out = step(state, batch)
+                probe.steps.append(tuple(n - b for n, b in zip(probe.counts(), before)))
+                probe.losses.append(out[1]["loss"])
+                return out
+            return counted
+
+        def timed_prefetch(iterator, *a, **k):
+            def host_side():
+                for b in iterator:
+                    if probe.keep:
+                        probe.hosts.append((b["image"], b["label"]))
+                    yield b
+
+            def made():
+                iterator.close()  # the loader's generator, not started: no threads
+                for i in itertools.count():
+                    yield dict(probe.premade[i % len(probe.premade)])
+            gen = made() if probe.premade else prefetch(host_side(), *a, **k)
+            try:
+                while True:
+                    if len(probe.requests) in probe.sync_at:
+                        probe.torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    try:
+                        b = next(gen)
+                    except StopIteration:
+                        return
+                    probe.requests.append((t, time.perf_counter()))
+                    if probe.keep:  # on the step's stream, after device_prefetch's wait
+                        probe.seen.append((b["image"].clone(), b["label"].clone()))
+                    yield b
+            finally:
+                gen.close()
+
+        def timed_evaluate(*a, **k):
+            probe.torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = evaluate(*a, **k)
+            probe.evals.append((t, time.perf_counter() - t, res))
+            return res
+
+        def timed_save(mgr, tag, *a, **k):
+            probe.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = save(mgr, tag, *a, **k)
+            probe.saves.append((t, time.perf_counter() - t, tag))
+            return out
+
+        ts.make_train_step, ts.device_prefetch, ts.evaluate_dataset = (
+            make_step, timed_prefetch, timed_evaluate)
+        cm.save = timed_save
+        return self
+
+    def __exit__(self, *exc):
+        ts, cm = self.ts, self.cm
+        ts.make_train_step, ts.device_prefetch, ts.evaluate_dataset, cm.save = self.real
+        return False
+
+    def loss_values(self):
+        return [float(v) for v in self.losses]
+
+    def iteration_walls(self):
+        """Per iteration: (wall less its checkpoint saves and val, its wait
+        for the batch), from one batch request to the next."""
+        out = []
+        for k in range(1, len(self.requests)):
+            t0, t1 = self.requests[k - 1][0], self.requests[k][0]
+            other = sum(d for t, d, *_ in self.saves + self.evals if t0 <= t < t1)
+            out.append((t1 - t0 - other, self.requests[k - 1][1] - t0))
+        return out
+
+
+def train_loop_phase(torch, np, card, n_d, n_x):
+    """11. train_loop: the seg trainer end to end on the card through the
+    train CLI, with the recipe as it is (see the module docstring). Returns
+    the launches of run 1 (K1, K2) and run 3 (K3), counts set to 0 just
+    before each run."""
+    import shutil
+    import tempfile
+
+    from dat_segmentation_tpu_torch import get_config, native
+    from dat_segmentation_tpu_torch.data import ade20k as ade
+    from dat_segmentation_tpu_torch.data.loader import DataLoader
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.ops import x_block as xb
+    from dat_segmentation_tpu_torch.tools import test as test_cli
+    from dat_segmentation_tpu_torch.tools import train as train_cli
+    from dat_segmentation_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = Path(__file__).resolve().parent / EVAL_DATA
+    tmp = Path(tempfile.mkdtemp(prefix="train_loop_"))
+    try:
+        def layout(name, train_copies):
+            data = tmp / name
+            for split, copies in (("training", train_copies), ("validation", 1)):
+                for kind, suffix in (("images", ".jpg"), ("annotations", ".png")):
+                    d = data / kind / split
+                    d.mkdir(parents=True)
+                    for p in sorted((root / kind / "validation").glob(f"*{suffix}")):
+                        for c in range(copies):
+                            shutil.copy(p, d / (p.name if copies == 1 else f"{p.stem}_{c}{suffix}"))
+            return data
+
+        data = layout("data", LOOP_COPIES)
+        steady_data = layout("steady_data", LOOP_STEADY_COPIES)
+
+        def args(run, iters, *flags, sets=(), root=data):
+            return [TRAIN_PRESET, "--data-root", str(root), "--work-dir", str(tmp / run),
+                    "--max-iters", str(iters), *flags, "--set", *LOOP_SETS, *sets]
+
+        def reset():
+            da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
+
+        # -- run 1: the recipe, 6 iterations --------------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        with LoopProbe(torch, keep=True) as p1:
+            state, hist = train_cli.main(args("run1", LOOP_ITERS))
+        torch.cuda.synchronize()
+        run1_s = time.perf_counter() - t0
+        launches = {"deform_attn_fwd": da.deform_attn.launches,
+                    "deform_attn_bwd": da.deform_attn_bwd.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        run_dir = tmp / "run1" / TRAIN_PRESET
+        names = sorted(p.name for p in run_dir.glob("ckpt_*"))
+        want_names = sorted(f"ckpt_{t}{s}" for t in (3, 6, "best") for s in ("", ".meta.json"))
+        metas = {t: json.loads((run_dir / f"ckpt_{t}.meta.json").read_text())
+                 for t in (3, 6, "best") if (run_dir / f"ckpt_{t}.meta.json").exists()}
+        stream_equal = [bool(torch.equal(img.cpu(), torch.from_numpy(hi))
+                             and torch.equal(lab.cpu(), torch.from_numpy(hl)))
+                        for (img, lab), (hi, hl) in zip(p1.seen, p1.hosts)]
+        del p1.seen, p1.hosts
+        walls = p1.iteration_walls()[1:LOOP_ITERS]  # iterations 2-6
+        loop_s = sum(w for w, _ in walls)
+        (_, eval_s, res), = p1.evals or [(0, None, {"num_images": 0, "mIoU": float("nan")})]
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli = test_cli.main([TRAIN_PRESET, str(run_dir / "ckpt_best"), "--data-root", str(data),
+                             "--batch-size", "1"])
+        cli_s = time.perf_counter() - t0
+        cli_equal = cli["inter"] == res.get("inter") and cli["union"] == res.get("union")
+        emit({"phase": "train_loop", "card": card, "run": "recipe", "preset": TRAIN_PRESET,
+              "dtype": "bfloat16", "batch": 16, "iterations": LOOP_ITERS, "sets": LOOP_SETS,
+              "train_items": len(list((data / "images" / "training").iterdir())),
+              "losses": hist["loss"], "launches": launches,
+              "launches_per_step": [dict(zip(("deform_attn_fwd", "deform_attn_bwd", "x_block_fwd"),
+                                             s)) for s in p1.steps],
+              "ms_per_step_2_6": [w * 1e3 for w, _ in walls],
+              "ms_per_step": loop_s / len(walls) * 1e3 if walls else None,
+              "img_per_s": 16 * len(walls) / loop_s if walls else None,
+              "data_wait_share_per_step": [w / t for t, w in walls],
+              "data_wait_share": sum(w for _, w in walls) / loop_s if walls else None,
+              "batches_equal_host": stream_equal,
+              "ckpt_save_s": {str(tag): d for _, d, tag in p1.saves}, "ckpt_names": names,
+              "meta_classes": {str(t): len(m.get("CLASSES", [])) for t, m in metas.items()},
+              "val_miou": res["mIoU"], "val_images": res["num_images"], "eval_s": eval_s,
+              "test_cli_s": cli_s, "test_cli_counts_equal": cli_equal,
+              "peak_mem_gib": peak, "wall_s": run1_s})
+        check(len(hist["loss"]) == LOOP_ITERS and all(np.isfinite(hist["loss"])),
+              f"train_loop: losses {hist['loss']}")
+        check(p1.steps == [(n_d, n_d, 0)] * LOOP_ITERS,
+              f"train_loop: launches per step {p1.steps}, want ({n_d}, {n_d}, 0) each")
+        check(len(stream_equal) >= LOOP_ITERS and all(stream_equal),
+              f"train_loop: batches on the card equal to the host's: {stream_equal}")
+        check(names == want_names, f"train_loop: checkpoints {names}, want {want_names}")
+        check(all(len(m.get("CLASSES", [])) == 150 for m in metas.values()) and len(metas) == 3,
+              "train_loop: checkpoint meta without the 150 classes")
+        check(res["num_images"] == 6 and 0.0 <= res["mIoU"] <= 1.0,
+              f"train_loop: in-run val {res['num_images']} images, mIoU {res['mIoU']}")
+        check(cli_equal, "train_loop: the test CLI on ckpt_best differs from the in-run val")
+
+        # -- the loader alone: img/s at batch 16 on the 48-item split (its
+        # pipeline two batches ahead across batches), and per item its stages --
+        train_ds = ade.ADE20KDataset(data, "train")
+        loader = DataLoader(ade.ADE20KDataset(steady_data, "train"), 16, shuffle=True,
+                            drop_last=True, infinite=True)
+        it = iter(loader)
+        premade = [{k: torch.from_numpy(v).cuda() if isinstance(v, np.ndarray) else v
+                    for k, v in next(it).items()}]  # threads started, the library loaded
+        t0 = time.perf_counter()
+        for _ in range(6):
+            b = next(it)
+            if len(premade) < 3:
+                premade.append(b)
+        loader_ips = 6 * 16 / (time.perf_counter() - t0)
+        it.close()
+        premade[1:] = [{k: torch.from_numpy(v).cuda() if isinstance(v, np.ndarray) else v
+                        for k, v in b.items()} for b in premade[1:]]
+        stage_s = {k: 0.0 for k in ("decode", "resize", "crop", "photometric", "normalize")}
+        patched = [(train_ds, "load_raw", "decode"), (ade, "resize", "resize"),
+                   (ade, "random_crop", "crop"), (native, "photometric_distortion_u8", "photometric"),
+                   (native, "normalize_pad_f32", "normalize")]
+        real = [getattr(o, n) for o, n, _ in patched]
+
+        def stage(fn, key):
+            def timed_fn(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                stage_s[key] += time.perf_counter() - t
+                return out
+            return timed_fn
+
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # as in a loader thread
+        try:
+            for (o, n, key), fn in zip(patched, real):
+                setattr(o, n, stage(fn, key))
+            t0 = time.perf_counter()
+            for i in range(len(train_ds)):
+                train_ds[i]
+            item_s = (time.perf_counter() - t0) / len(train_ds)
+        finally:
+            for (o, n, _), fn in zip(patched, real):
+                setattr(o, n, fn)
+            torch.set_num_threads(threads)
+        emit({"phase": "train_loop", "card": card, "run": "loader", "batch": 16,
+              "threads": loader.num_threads, "train_items": len(loader.dataset),
+              "batches_an_epoch": len(loader), "img_per_s": loader_ips,
+              "item_ms": item_s * 1e3,
+              "item_stage_ms": {k: v / len(train_ds) * 1e3 for k, v in stage_s.items()},
+              "recipe_step_img_per_s": 16 * len(walls) / loop_s if walls else None})
+
+        # -- the loop in steady state: iterations 8-14, no checkpoints -------------
+        log_every = f"log_interval={get_config(TRAIN_PRESET).log_interval}"
+        steady_sets = ("checkpoint_interval=1000000", "eval_interval=1000000")
+        for run, batches, log in (("steady", None, log_every), ("steady_premade", premade, log_every),
+                                  ("steady_premade_log1", premade, "log_interval=1")):
+            with LoopProbe(torch, premade=batches, sync_at=(LOOP_STEADY_FROM - 1,)) as ps:
+                state, _ = train_cli.main(args(run, LOOP_STEADY_ITERS, root=steady_data,
+                                               sets=steady_sets + (log,)))
+            del state
+            torch.cuda.empty_cache()
+            losses = ps.loss_values()
+            steady = ps.iteration_walls()[LOOP_STEADY_FROM - 1:LOOP_STEADY_ITERS]
+            steady_s = sum(w for w, _ in steady)
+            wait_s = sum(w for _, w in steady)
+            emit({"phase": "train_loop", "card": card, "run": run, "batch": 16,
+                  "loader": "threads" if batches is None else "premade batches on the card",
+                  "train_items": LOOP_STEADY_COPIES * 6, "sets": steady_sets + (log,),
+                  "iterations": f"{LOOP_STEADY_FROM}-{LOOP_STEADY_ITERS}",
+                  "ms_per_step": [w * 1e3 for w, _ in steady],
+                  "ms_per_step_mean": steady_s / len(steady) * 1e3,
+                  "img_per_s": 16 * len(steady) / steady_s,
+                  "data_wait_share_per_step": [w / t for t, w in steady],
+                  "data_wait_share": wait_s / steady_s,
+                  "ms_per_step_less_wait": (steady_s - wait_s) / len(steady) * 1e3,
+                  "loader_alone_img_per_s": loader_ips, "losses": losses})
+            check(len(losses) == LOOP_STEADY_ITERS and all(np.isfinite(losses))
+                  and ps.steps == [(n_d, n_d, 0)] * LOOP_STEADY_ITERS,
+                  f"train_loop {run}: losses {losses}, launches {ps.steps}")
+
+        # -- run 2: 3 iterations, the checkpoint restored, then --resume to 6 -------
+        with LoopProbe(torch) as p2:
+            state, hist2 = train_cli.main(args("run2", LOOP_RESUME_AT))
+        mgr = CheckpointManager(tmp / "run2" / TRAIN_PRESET)
+        t0 = time.perf_counter()
+        saved = mgr.restore(LOOP_RESUME_AT, map_location="cpu")
+        load_s = time.perf_counter() - t0
+        same = {"step": saved["step"] == state.step == LOOP_RESUME_AT,
+                "model": all(torch.equal(saved["model"][k], v.cpu())
+                             for k, v in state.model.state_dict().items()),
+                "generator": torch.equal(saved["generator"], state.generator.get_state())}
+        opt = state.optimizer.state_dict()
+        same["optimizer"] = saved["optimizer"]["param_groups"] == opt["param_groups"] and all(
+            torch.equal(torch.as_tensor(saved["optimizer"]["state"][i][k]).cpu(),
+                        torch.as_tensor(v).cpu()) for i, st in opt["state"].items()
+            for k, v in st.items())
+        del state, saved, opt
+        torch.cuda.empty_cache()
+        with LoopProbe(torch) as p3:
+            state, hist3 = train_cli.main(args("run2", LOOP_ITERS, "--resume"))
+        log = (tmp / "run2" / TRAIN_PRESET / "train.log").read_text()
+        resumed = f"resumed from iter {LOOP_RESUME_AT}" in log
+        end_step = state.step
+        del state
+        torch.cuda.empty_cache()
+        emit({"phase": "train_loop", "card": card, "run": "resume", "first_losses": hist2["loss"],
+              "restored_equal": same, "ckpt_load_s": load_s,
+              "ckpt_save_s": {str(tag): d for _, d, tag in p2.saves + p3.saves},
+              "resumed_logged": resumed, "resumed_losses": hist3["loss"], "end_step": end_step,
+              "note": "the loader restarts at epoch 0 on resume, as in the JAX trainer: "
+                      "the resumed losses are not those of run 1"})
+        check(all(same.values()), f"train_loop resume: checkpoint restore differs: {same}")
+        check(resumed and end_step == LOOP_ITERS
+              and len(hist3["loss"]) == LOOP_ITERS - LOOP_RESUME_AT
+              and all(np.isfinite(hist3["loss"])),
+              f"train_loop resume: logged {resumed}, end step {end_step}, losses {hist3['loss']}")
+
+        # -- run 3: kernel_impl='pallas', 2 iterations ----------------------------
+        reset()
+        with LoopProbe(torch) as p4:
+            state, hist4 = train_cli.main(args("run3", LOOP_PALLAS_ITERS,
+                                               sets=("model.backbone.kernel_impl=pallas",)))
+        k3_launches = xb.x_block_fwd.launches
+        del state
+        torch.cuda.empty_cache()
+        emit({"phase": "train_loop", "card": card, "run": "pallas", "kernel_impl": "pallas",
+              "losses": hist4["loss"], "launches_per_step": [
+                  dict(zip(("deform_attn_fwd", "deform_attn_bwd", "x_block_fwd"), s))
+                  for s in p4.steps], "x_block_fwd_launches": k3_launches})
+        check(p4.steps == [(n_d, n_d, n_x)] * LOOP_PALLAS_ITERS and all(np.isfinite(hist4["loss"])),
+              f"train_loop pallas: launches {p4.steps} (want ({n_d}, {n_d}, {n_x}) each), "
+              f"losses {hist4['loss']}")
+        launches["x_block_fwd"] = k3_launches
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def k3_gate_count(bb, h, w):

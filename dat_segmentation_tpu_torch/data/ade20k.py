@@ -1,26 +1,38 @@
-"""ADE20K validation data for the port: file discovery, decoding, the
-label reduction and the val transform, on the host.
+"""ADE20K data for the port: file discovery, decoding, the label reduction,
+the train transform and the val transform, on the host.
 
-The port's own copy of the val half of ``dat_segmentation_tpu/data/ade20k.py``
-(it imports nothing of the JAX package): the class names and palette
-(``:44``, ``:70``), ``reduce_zero_label`` (``:215``), ``ADE20KDataset``'s
-two layouts (``:283-346``), ``load_raw`` (``:348``) and ``val_transform``
-(``:266``). Decoding is ``image_io``'s (Pillow for JPEG, its own PNG
-reader), not cv2's; the image resize is cv2's uint8 ``INTER_LINEAR`` in
-integer PyTorch ops (``ops/interpolate.py:resize_uint8_linear``) and the
-mask's cv2's ``INTER_NEAREST``, as ``resize`` (``:119-134``) does with cv2.
-The train transform (random scale, crop, flip, photometric distortion)
-comes with the seg trainer (ROADMAP.md, Queue 1 item 3).
+The port's own copy of ``dat_segmentation_tpu/data/ade20k.py`` (it imports
+nothing of the JAX package): the class names and palette (``:44``,
+``:70``), ``resize`` (``:119``), ``pad_to_size`` (``:137``),
+``random_crop`` (``:150``), ``reduce_zero_label`` (``:215``),
+``train_transform`` (``:223``), ``val_transform`` (``:266``) and
+``ADE20KDataset`` (``:283``) with its two layouts, ``set_epoch``, ``load_raw``
+and the per-item train RNG ``random.Random(f"{seed}:{epoch}:{idx}")``.
+Decoding is ``image_io``'s (Pillow for JPEG, its own PNG reader), not
+cv2's; the image resize is cv2's uint8 ``INTER_LINEAR`` in integer PyTorch
+ops (``ops/interpolate.py:resize_uint8_linear``) and the mask's cv2's
+``INTER_NEAREST``, as ``resize`` does with cv2.
+
+The train transform is the JAX package's native branch (``:240-259``, taken
+there with ``DAT_TPU_NATIVE=1``): the photometric distortion, the
+normalisation and the pad run in the port's copy of its C++ library
+(``native/``), and the draws come in its order, brightness, mode,
+contrast, saturation, hue. The JAX package's cv2 branch
+(``photometric_distortion``, ``:176``) draws the contrast after the hue
+when the mode is 0, so from one seed it gives other augmentations; the
+port does not reproduce it.
 """
 
 from __future__ import annotations
 
+import random
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from .. import native
 from ..ops.interpolate import resize_uint8_linear
 from .image_io import imread_gray, imread_rgb
 
@@ -30,6 +42,8 @@ IMG_NORM_STD = np.array([58.395, 57.12, 57.375], dtype=np.float32)
 
 CROP_SIZE = (512, 512)  # (W, H)
 IMG_SCALE = (2048, 512)  # (W, H) of the ADE20K test pipeline
+CAT_MAX_RATIO = 0.75  # RandomCrop's limit on one class's share of a crop
+NUM_ATTEMPTS = 10  # crops drawn before the last one stands
 
 ADE20K_NUM_CLASSES = 150
 
@@ -113,11 +127,15 @@ def _nearest_index(n_in: int, n_out: int) -> torch.Tensor:
     return torch.floor(d * scale).to(torch.int64).clamp_(max=n_in - 1)
 
 
-def resize(img, mask, scale=IMG_SCALE, *, keep_ratio=False):
+def resize(img, mask, scale=IMG_SCALE, *, ratio=None, keep_ratio=False):
     """Resize an (H, W, 3) uint8 image bilinearly and its (H, W) mask by
-    nearest neighbour to ``scale`` (W, H), or to fit it keeping the
-    aspect ratio."""
-    target_w, target_h = scale
+    nearest neighbour to ``scale`` (W, H) times ``ratio`` (each side
+    truncated to an integer), or to fit it keeping the aspect ratio."""
+    base_w, base_h = scale
+    if ratio is not None:
+        target_w, target_h = int(base_w * ratio), int(base_h * ratio)
+    else:
+        target_w, target_h = base_w, base_h
     if keep_ratio:
         h, w = img.shape[:2]
         f = min(target_w / w, target_h / h)
@@ -144,6 +162,35 @@ def pad_to_size(img, mask, crop_size=CROP_SIZE, ignore_index=255):
     return img, mask
 
 
+def random_crop(
+    img, mask, rng: random.Random, crop_size=CROP_SIZE, *, ignore_index=255,
+):
+    """A ``crop_size`` (W, H) window at a random place, drawn again (up to
+    ``NUM_ATTEMPTS`` times) while one class fills ``CAT_MAX_RATIO`` or more
+    of its labelled pixels; the last draw stands. Pads first where the
+    image is smaller than the crop."""
+    cw, ch = crop_size
+    h, w = mask.shape
+    if h < ch or w < cw:
+        img, mask = pad_to_size(img, mask, crop_size, ignore_index)
+        h, w = mask.shape
+    img_crop = mask_crop = None
+    for _ in range(NUM_ATTEMPTS):
+        top = rng.randint(0, h - ch)
+        left = rng.randint(0, w - cw)
+        img_crop = img[top : top + ch, left : left + cw]
+        mask_crop = mask[top : top + ch, left : left + cw]
+        valid = mask_crop != ignore_index
+        if not valid.any():
+            max_ratio = 0.0
+        else:
+            _, counts = np.unique(mask_crop[valid], return_counts=True)
+            max_ratio = counts.max() / counts.sum()
+        if max_ratio < CAT_MAX_RATIO:
+            break
+    return img_crop, mask_crop
+
+
 def normalize(img, mean=IMG_NORM_MEAN, std=IMG_NORM_STD):
     return (img.astype(np.float32) - mean) / std
 
@@ -154,6 +201,38 @@ def reduce_zero_label(mask, ignore_index=255):
     m = mask.astype(np.int32)
     m = np.where(m == 0, 256, m) - 1
     return np.where(m >= 254, ignore_index, m).astype(np.int32)
+
+
+def train_transform(
+    img, mask, rng: random.Random, *, crop_size=CROP_SIZE,
+    img_scale=IMG_SCALE, ratio_range=(0.5, 2.0), ignore_index=255,
+):
+    """Random scale (``ratio_range`` of ``img_scale``, the aspect ratio not
+    kept) -> pad -> random crop -> horizontal flip (p 0.5) -> photometric
+    distortion -> normalise -> pad: a float32 (H, W, 3) image and an int32
+    mask of ``crop_size`` (W, H). Every draw comes from ``rng``, in the JAX
+    native branch's order."""
+    ratio = rng.uniform(*ratio_range)
+    img, mask = resize(img, mask, img_scale, ratio=ratio)
+    if img.shape[0] < crop_size[1] or img.shape[1] < crop_size[0]:
+        img, mask = pad_to_size(img, mask, crop_size, ignore_index)
+    img, mask = random_crop(img, mask, rng, crop_size, ignore_index=ignore_index)
+    img, mask = pad_to_size(img, mask, crop_size, ignore_index)
+    if rng.random() < 0.5:
+        img = np.ascontiguousarray(img[:, ::-1])
+        mask = np.ascontiguousarray(mask[:, ::-1])
+    bright = rng.uniform(-32, 32) if rng.random() < 0.5 else 0.0
+    mode = rng.randint(0, 1)
+    alpha = rng.uniform(0.5, 1.5) if rng.random() < 0.5 else 1.0
+    sat = rng.uniform(0.5, 1.5) if rng.random() < 0.5 else 1.0
+    hue = rng.uniform(-18, 18) if rng.random() < 0.5 else 0.0
+    img = native.photometric_distortion_u8(
+        img.astype(np.uint8), brightness=bright, contrast=alpha, saturation=sat, hue=hue,
+        contrast_first=(mode == 1),
+    )
+    img = native.normalize_pad_f32(img, IMG_NORM_MEAN, IMG_NORM_STD, crop_size[1], crop_size[0])
+    _, mask = pad_to_size(np.zeros_like(mask, np.uint8), mask, crop_size, ignore_index)
+    return img, mask.astype(np.int32)
 
 
 def val_transform(
@@ -170,13 +249,14 @@ def val_transform(
 
 
 class ADE20KDataset:
-    """File discovery and per-item decode and transform of ADE20K val.
+    """File discovery and per-item decode and transform of ADE20K.
 
     Two layouts, as the reference: ``images/<split>`` beside
-    ``annotations/<split>`` (``split`` named ``validation``), or
-    ``<split>/img`` beside ``<split>/annotations``. Images are every
-    ``*.jpg`` below the image directory, sorted; each mask is
-    ``<stem>.png`` in the annotation directory.
+    ``annotations/<split>`` (``split`` named ``training`` or
+    ``validation``), or ``<split>/img`` beside ``<split>/annotations``.
+    Images are every ``*.jpg`` below the image directory, sorted; each mask
+    is ``<stem>.png`` in the annotation directory. A train item's
+    augmentation draws from ``random.Random(f"{seed}:{epoch}:{idx}")``.
     """
 
     CLASSES = ADE20K_CLASSES
@@ -190,6 +270,7 @@ class ADE20KDataset:
         crop_size: Tuple[int, int] = CROP_SIZE,
         ignore_index: int = 255,
         keep_ratio_val: bool = False,
+        seed: int = 0,
     ):
         if split not in {"train", "training", "val", "validation", "test"}:
             raise ValueError(f"split {split!r}")
@@ -216,6 +297,16 @@ class ADE20KDataset:
         self.crop_size = crop_size
         self.ignore_index = ignore_index
         self.keep_ratio_val = keep_ratio_val
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Advance the augmentation stream: a train item's RNG is keyed by
+        (seed, epoch, idx), so a run is reproducible and each epoch draws
+        afresh. A caller that iterates the dataset over epochs must advance
+        it (this method, or ``DataLoader``'s ``epoch=`` or
+        ``infinite=True``), or every epoch repeats the first's draws."""
+        self.epoch = int(epoch)
 
     def __len__(self) -> int:
         return len(self.images)
@@ -228,13 +319,15 @@ class ADE20KDataset:
         return img, reduce_zero_label(mask, self.ignore_index)
 
     def __getitem__(self, idx: int) -> dict:
-        if self.is_train:
-            raise NotImplementedError(
-                "the train transform comes with the seg trainer (ROADMAP.md, Queue 1 item 3)"
-            )
         img, mask = self.load_raw(idx)
-        img, mask = val_transform(
-            img, mask, crop_size=self.crop_size, keep_ratio=self.keep_ratio_val,
-            ignore_index=self.ignore_index,
-        )
+        if self.is_train:
+            rng = random.Random(f"{self.seed}:{self.epoch}:{idx}")
+            img, mask = train_transform(
+                img, mask, rng, crop_size=self.crop_size, ignore_index=self.ignore_index,
+            )
+        else:
+            img, mask = val_transform(
+                img, mask, crop_size=self.crop_size, keep_ratio=self.keep_ratio_val,
+                ignore_index=self.ignore_index,
+            )
         return {"image": img, "label": mask, "path": str(self.images[idx])}

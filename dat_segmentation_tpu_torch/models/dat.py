@@ -17,7 +17,11 @@ Kept from the reference, as in the JAX package:
 (``ops/x_block.py``) where the JAX package's gate lets it
 (``models/dat.py:103-118`` there), decided per stage at the stage's true
 H, W: a ConvMLP stage (``use_dwc_mlp``, not CMT), dropout 0 or eval, and
-H and W multiples of 8. Then an 'X' block is one kernel (its LPU
+H and W multiples of 8; and within the CUDA kernel's own limits
+(``ops/x_block.py``: C a multiple of ``CHANNEL_MULTIPLE`` up to
+``MAX_CHANNELS``, the hidden width a multiple of ``HIDDEN_MULTIPLE``, an
+'X' block's window in ``WINDOWS``), so that a config the JAX package runs
+never makes the kernel refuse it. Then an 'X' block is one kernel (its LPU
 included, so the separate LPU is skipped) and a 'D' block's second half
 (LN + ConvMLP) is another, in MLP-only mode. Any other ``kernel_impl``
 ('xla', 'auto', 'gather') is the unfused chain, as the JAX package runs
@@ -44,7 +48,8 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.x_block import fused_conv_mlp, fused_x_block
+from ..ops.x_block import (CHANNEL_MULTIPLE, HIDDEN_MULTIPLE, MAX_CHANNELS, WINDOWS,
+                           fused_conv_mlp, fused_x_block)
 from .deformable_attention import DeformableAttention
 from .layers import (CmtConvMlp, Conv2d, ConvMlp, DropPath, Dropout, LayerNorm2d, LayerScale,
                      Mlp, gelu)
@@ -90,8 +95,15 @@ class TransformerStage(nn.Module):
         self.layer_scale = layer_scale_value > 0
         self.window_size = window_size
         self.drop = drop
-        # the shape-free clauses of the JAX gate (dat.py:105-110 there)
-        self.fusable = kernel_impl == "pallas" and use_dwc_mlp and not use_cmt_mlp
+        # the shape-free clauses of the JAX gate (dat.py:105-110 there), and
+        # the CUDA kernel's own limits (ops/x_block.py:_check): a stage
+        # outside them runs the unfused chain
+        self.fusable = (
+            kernel_impl == "pallas" and use_dwc_mlp and not use_cmt_mlp
+            and dim % CHANNEL_MULTIPLE == 0 and dim <= MAX_CHANNELS
+            and (dim * expansion) % HIDDEN_MULTIPLE == 0
+            and ("X" not in self.stage_spec or window_size in WINDOWS)
+        )
         if in_dim != dim:
             self.proj = Conv2d(in_dim, dim, 1)
         if use_dwc_mlp:
@@ -134,7 +146,8 @@ class TransformerStage(nn.Module):
         return getattr(self, f"{name}_{d}")
 
     def fuses(self, H: int, W: int) -> bool:
-        """The JAX gate at this stage's true size: K3 runs here."""
+        """The JAX gate at this stage's true size, within the kernel's
+        limits: K3 runs here."""
         return (self.fusable and (self.drop == 0.0 or not self.training)
                 and H % 8 == 0 and W % 8 == 0)
 

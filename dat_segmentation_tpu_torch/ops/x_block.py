@@ -48,6 +48,8 @@ MODE_X_LPU, MODE_X, MODE_MLP = 0, 1, 2
 LN_EPS = 1e-5  # LayerNorm2d's (nn.LayerNorm's default), as the JAX kernel's
 CHANNEL_MULTIPLE = 32  # the kernel's channel chunk (every DAT++ width is a multiple)
 MAX_CHANNELS = 1024
+HIDDEN_MULTIPLE = 64  # the hidden width E = C x expansion, in fc1's and fc2's 64-wide tiles
+WINDOWS = (1, 3, 5, 7, 9)  # the window sizes the kernel is instanced for
 _PARAMS = ("w3", "b3", "w7", "b7", "g", "be", "wf1", "bf1", "wd", "bd", "wf2", "bf2")
 
 
@@ -120,10 +122,10 @@ def _check(x, params, with_lpu, window):
             raise ValueError(f"x_block: {name} {tuple(p.shape)}, want {shape}")
         if p.device != x.device:
             raise ValueError(f"x_block: {name} is on {p.device}, x on {x.device}")
-    if E % 64:
-        raise ValueError(f"x_block: hidden width {E} is not a multiple of 64")
-    if window not in (0, 1, 3, 5, 7, 9):
-        raise ValueError(f"x_block: window {window} not in 1, 3, 5, 7, 9")
+    if E % HIDDEN_MULTIPLE:
+        raise ValueError(f"x_block: hidden width {E} is not a multiple of {HIDDEN_MULTIPLE}")
+    if window and window not in WINDOWS:
+        raise ValueError(f"x_block: window {window} not in {', '.join(map(str, WINDOWS))}")
 
 
 @functools.lru_cache(maxsize=None)

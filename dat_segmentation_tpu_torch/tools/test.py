@@ -1,20 +1,23 @@
-"""Evaluation CLI of the port: a preset, a reference checkpoint and ADE20K
-val -> mIoU, on the card.
+"""Evaluation CLI of the port: a config, a checkpoint and ADE20K val ->
+mIoU, on the card.
 
     python -m dat_segmentation_tpu_torch.tools.test fpn_tiny_80k_dp04_lr2 CKPT.pth \\
-        --data-root /data/ade20k [--aug-test] [--mode slide] [--out r.json]
+        --data-root /data/ade20k [--aug-test] [--mode slide] [--out r.json] \\
+        [--set key=value ...]
 
 The port's ``tools/test.py`` (the JAX package's ``tools/test.py:22-61``)
-for what it has: ``CKPT.pth`` is a reference checkpoint (mmseg's head
-names or the standalone ones), translated and merged tolerantly, with
-the report printed. ``--aug-test`` uses the reference's ratios
+for what it has: the config is a preset or an mmseg-style ``.py`` file,
+with ``--set`` overrides, as the train CLI reads them
+(``tools/train.py:load_config``, ``apply_overrides``). ``CKPT`` is a
+reference ``.pth`` (mmseg's head names or the standalone ones), or a
+``ckpt_*`` directory the port's trainer wrote, merged tolerantly, with the
+report printed. ``--aug-test`` uses the reference's ratios
 (0.5 ... 1.75) and horizontal flip. It prints the per-class table and
 mIoU, and writes the result dict (mIoU, aAcc, per-class IoU and Acc,
 ``inter``, ``union``, ``num_images``) to ``--out``. ``--device`` is the
 card unless named (``cpu`` runs the plain PyTorch versions).
 
-Not yet here (ROADMAP.md, Queue 1): ``--set`` and config files,
-``--show-dir`` and ``--format-dir``, ``--distributed``; the JAX
+Not yet here (ROADMAP.md, Queue 1): ``--show-dir`` and ``--format-dir``, ``--distributed``; the JAX
 package's ``--pad-bucket``, ``--no-exact`` and ``--postproc-workers``
 have no counterpart (the port runs true shapes and resizes on the device).
 """
@@ -28,19 +31,19 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..configs import get_config
 from ..data.ade20k import ADE20K_CLASSES, ADE20KDataset
 from ..eval.evaluate import evaluate_dataset
 from ..eval.inference import SegInferencer
 from ..models.builder import build_model
 from ..train.checkpoint import load_pretrained, merge_pretrained
 from ..utils.device import resolve_device
+from .train import apply_overrides, load_config
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="DAT segmentation evaluation (PyTorch port)")
-    p.add_argument("config", help="preset name")
-    p.add_argument("checkpoint", help="reference torch .pth")
+    p.add_argument("config", help="preset name or python config file")
+    p.add_argument("checkpoint", help="reference torch .pth or a ckpt_* directory")
     p.add_argument("--data-root", required=True)
     p.add_argument("--aug-test", action="store_true", help="multi-scale + flip TTA")
     p.add_argument("--mode", default=None, choices=[None, "whole", "slide"])
@@ -50,6 +53,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="evaluate a shard (merge with merge_shard_results)")
     p.add_argument("--batch-size", type=int, default=4,
                    help="whole-mode images a forward, of one input shape (1 = per image)")
+    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                   help="dotted config overrides (must match the checkpoint)")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     return p.parse_args(argv)
 
@@ -57,7 +62,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = get_config(args.config)
+    cfg = load_config(args.config)
+    cfg = apply_overrides(cfg, args.set)
     torch.manual_seed(0)  # keys the checkpoint lacks stay at a reproducible init
     model = build_model(cfg.model, device=device)
     state = load_pretrained(args.checkpoint, cfg.model)

@@ -1,0 +1,103 @@
+"""Training CLI of the port: a preset or an mmseg config file, ADE20K, on
+the card.
+
+    python -m dat_segmentation_tpu_torch.tools.train upn_tiny_160k_dp03_lr6 \\
+        --data-root /data/ade20k [--max-iters N] [--resume] [--pretrained X] \\
+        [--work-dir DIR] [--set key=value ...] [--device cpu]
+
+The port's ``tools/train.py`` (the JAX package's, with
+``train/trainer_seg.py`` behind it). ``config`` is a preset name or a
+``.py`` config in mmseg's dict form (its ``_base_`` files merged;
+``configs/mmseg_compat.py``). ``--set`` takes dotted overrides, as mmseg's
+``--cfg-options`` (``--set data.batch_size=8 schedule.max_iters=80000``),
+each value read as a Python literal where it parses as one.
+``--pretrained`` is a reference ``.pth`` or a ``ckpt_*`` directory of this
+trainer; ``--resume`` continues from the latest ``ckpt_<step>`` in the
+work dir. ``--device`` is the card unless named (``cpu`` runs the plain
+PyTorch versions). ``main(argv)`` returns the trainer's (state, history).
+
+Not yet here (ROADMAP.md, Queue 1): the classifier (a ``ClsHead`` config
+raises, item 5), and with it ``--epochs`` and ``--no-mixup``;
+``--multihost`` (item 4); ``--diff-seed``, a no-op in the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+from pathlib import Path
+from typing import Optional, Sequence
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="DAT segmentation training (PyTorch port)")
+    p.add_argument("config", help="preset name or python config file")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--work-dir", default=None)
+    p.add_argument("--pretrained", default=None,
+                   help="reference torch .pth or a ckpt_* directory of this trainer")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in the work dir")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--eval-batch-size", type=int, default=1,
+                   help="whole-mode images a forward in the in-run eval")
+    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                   help="dotted config overrides")
+    p.add_argument("--device", default=None, help="torch device (default: the card)")
+    return p.parse_args(argv)
+
+
+def load_config(name_or_path: str):
+    """A preset, or a ``TrainConfig`` around the model of an mmseg-style
+    ``.py`` config."""
+    from ..configs import get_config
+    from ..configs.mmseg_compat import load_python_config, model_config_from_mmseg
+    from ..configs.schema import TrainConfig
+
+    if name_or_path.endswith(".py"):
+        model = model_config_from_mmseg(load_python_config(name_or_path))
+        return TrainConfig(name=Path(name_or_path).stem, model=model)
+    return get_config(name_or_path)
+
+
+def apply_overrides(cfg, pairs: Sequence[str]):
+    """``key=value`` dotted overrides, values read as Python literals where
+    they parse."""
+    from ..configs.schema import replace
+
+    for pair in pairs:
+        key, _, raw = pair.partition("=")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        cfg = replace(cfg, **{key: value})
+    return cfg
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = parse_args(argv)
+    from ..configs.schema import replace
+    from ..train.trainer_seg import train_segmentation
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    cfg = replace(cfg, **{"data.data_root": args.data_root, "seed": args.seed})
+    if args.work_dir:
+        cfg = replace(cfg, work_dir=args.work_dir)
+    cfg = apply_overrides(cfg, args.set)
+    if cfg.model.decode_head.type == "ClsHead":
+        raise NotImplementedError(
+            "ClsHead: the classifier trainer comes with the classifier slice "
+            "(ROADMAP.md, Queue 1 item 5)"
+        )
+    return train_segmentation(
+        cfg, pretrained=args.pretrained, resume=args.resume, max_iters=args.max_iters,
+        eval_batch_size=args.eval_batch_size, device=device,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -565,3 +565,91 @@ def test_load_pretrained_on_the_card(cuda, tmp_path):
     want = src.state_dict()
     for k, v in dst.state_dict().items():
         assert v.device.type == "cuda" and torch.equal(v, want[k]), k
+
+
+# -- the seg trainer on the card ------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_device_prefetch_on_the_card(cuda):
+    """Each batch is copied on a side stream; the consumer's stream waits for
+    it. Read back after a long product queued on the default stream (a read
+    that did not wait would race the copy), every batch equals its host
+    batch, in order; a producer's exception reaches the consumer."""
+    from dat_segmentation_tpu_torch.data.loader import device_prefetch
+
+    rng = np.random.RandomState(0)
+    host = [{"image": rng.randn(4, 256, 256, 3).astype(np.float32),
+             "label": rng.randint(0, 150, (4, 256, 256)).astype(np.int32), "path": [str(i)]}
+            for i in range(6)]
+    default = torch.cuda.current_stream(cuda)
+    x = torch.randn(2048, 2048, device=cuda)
+    got = []
+    for i, b in enumerate(device_prefetch(iter(host), cuda)):
+        assert b["path"] == [str(i)] and b["image"].device.type == "cuda"
+        assert torch.cuda.current_stream(cuda) == default
+        for _ in range(4):
+            x = x @ x / 2048
+        got.append(((b["image"] + 0).cpu().numpy(), b["label"].cpu().numpy()))
+    assert len(got) == len(host)
+    for (img, lab), h in zip(got, host):
+        np.testing.assert_array_equal(img, h["image"])
+        np.testing.assert_array_equal(lab, h["label"])
+
+    def failing():
+        yield host[0]
+        raise KeyError("decode failed")
+
+    gen = device_prefetch(failing(), cuda)
+    next(gen)
+    with pytest.raises(KeyError, match="decode failed"):
+        next(gen)
+
+
+def _train_layout(root):
+    for split in ("training", "validation"):
+        for kind, suffix in (("images", ".jpg"), ("annotations", ".png")):
+            (root / kind / split).mkdir(parents=True)
+            for p in sorted((ADE_TINY / kind / "validation").glob(f"*{suffix}")):
+                (root / kind / split / p.name).symlink_to(p)
+    return root
+
+
+@pytest.mark.cuda
+def test_small_train_segmentation_on_the_card(cuda, tmp_path):
+    """Two bf16 steps of the small UperNet (head width 32) through
+    ``train_segmentation`` on the card: finite losses, K1 and K2 launched,
+    ``ckpt_2`` restored bit for bit (model, AdamW, step and the CUDA
+    generator's state, through ``torch.save`` and ``map_location``), then a
+    resume to step 3."""
+    from dat_segmentation_tpu_torch.configs.schema import replace
+    from dat_segmentation_tpu_torch.train.checkpoint import CheckpointManager
+    from dat_segmentation_tpu_torch.train.trainer_seg import train_segmentation
+
+    cfg = get_config("upn_tiny_160k_dp03_lr6")
+    cfg = replace(dataclasses.replace(cfg, model=small_upernet(get_config, head_width=32,
+                                                               num_classes=150)), **{
+        "data.data_root": str(_train_layout(tmp_path / "data")), "data.batch_size": 2,
+        "data.crop_size": (64, 64), "data.num_workers": 2, "schedule.warmup_iters": 0,
+        "log_interval": 1, "checkpoint_interval": 2, "eval_interval": 2,
+        "work_dir": str(tmp_path / "work"), "name": "small"})
+    da.deform_attn.launches = da.deform_attn_bwd.launches = 0
+    state, hist = train_segmentation(cfg, max_iters=2, eval_max_images=1)
+    assert state.step == 2 and len(hist["loss"]) == 2 and np.isfinite(hist["loss"]).all()
+    assert 0.0 <= hist["val_miou"][0] <= 1.0
+    assert state.generator.device.type == "cuda"
+    assert da.deform_attn.launches > 0 and da.deform_attn_bwd.launches > 0
+    saved = CheckpointManager(tmp_path / "work" / "small").restore(2, map_location="cpu")
+    assert saved["step"] == 2
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(saved["model"][k], v.cpu()), k
+    opt = state.optimizer.state_dict()
+    for i, st in opt["state"].items():
+        for k, v in st.items():
+            assert torch.equal(torch.as_tensor(saved["optimizer"]["state"][i][k]).cpu(),
+                               torch.as_tensor(v).cpu()), (i, k)
+    assert torch.equal(saved["generator"], state.generator.get_state())
+    state, hist = train_segmentation(cfg, resume=True, max_iters=3, eval_max_images=1)
+    assert state.step == 3 and len(hist["loss"]) == 1
+    log = (tmp_path / "work" / "small" / "train.log").read_text()
+    assert "resumed from iter 2" in log

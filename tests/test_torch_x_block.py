@@ -154,8 +154,9 @@ def test_function_gradients_match_jax(mode):
 # The geometry of tests/test_x_block.py:test_stage_fused_matches_unfused, at
 # 64x64 (stages 16, 8, 4, 2: K3 runs at stages 0 and 1, the gate refuses 2
 # and 3), and a stage spec with 'D' blocks where K3 runs, for MLP-only mode.
+# Widths of 32, the kernel's channel multiple, where K3 runs.
 DAT_KW = dict(
-    img_size=32, patch_size=4, dim_stem=8, dims=(8, 16, 32, 64),
+    img_size=32, patch_size=4, dim_stem=8, dims=(32, 32, 32, 64),
     depths=(2, 1, 1, 1), heads=(2, 2, 4, 4), groups=(1, 2, 2, 4),
     stage_spec=(("X", "X"), ("X",), ("X",), ("D",)),
     use_pes=(True,) * 4, strides=(8, 4, 2, 1),
@@ -235,6 +236,66 @@ def test_gate_per_stage(dat_pair, monkeypatch):
     for i, stage in enumerate(stages):
         assert stage.fuses(16, 24) and not stage.fuses(12, 16)
         assert not getattr(port["auto"], f"stage_{i}").fuses(16, 16)
+
+
+def _stage(dim, expansion=4, window=7, spec=("X",)):
+    from dat_segmentation_tpu_torch.models.dat import TransformerStage
+
+    return TransformerStage(
+        in_dim=dim, fmap_size=(2, 2), window_size=window, dim_embed=dim, depths=len(spec),
+        stage_spec=spec, n_groups=1, use_pe=True, heads=2, stride=1, offset_range_factor=-1,
+        dwc_pe=False, no_off=False, fixed_pe=False, attn_drop=0.0, proj_drop=0.0,
+        expansion=expansion, drop=0.0, drop_path_rates=[0.0] * len(spec), use_dwc_mlp=True,
+        ksize=3, layer_scale_value=-1, use_lpu=True, use_cmt_mlp=False, log_cpb=False,
+        kernel_impl="pallas",
+    )
+
+
+@pytest.mark.parametrize("kw,fuses", [
+    (dict(dim=txb.CHANNEL_MULTIPLE), True),
+    (dict(dim=txb.CHANNEL_MULTIPLE + 16), False),  # not a multiple of the channel chunk
+    (dict(dim=txb.CHANNEL_MULTIPLE // 2), False),
+    (dict(dim=txb.MAX_CHANNELS), True),
+    (dict(dim=txb.MAX_CHANNELS + txb.CHANNEL_MULTIPLE), False),
+    (dict(dim=32, expansion=2), True),  # hidden width 64
+    (dict(dim=32, expansion=3), False),  # hidden width 96
+    (dict(dim=32, window=max(txb.WINDOWS)), True),
+    (dict(dim=32, window=max(txb.WINDOWS) + 2), False),
+    (dict(dim=32, window=1), True),
+    (dict(dim=32, window=max(txb.WINDOWS) + 2, spec=("D",)), True),  # MLP mode takes no window
+], ids=["c32", "c48", "c16", "c1024", "c1056", "e64", "e96", "k9", "k11", "k1", "k11_d_only"])
+def test_gate_keeps_to_the_kernel_limits(kw, fuses):
+    """The gate refuses a stage the CUDA launch would refuse (x_block._check):
+    C off the channel multiple or above MAX_CHANNELS, a hidden width off
+    HIDDEN_MULTIPLE, an 'X' block's window outside WINDOWS; each at its
+    limit and one past it."""
+    stage = _stage(**kw).eval()
+    assert stage.fuses(16, 16) == fuses
+
+
+def test_pallas_backbone_with_window_11_runs_unfused_where_refused(monkeypatch):
+    """A 'pallas' backbone with a window of 11 (outside the kernel's
+    windows) builds and runs: stages with 'X' blocks run the unfused chain,
+    the 'D'-only stage at side 8 still runs K3 in MLP mode, and the output
+    equals the 'auto' backbone's on the same weights."""
+    kw = dict(DAT_KW, stage_spec=SPECS["d_blocks_fused"], window_sizes=(11,) * 4)
+    pallas = DAT(**kw, kernel_impl="pallas").eval()
+    auto = DAT(**kw, kernel_impl="auto").eval()
+    auto.load_state_dict(pallas.state_dict())
+    calls = []
+    real = txb.x_block_fwd
+
+    def spy(xx, *a, **k):
+        calls.append(tuple(xx.shape))
+        return real(xx, *a, **k)
+
+    monkeypatch.setattr(txb, "x_block_fwd", spy)
+    x = torch.from_numpy(np.random.RandomState(8).randn(1, 64, 64, 3).astype(np.float32))
+    with torch.no_grad():
+        got, ref = pallas(x), auto(x)
+    assert calls == [(1, 8, 8, 32)]
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **FWD)
 
 
 def test_gate_refuses_dropout_in_training():
