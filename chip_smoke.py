@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving forward and training step on one CUDA
-card and check them.
+"""Drive the PyTorch port's serving forward and training step, its eval and
+trainer, and the classifier slice on one CUDA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -114,8 +114,33 @@ line each:
    each); checkpoint save and load seconds, the in-run val's seconds and
    the peak device memory.
 
-Then a ``kernels`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
+12-16. The classifier slice: cls_tiny_imagenet (DAT-T++, 26 blocks, 1000
+   classes) at 224², where every stage samples a 7x7 grid (Ns 49).
+   cls_kernel_check: K1 (and its log-sum-exp) and K2 against their plain
+   versions at the four stage shapes at batch 128 (56²-7² queries, tables
+   111-13; stage 3's K2 sums its table gradient over 1024 batch-groups),
+   float32 and bf16, the tolerances above. cls_model: the full classifier,
+   random weights from the seed, float32, TF32 off: the logits card vs CPU,
+   then one train step card vs CPU (drop path 0, CutMix from fixed draws:
+   loss, gradients, acc1, under the seg step's gates), with 'auto' and
+   'pallas'. cls_serve: ``make_cls_metric_step`` in bf16 at batch 128 with a
+   padded tail (counts set to 0 just before: 14 K1 a forward, 2 K3 with
+   'pallas'), its ms and img/s with 'auto' and 'pallas' in turns, peak
+   memory, profiles. cls_train: the preset as it is (drop path 0.2, mixup,
+   clip 5.0, bf16 on float32 masters, warm-up 0) at batch 128: finite
+   losses, 14 K1 + 14 K2 launches a step (+ 2 K3 with 'pallas'), ms a step
+   and img/s in turns, peak memory, a profile, and K1 and K2 per stage
+   beside their bound, plain version and SDPA yardstick. cls_loop: the train
+   CLI on ``tests/data/imagenet_tiny`` (batch 4, two epochs of three
+   steps): launches, ``ckpt_2``/``best``/``backbone_best``, the in-run val
+   counts against a recount on ``best``, a run preempted at step 3 whose
+   resume restores ``ckpt_1`` bit for bit (model, AdamW, step, dropout
+   generator, mixup sampler); the loader alone (img/s) and per item the ms
+   of decode, crop + resize, flip, RandAugment, jitter + normalise, erasing.
+
+Then a ``kernels`` line (K1, K1-v1, K2, K3, with their launches by path),
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. Any failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -229,6 +254,25 @@ EVAL_BATCH_SHARE = 0.01
 # comparison says little.
 EVAL_F32_TIE = 2 * TOL_MODEL
 EVAL_F32_SHARE = 0.01
+
+# 12-16. the classifier slice (cls_tiny_imagenet: DAT-T++, 26 blocks, 1000
+# classes, 224²). Batch 128 is one card's share of the preset's 1024 over
+# eight cards. Every stage samples a 7x7 grid (Ns 49).
+CLS_PRESET = "cls_tiny_imagenet"
+CLS_IMG = 224
+CLS_BATCH = 128
+CLS_MODEL_BATCH = 2  # the float32 card-vs-CPU checks
+CLS_TRAIN_STEPS, CLS_TIME_STEPS = 4, 5
+CLS_DATA = "tests/data/imagenet_tiny"
+CLS_LOOP_BATCH, CLS_LOOP_EPOCHS = 4, 2  # 12 train images: 3 steps an epoch
+CLS_LOOP_SETS = (f"data.batch_size={CLS_LOOP_BATCH}", "schedule.warmup_iters=0", "log_interval=1")
+CLS_LOADER_ITEMS, CLS_LOADER_BATCH = 96, 32  # the loader alone: 3 batches
+# ILSVRC-2012 train's commonest sizes (500x375 and 375x500) at its mean file
+# size (about 110 KB: 138 GB over 1.28 M files); the fixture's are 96-320 px
+CLS_LOADER_SHAPES, CLS_LOADER_QUALITY = ((375, 500), (500, 375)), 90
+# the float32 train step card vs CPU replays these draws (CutMix), so that
+# both mix the same batch
+CLS_DRAWS = dict(use_cutmix=True, lam_mix=0.3, lam_cut=0.55, cy=100, cx=60)
 
 KERNELS = [
     {
@@ -429,17 +473,7 @@ def main() -> int:
     # ---- stage geometry of the flagship at 512x512 ---------------------------
     cfg = get_config(PRESET).model
     bb = cfg.backbone
-    stages = []
-    for i in range(4):
-        H = IMG // bb.patch_size // 2 ** i
-        ks, st = bb.ksizes[i], bb.strides[i]
-        Hk = (H + 2 * (ks // 2 if ks != st else 0) - ks) // st + 1  # the offset conv's output
-        q_size = bb.img_size // bb.patch_size // 2 ** i
-        stages.append(dict(
-            stage=i, g=bb.groups[i], h_g=bb.heads[i] // bb.groups[i],
-            Cg=bb.dims[i] // bb.groups[i], H=H, W=H, Ns=Hk * Hk,
-            th=2 * q_size - 1, launches_per_forward=bb.stage_spec[i].count("D"),
-        ))
+    stages = stage_geometry(bb, IMG)
     scale = 32 ** -0.5
     xb_bound = x_block_bound(cfg.backbone, stages, card)
     emit(xb_bound)
@@ -718,10 +752,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. times -------------------------------------------------------------
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-              "ops_ms": 0.0, "bytes_ms": 0.0, **{f"{v}_ms": 0.0 for v in K1_VARIANTS}}
-    for s in stages:
-        q, k, v, pos, table = k1_inputs(B=TIME_BATCH, dtype=torch.bfloat16, **s)
+    def k1_stage_time(s, B):
+        """K1 at one stage's shapes, batch B, bf16: ms (and its attribution
+        build's), the plain version's, one SDPA with the bias prebuilt, and
+        the bound."""
+        q, k, v, pos, table = k1_inputs(B=B, dtype=torch.bfloat16, **s)
         BG, H, W, Cg = q.shape
         Ns, h_g, th = s["Ns"], s["h_g"], s["th"]
         kw = dict(n_groups=s["g"], scale=scale)
@@ -742,20 +777,68 @@ def main() -> int:
         nbytes = (2 * q.numel() + k.numel() + v.numel() + table.numel()) * 2 + pos.numel() * 4
         ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound_ms = max(ops_ms, bytes_ms)
-        n = s["launches_per_forward"]
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                         ("library_ms", lib_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms),
-                         *((f"{v}_ms", t) for v, t in variant_ms.items())):
-            totals[key] += val * n
-        emit({"phase": "kernel_time", "card": card, "kernel": "deform_attn_fwd",
-              "stage": s["stage"], "dtype": "bfloat16", "batch": TIME_BATCH,
-              "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
-              "launches_per_forward": n, "ms": ms, "plain_ms": plain_ms,
-              "attribution_ms": variant_ms,
-              "library": "scaled_dot_product_attention, bias prebuilt (lookup not timed)",
-              "library_ms": lib_ms, "bound_ms": bound_ms,
-              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-              "roofline_share": bound_ms / ms})
+        return {"kernel": "deform_attn_fwd", "stage": s["stage"], "dtype": "bfloat16",
+                "batch": B, "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
+                "launches_per_forward": s["launches_per_forward"], "ms": ms,
+                "plain_ms": plain_ms, "attribution_ms": variant_ms,
+                "library": "scaled_dot_product_attention, bias prebuilt (lookup not timed)",
+                "library_ms": lib_ms, "bound_ms": bound_ms, "ops_ms": ops_ms,
+                "bytes_ms": bytes_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "roofline_share": bound_ms / ms}
+
+    def k2_stage_time(s, B):
+        """K2 at one stage's shapes, batch B, bf16, as ``k1_stage_time``; the
+        yardstick is SDPA's backward with the bias prebuilt."""
+        q, k, v, pos, table = k1_inputs(B=B, dtype=torch.bfloat16, **s)
+        dout = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(SEED),
+                           device=dev).to(torch.bfloat16)
+        BG, H, W, Cg = q.shape
+        Ns, h_g = s["Ns"], s["h_g"]
+        kw = dict(n_groups=s["g"], scale=scale)
+        out, lse = da._fwd_kernel(q, k, v, pos, table, s["g"], scale, 0, 0, with_lse=True)
+        ms = timed(lambda: da.deform_attn_bwd(q, k, v, pos, table, dout, out=out, lse=lse,
+                                              **kw), 10)
+        variant_ms = {name: timed(lambda: da._bwd_launch(da._bwd_library(d), q, k, v, pos, table,
+                                                         dout, out, lse, s["g"], scale, 0, 0), 10)
+                      for name, d in K2_VARIANTS.items()}
+        plain_ms = timed(lambda: da.deform_attn_bwd_reference(q, k, v, pos, table, dout, **kw), 3, 1)
+        heads = [t.reshape(BG, -1, h_g, 32).transpose(1, 2).contiguous().requires_grad_(True)
+                 for t in (q, k, v)]
+        bias = da.rpe_bias(pos, table, H, W).to(torch.bfloat16).requires_grad_(True)
+        out = F.scaled_dot_product_attention(*heads, attn_mask=bias, scale=scale)
+        d_out = dout.reshape(BG, H * W, h_g, 32).transpose(1, 2).contiguous()
+        lib_ms = timed(lambda: torch.autograd.grad(out, heads + [bias], d_out, retain_graph=True), 5)
+        del out, heads, bias
+        ops = 10.0 * BG * H * W * Ns * Cg
+        # the gradient's own traffic: read q, k, v, table, dout (bf16) and pos;
+        # write dq (bf16), dk, dv, dpos, dtable (float32). The out and lse
+        # that this design also reads are not counted.
+        nbytes = ((3 * q.numel() + k.numel() + v.numel() + table.numel()) * 2
+                  + (k.numel() + v.numel() + 2 * pos.numel() + table.numel()) * 4)
+        ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        return {"kernel": "deform_attn_bwd", "stage": s["stage"], "dtype": "bfloat16",
+                "batch": B, "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
+                "launches_per_step": s["launches_per_forward"], "ms": ms, "plain_ms": plain_ms,
+                "attribution_ms": variant_ms,
+                "library": "scaled_dot_product_attention backward, bias prebuilt and requiring "
+                           "grad (the bias -> pos, table chain not timed)",
+                "library_ms": lib_ms, "bound_ms": bound_ms, "ops_ms": ops_ms,
+                "bytes_ms": bytes_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "roofline_share": bound_ms / ms}
+
+    def add_stage(tot, row):
+        n = row["launches_per_forward" if "launches_per_forward" in row else "launches_per_step"]
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms"):
+            tot[key] = tot.get(key, 0.0) + row[key] * n
+        for v, t in row["attribution_ms"].items():
+            tot[f"{v}_ms"] = tot.get(f"{v}_ms", 0.0) + t * n
+
+    totals = {}
+    for s in stages:
+        row = k1_stage_time(s, TIME_BATCH)
+        add_stage(totals, row)
+        emit({"phase": "kernel_time", "card": card, **row})
 
     xtot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "chain_ms": 0.0,
             "ops_ms": 0.0, "bytes_ms": 0.0}
@@ -872,17 +955,7 @@ def main() -> int:
                                k3=xb.x_block_fwd.launches)
         gm, cm = runs["card"]["metrics"], runs["cpu"]["metrics"]
         loss_rel = abs(gm["loss"].item() - cm["loss"].item()) / abs(cm["loss"].item())
-        dsq = gsq = 0.0
-        per_param = []
-        for (name, pg), (_, pc) in zip(gmodel.named_parameters(), cmodel.named_parameters()):
-            d = (pg.grad.cpu() - pc.grad).norm().item()
-            gn = pc.grad.norm().item()
-            dsq, gsq = dsq + d * d, gsq + gn * gn
-            per_param.append((d, gn, name))
-        grad_rel = (dsq / gsq) ** 0.5
-        # the worst of the parameters whose gradient is not float32 noise
-        worst = max((t for t in per_param if t[1] > 1e-6 * gsq ** 0.5), key=lambda t: t[0] / t[1])
-        off = [n for d, g, n in per_param if d > TOL_GRAD_PARAM * g + 1e-6 * gsq ** 0.5]
+        grad_rel, worst, off, per_param, gsq = grad_compare(gmodel, cmodel)
         bn_err = max((b.cpu() - cb).abs().max().item()
                      for (n, b), (_, cb) in zip(gmodel.named_buffers(), cmodel.named_buffers())
                      if n.endswith(("running_mean", "running_var")))
@@ -1056,51 +1129,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. train times: K2 per stage, the step, its profile ------------------
-    btot = {key: 0.0 for key in totals}
+    btot = {}
     for s in stages:
-        q, k, v, pos, table = k1_inputs(B=TIME_BATCH, dtype=torch.bfloat16, **s)
-        dout = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(SEED),
-                           device=dev).to(torch.bfloat16)
-        BG, H, W, Cg = q.shape
-        Ns, h_g = s["Ns"], s["h_g"]
-        kw = dict(n_groups=s["g"], scale=scale)
-        out, lse = da._fwd_kernel(q, k, v, pos, table, s["g"], scale, 0, 0, with_lse=True)
-        ms = timed(lambda: da.deform_attn_bwd(q, k, v, pos, table, dout, out=out, lse=lse,
-                                              **kw), 10)
-        variant_ms = {name: timed(lambda: da._bwd_launch(da._bwd_library(d), q, k, v, pos, table,
-                                                         dout, out, lse, s["g"], scale, 0, 0), 10)
-                      for name, d in K2_VARIANTS.items()}
-        plain_ms = timed(lambda: da.deform_attn_bwd_reference(q, k, v, pos, table, dout, **kw), 3, 1)
-        heads = [t.reshape(BG, -1, h_g, 32).transpose(1, 2).contiguous().requires_grad_(True)
-                 for t in (q, k, v)]
-        bias = da.rpe_bias(pos, table, H, W).to(torch.bfloat16).requires_grad_(True)
-        out = F.scaled_dot_product_attention(*heads, attn_mask=bias, scale=scale)
-        d_out = dout.reshape(BG, H * W, h_g, 32).transpose(1, 2).contiguous()
-        lib_ms = timed(lambda: torch.autograd.grad(out, heads + [bias], d_out, retain_graph=True), 5)
-        del out, heads, bias
-        ops = 10.0 * BG * H * W * Ns * Cg
-        # the gradient's own traffic: read q, k, v, table, dout (bf16) and pos;
-        # write dq (bf16), dk, dv, dpos, dtable (float32). The out and lse
-        # that this design also reads are not counted.
-        nbytes = ((3 * q.numel() + k.numel() + v.numel() + table.numel()) * 2
-                  + (k.numel() + v.numel() + 2 * pos.numel() + table.numel()) * 4)
-        ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
-        n = s["launches_per_forward"]
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                         ("library_ms", lib_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms),
-                         *((f"{v}_ms", t) for v, t in variant_ms.items())):
-            btot[key] = btot.get(key, 0.0) + val * n
-        emit({"phase": "kernel_time", "card": card, "kernel": "deform_attn_bwd",
-              "stage": s["stage"], "dtype": "bfloat16", "batch": TIME_BATCH,
-              "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
-              "launches_per_step": n, "ms": ms, "plain_ms": plain_ms,
-              "attribution_ms": variant_ms,
-              "library": "scaled_dot_product_attention backward, bias prebuilt and requiring "
-                         "grad (the bias -> pos, table chain not timed)",
-              "library_ms": lib_ms, "bound_ms": bound_ms,
-              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-              "roofline_share": bound_ms / ms})
+        row = k2_stage_time(s, TIME_BATCH)
+        add_stage(btot, row)
+        emit({"phase": "kernel_time", "card": card, **row})
 
     step_ms = timed(lambda: step(state, b16), TIME_STEPS, warmup=1)
     torch.cuda.reset_peak_memory_stats()
@@ -1142,6 +1175,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     loop_launches = train_loop_phase(torch, np, card, n_d, n_x)
 
+    # ---- 12-16. the classifier slice ----------------------------------------
+    cls_launches = cls_phases(torch, np, card, dev, dict(
+        timed=timed, k1_inputs=k1_inputs, k1_stage_time=k1_stage_time,
+        k2_stage_time=k2_stage_time, add_stage=add_stage))
+
     # ---- kernels line, card, verdict ----------------------------------------
     def line(kernel, n, err, tot):
         return dict(kernel, launches=n, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -1152,7 +1190,8 @@ def main() -> int:
     k1 = line(KERNELS[0], train_launches["deform_attn_fwd"], max_err, totals)
     k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"],
                               "eval": eval_launches,
-                              "train_loop": loop_launches["deform_attn_fwd"]}
+                              "train_loop": loop_launches["deform_attn_fwd"],
+                              **cls_launches["deform_attn_fwd"]}
     k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
               attribution_ms={v: totals[f"{v}_ms"] for v in K1_VARIANTS})
     k2 = line(KERNELS[1], train_launches["deform_attn_bwd"], max_err_bwd, btot)
@@ -1161,7 +1200,8 @@ def main() -> int:
               launches_by_path={"train": train_launches["deform_attn_bwd"],
                                 "train_crop": crop_launches["deform_attn_bwd"],
                                 "train_checkpoint": ck_launches["deform_attn_bwd"],
-                                "train_loop": loop_launches["deform_attn_bwd"]})
+                                "train_loop": loop_launches["deform_attn_bwd"],
+                                **cls_launches["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
     k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"], mma_instructions=k3_mma,
               warps_per_sm=k3_warps,
@@ -1170,8 +1210,14 @@ def main() -> int:
               launches_by_path={"serve": pserve_launches["x_block_fwd"],
                                 "predict": predict_launches,
                                 "train": ptrain_launches["x_block_fwd"],
-                                "train_loop": loop_launches["x_block_fwd"]})
-    emit({"kernels": [k1, k2, k3]})
+                                "train_loop": loop_launches["x_block_fwd"],
+                                **cls_launches["x_block_fwd"]})
+    # K1-v1 (the JAX package's fused_deform_attention_fwd) is K1's function
+    # without padded queries: the port runs it as K1's launch with hn = wn = 0,
+    # which is every launch above
+    k1v1 = dict(k1, name="deform_attn_fwd (v1: hn = wn = 0)",
+                replaces="dat_segmentation_tpu/ops/pallas/deform_attn.py:811")
+    emit({"kernels": [k1, k1v1, k2, k3]})
     print(f"chip_smoke: wall {time.perf_counter() - T_START:.1f} s", file=sys.stderr, flush=True)
     if failures:
         print("chip_smoke: failed: " + "; ".join(failures), file=sys.stderr)
@@ -1749,6 +1795,539 @@ def train_loop_phase(torch, np, card, n_d, n_x):
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cls_phases(torch, np, card, dev, h):
+    """12-16. The classifier slice on the card (see the module docstring).
+    ``h`` holds main's helpers (``timed``, ``k1_inputs``, ``k1_stage_time``,
+    ``k2_stage_time``, ``add_stage``). Returns each kernel's launches by path
+    (the counts set to 0 just before each path runs)."""
+    from dataclasses import replace
+
+    from dat_segmentation_tpu_torch import build_model, create_train_state, get_config
+    from dat_segmentation_tpu_torch import make_train_step
+    from dat_segmentation_tpu_torch.data.mixup import MixupDraws
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.ops import x_block as xb
+    from dat_segmentation_tpu_torch.train.train_step import make_cls_metric_step
+
+    timed = h["timed"]
+    tcfg = get_config(CLS_PRESET)
+    mc = tcfg.model
+    stages = stage_geometry(mc.backbone, CLS_IMG)
+    n_d = sum(s["launches_per_forward"] for s in stages)
+    n_x = k3_gate_count(mc.backbone, CLS_IMG, CLS_IMG)
+    scale = 32 ** -0.5
+    t_phase = time.perf_counter()
+
+    def reset():
+        da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
+
+    def counts():
+        return {"deform_attn_fwd": da.deform_attn.launches,
+                "deform_attn_bwd": da.deform_attn_bwd.launches,
+                "x_block_fwd": xb.x_block_fwd.launches}
+
+    def with_impl(model_cfg, impl):
+        return replace(model_cfg, backbone=replace(model_cfg.backbone, kernel_impl=impl))
+
+    class Fixed:  # stands in for the train state's MixupSampler
+        def draw(self, h_, w_):
+            return MixupDraws(**CLS_DRAWS)
+
+    # ---- 12. cls_kernel_check: K1 and K2 at the classifier's four stages ----
+    t0 = time.perf_counter()
+    for s in stages:
+        for dtype, tol, btol in ((torch.float32, TOL_F32, TOL_BWD_F32),
+                                 (torch.bfloat16, TOL_BF16, TOL_BWD_BF16)):
+            q, k, v, pos, table = h["k1_inputs"](B=CLS_BATCH, dtype=dtype, **s)
+            kw = dict(n_groups=s["g"], scale=scale)
+            with torch.inference_mode():
+                got = da.deform_attn(q, k, v, pos, table, **kw)
+                ref, ref_lse = da.deform_attn_reference(q, k, v, pos, table, return_lse=True, **kw)
+                got_t, lse = da._fwd_kernel(q, k, v, pos, table, s["g"], scale, 0, 0,
+                                            with_lse=True)
+            dout = torch.tensor(np.random.RandomState(SEED + 9).randn(*q.shape),
+                                dtype=torch.float32, device=dev).to(dtype)
+            bgot = da.deform_attn_bwd(q, k, v, pos, table, dout, **kw)
+            bref = da.deform_attn_bwd_reference(q, k, v, pos, table, dout, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse.float()).abs().max().item()
+            same = torch.equal(got, got_t)
+            rel = {n: (a.float() - b.float()).abs().max().item()
+                   / max(b.float().abs().max().item(), 1e-12)
+                   for n, a, b in zip(GRADS, bgot, bref)}
+            emit({"phase": "cls_kernel_check", "card": card, "stage": s["stage"],
+                  "dtype": str(dtype).split(".")[1], "q": list(q.shape), "k": list(k.shape),
+                  "table": list(table.shape), "batch_groups": q.shape[0],
+                  "deform_attn_fwd": {"max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+                                      "tol_lse": TOL_LSE,
+                                      "serving_output_equals_training_launch": same},
+                  "deform_attn_bwd": {"max_rel_err": rel, "tol_rel": btol}})
+            what = f"cls_kernel_check stage {s['stage']} {dtype}"
+            check(err <= tol and got.shape == ref.shape, f"{what}: K1 {err} > {tol}")
+            check(lse_err <= TOL_LSE, f"{what}: K1 log-sum-exp {lse_err} > {TOL_LSE}")
+            check(same, f"{what}: the log-sum-exp launch moved K1's output")
+            check(max(rel.values()) <= btol and all(a.shape == b.shape for a, b in zip(bgot, bref)),
+                  f"{what}: K2 {rel} > {btol}")
+            del q, k, v, pos, table, got, ref, got_t, lse, ref_lse, dout, bgot, bref
+    torch.cuda.empty_cache()
+    emit({"phase": "cls_kernel_check", "card": card, "seconds": time.perf_counter() - t0})
+
+    # ---- 13. cls_model: float32, TF32 off, card against CPU -----------------
+    quiet = replace(mc, backbone=replace(mc.backbone, drop_path_rate=0.0))
+    rng = np.random.RandomState(SEED + 11)
+    image = torch.tensor(rng.randn(CLS_MODEL_BATCH, CLS_IMG, CLS_IMG, 3), dtype=torch.float32)
+    batch = {"image": image, "label": torch.tensor(rng.randint(0, mc.num_classes,
+                                                                CLS_MODEL_BATCH))}
+    torch.manual_seed(SEED)
+    weights = build_model(quiet, device="cpu").state_dict()
+    logits_by_impl = {}
+    for impl in ("auto", "pallas"):
+        qcfg = with_impl(quiet, impl)
+        gmodel = build_model(qcfg, device=dev)
+        gmodel.load_state_dict(weights)
+        cmodel = build_model(qcfg, device="cpu")
+        cmodel.load_state_dict(weights)
+        reset()
+        with torch.inference_mode():
+            glog = gmodel(image.to(dev)).float()
+            torch.cuda.synchronize()
+            fwd_launches = counts()
+            clog = cmodel(image)
+        logits_by_impl[impl] = glog.cpu()
+        dlogit = (glog.cpu() - clog).abs().max().item()
+        runs = {}
+        for where, m in (("card", gmodel), ("cpu", cmodel)):
+            st = create_train_state(m, replace(tcfg, model=qcfg,
+                                               schedule=replace(tcfg.schedule, warmup_iters=0)))
+            st.mixup = Fixed()
+            stp = make_train_step(m, task="cls", num_classes=mc.num_classes,
+                                  compute_dtype=torch.float32, mixup=True)
+            reset()
+            t1 = time.perf_counter()
+            _, met = stp(st, batch)
+            if where == "card":
+                torch.cuda.synchronize()
+            runs[where] = dict(metrics={k: v.cpu() for k, v in met.items()}, launches=counts(),
+                               seconds=time.perf_counter() - t1)
+        gm, cm = runs["card"]["metrics"], runs["cpu"]["metrics"]
+        loss_rel = abs(gm["loss"].item() - cm["loss"].item()) / abs(cm["loss"].item())
+        grad_rel, worst, off, _, gsq = grad_compare(gmodel, cmodel)
+        want_fwd = {"deform_attn_fwd": n_d, "deform_attn_bwd": 0,
+                    "x_block_fwd": n_x if impl == "pallas" else 0}
+        want_step = dict(want_fwd, deform_attn_bwd=n_d)
+        emit({"phase": "cls_model", "card": card, "preset": CLS_PRESET, "kernel_impl": impl,
+              "dtype": "float32", "tf32": False, "input": list(image.shape),
+              "logits": list(glog.shape), "max_abs_dlogit": dlogit, "tol": TOL_MODEL,
+              "logit_absmax": clog.abs().max().item(),
+              "argmax_agreement": (glog.cpu().argmax(-1) == clog.argmax(-1)).float().mean().item(),
+              "forward_launches": fwd_launches, "step_launches": runs["card"]["launches"],
+              "mixup_draws": CLS_DRAWS, "drop_path": 0.0,
+              "loss_card": gm["loss"].item(), "loss_cpu": cm["loss"].item(),
+              "loss_rel_err": loss_rel, "acc1_card": gm["acc1"].item(),
+              "acc1_cpu": cm["acc1"].item(), "grad_rel_err": grad_rel, "worst_param": worst[2],
+              "worst_param_rel_err": worst[0] / max(worst[1], 1e-30),
+              "grad_norm_total": gsq ** 0.5, "card_step_s": runs["card"]["seconds"],
+              "cpu_step_s": runs["cpu"]["seconds"],
+              "tol_step": {"loss": TOL_TRAIN_LOSS, "grad": TOL_GRAD, "grad_param": TOL_GRAD_PARAM}})
+        what = f"cls_model {impl}"
+        check(dlogit <= TOL_MODEL and bool(torch.isfinite(glog).all()),
+              f"{what}: max |dlogit| {dlogit} > {TOL_MODEL}")
+        check(fwd_launches == want_fwd, f"{what}: forward launches {fwd_launches}, want {want_fwd}")
+        check(runs["card"]["launches"] == want_step,
+              f"{what}: step launches {runs['card']['launches']}, want {want_step}")
+        check(loss_rel <= TOL_TRAIN_LOSS, f"{what}: loss rel err {loss_rel} > {TOL_TRAIN_LOSS}")
+        check(grad_rel <= TOL_GRAD, f"{what}: grad rel err {grad_rel} > {TOL_GRAD}")
+        check(not off, f"{what}: gradients beyond {TOL_GRAD_PARAM}: {off}")
+        check(gm["acc1"].item() == cm["acc1"].item(), f"{what}: acc1 {gm['acc1']} vs {cm['acc1']}")
+        del gmodel, cmodel, runs
+    d_fused = (logits_by_impl["pallas"] - logits_by_impl["auto"]).abs().max().item()
+    check(d_fused <= TOL_MODEL, f"cls_model: pallas vs auto on the card {d_fused} > {TOL_MODEL}")
+    torch.cuda.empty_cache()
+
+    # ---- 14. cls_serve: the bf16 forward and metric step at batch 128 -------
+    torch.manual_seed(SEED)
+    models = {impl: build_model(with_impl(mc, impl), device=dev) for impl in ("auto", "pallas")}
+    models["pallas"].load_state_dict(models["auto"].state_dict())
+    fns = {impl: make_cls_metric_step(m, compute_dtype=torch.bfloat16) for impl, m in models.items()}
+    rng = np.random.RandomState(SEED + 12)
+    x = torch.tensor(rng.randn(CLS_BATCH, CLS_IMG, CLS_IMG, 3), dtype=torch.float32, device=dev)
+    label = torch.tensor(rng.randint(0, mc.num_classes, CLS_BATCH), device=dev)
+    pad = CLS_BATCH // 16  # a padded tail of 8 rows at batch 128
+    valid = torch.arange(CLS_BATCH, device=dev) < CLS_BATCH - pad
+    serve = {}
+    for impl, fn in fns.items():
+        torch.cuda.synchronize()
+        reset()
+        got = fn(x, label, valid)
+        torch.cuda.synchronize()
+        serve[impl] = counts()
+        hits = got.tolist()
+        want = {"deform_attn_fwd": n_d, "deform_attn_bwd": 0,
+                "x_block_fwd": n_x if impl == "pallas" else 0}
+        emit({"phase": "cls_serve", "card": card, "kernel_impl": impl, "dtype": "bfloat16",
+              "batch": CLS_BATCH, "valid": int(valid.sum()), "hits1_hits5_total": hits,
+              "launches": serve[impl]})
+        check(serve[impl] == want, f"cls_serve {impl}: launches {serve[impl]}, want {want}")
+        check(got.dtype == torch.int32 and hits[2] == CLS_BATCH - pad
+              and 0 <= hits[0] <= hits[1] <= hits[2], f"cls_serve {impl}: counts {hits}")
+    with torch.inference_mode():  # the forward alone, bf16, as the metric step runs it
+        bf16_logits = torch.func.functional_call(
+            models["auto"], {n: p.to(torch.bfloat16) for n, p in models["auto"].named_parameters()},
+            (x.to(torch.bfloat16),))
+    check(bool(torch.isfinite(bf16_logits).all())
+          and bf16_logits.shape == (CLS_BATCH, mc.num_classes),
+          "cls_serve: bf16 logits not finite or of the wrong shape")
+    ms = {"auto": [], "pallas": []}
+    for impl in ("auto", "pallas", "pallas", "auto") * 3:
+        ms[impl].append(timed(lambda: fns[impl](x, label, valid), 10))
+    peak = {}
+    for impl, fn in fns.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn(x, label, valid)
+        torch.cuda.synchronize()
+        peak[impl] = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    emit({"phase": "cls_serve", "card": card, "dtype": "bfloat16", "batch": CLS_BATCH,
+          "compare": "kernel_impl auto vs pallas, in turns", "order": "(auto pallas pallas auto) x 3",
+          "ms": ms, "median_ms": med,
+          "img_per_s": {k: [CLS_BATCH / v * 1e3 for v in vs] for k, vs in ms.items()},
+          "median_img_per_s": {k: CLS_BATCH / v * 1e3 for k, v in med.items()},
+          "peak_mem_gib": peak})
+    for impl in ("auto", "pallas"):
+        prof = profile_device(torch, lambda: fns[impl](x, label, valid), card, med[impl],
+                              "forward")
+        emit(dict(prof, preset=CLS_PRESET, kernel_impl=impl, batch=CLS_BATCH))
+    del models, fns, x, bf16_logits
+    torch.cuda.empty_cache()
+
+    # ---- 15. cls_train: the preset as it is, bf16, batch 128 ----------------
+    ncfg = replace(tcfg, schedule=replace(tcfg.schedule, warmup_iters=0))
+    torch.manual_seed(SEED)
+    steps = {}
+    for impl in ("auto", "pallas"):
+        m = build_model(with_impl(mc, impl), device=dev)
+        if impl == "pallas":
+            m.load_state_dict(steps["auto"][2].state_dict())
+        st = create_train_state(m, replace(ncfg, model=with_impl(mc, impl)))
+        steps[impl] = (make_train_step(m, task="cls", num_classes=mc.num_classes,
+                                       compute_dtype=torch.bfloat16, mixup=True), st, m)
+    rng = np.random.RandomState(SEED + 13)
+    b128 = {"image": torch.tensor(rng.randn(CLS_BATCH, CLS_IMG, CLS_IMG, 3), dtype=torch.float32,
+                                  device=dev),
+            "label": torch.tensor(rng.randint(0, mc.num_classes, CLS_BATCH), device=dev)}
+    train = {}
+    for impl, (fn, st, _) in steps.items():
+        torch.cuda.synchronize()
+        reset()
+        mets = [fn(st, b128)[1] for _ in range(CLS_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        train[impl] = counts()
+        losses = [mm["loss"].item() for mm in mets]
+        gnorms = [mm["grad_norm"].item() for mm in mets]
+        want = {"deform_attn_fwd": n_d * CLS_TRAIN_STEPS, "deform_attn_bwd": n_d * CLS_TRAIN_STEPS,
+                "x_block_fwd": (n_x if impl == "pallas" else 0) * CLS_TRAIN_STEPS}
+        emit({"phase": "cls_train", "card": card, "preset": CLS_PRESET, "kernel_impl": impl,
+              "dtype": "bfloat16", "batch": CLS_BATCH, "steps": CLS_TRAIN_STEPS,
+              "drop_path_rate": mc.backbone.drop_path_rate, "mixup": True,
+              "grad_clip": tcfg.optimizer.grad_clip, "warmup_iters": 0,
+              "losses": losses, "grad_norms": gnorms,
+              "acc1": [mm["acc1"].item() for mm in mets],
+              "update_ratios": [mm["update_ratio"].item() for mm in mets],
+              "launches": train[impl],
+              "launches_per_step": {k: v / CLS_TRAIN_STEPS for k, v in train[impl].items()}})
+        check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+              f"cls_train {impl}: non-finite loss or grad norm {losses} {gnorms}")
+        check(train[impl] == want, f"cls_train {impl}: launches {train[impl]}, want {want}")
+    sms = {"auto": [], "pallas": []}
+    for impl in ("auto", "pallas", "pallas", "auto"):
+        fn, st, _ = steps[impl]
+        sms[impl].append(timed(lambda: fn(st, b128), CLS_TIME_STEPS, warmup=1))
+    speak = {}
+    for impl, (fn, st, _) in steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn(st, b128)
+        torch.cuda.synchronize()
+        speak[impl] = torch.cuda.max_memory_allocated() / 2 ** 30
+    smed = {k: statistics.median(v) for k, v in sms.items()}
+    fn, st, _ = steps["auto"]
+    prof = profile_device(torch, lambda: fn(st, b128), card, smed["auto"], "step", iters=2)
+    k1tot, k2tot = {}, {}
+    for s in stages:
+        row = h["k1_stage_time"](s, CLS_BATCH)
+        h["add_stage"](k1tot, row)
+        emit({"phase": "cls_kernel_time", "card": card, **row})
+        row = h["k2_stage_time"](s, CLS_BATCH)
+        h["add_stage"](k2tot, row)
+        emit({"phase": "cls_kernel_time", "card": card, **row})
+    k12 = sum(prof.get("kernels_ms", {}).get(k, 0.0) for k in ("deform_attn_fwd", "deform_attn_bwd"))
+    emit({"phase": "cls_train", "card": card, "dtype": "bfloat16", "batch": CLS_BATCH,
+          "compare": "kernel_impl auto vs pallas, in turns", "order": "auto pallas pallas auto",
+          "ms_per_step": sms, "median_ms_per_step": smed,
+          "img_per_s": {k: [CLS_BATCH / v * 1e3 for v in vs] for k, vs in sms.items()},
+          "median_img_per_s": {k: CLS_BATCH / v * 1e3 for k, v in smed.items()},
+          "peak_mem_gib": speak,
+          "deform_attn_fwd_ms_per_step": k1tot, "deform_attn_bwd_ms_per_step": k2tot,
+          "k1_k2_share_profiled": (k12 / prof["device_ms_per_step"]
+                                   if "device_ms_per_step" in prof else None)})
+    emit(dict(prof, preset=CLS_PRESET, batch=CLS_BATCH))
+    del steps, b128, fn, st, prof
+    torch.cuda.empty_cache()
+
+    # ---- 16. cls_loop: the classifier trainer through the train CLI ---------
+    loop = cls_loop_phase(torch, np, card, n_d, reset, counts)
+    emit({"phase": "cls_phases", "card": card, "seconds": time.perf_counter() - t_phase})
+    out = {name: {} for name in ("deform_attn_fwd", "deform_attn_bwd", "x_block_fwd")}
+    out["deform_attn_fwd"].update(cls_serve=serve["auto"]["deform_attn_fwd"],
+                                  cls_train=train["auto"]["deform_attn_fwd"],
+                                  cls_loop=loop["deform_attn_fwd"])
+    out["deform_attn_bwd"].update(cls_train=train["auto"]["deform_attn_bwd"],
+                                  cls_loop=loop["deform_attn_bwd"])
+    out["x_block_fwd"].update(cls_serve=serve["pallas"]["x_block_fwd"],
+                              cls_train=train["pallas"]["x_block_fwd"])
+    return out
+
+
+def cls_loop_phase(torch, np, card, n_d, reset, counts):
+    """16. cls_loop: ``tools/train.py:main`` on cls_tiny_imagenet over the
+    fixture ``tests/data/imagenet_tiny`` (12 train, 6 val images), batch 4,
+    bf16, the preset's mixup, drop path and clip, warm-up 0. Run 1, two
+    epochs of three steps: finite losses, 14 K1 and 14 K2 launches a step,
+    ``ckpt_2``, ``ckpt_best`` and ``backbone_best``, and the in-run val's
+    top-1/5 counts equal to a recount with ``make_cls_metric_step`` on
+    ``best``. Run 2: a SIGTERM notice at step 3 writes ``ckpt_1``; the
+    resume restores it bit for bit (model, AdamW, step, the dropout
+    generator, the mixup sampler) and trains to step 6. Then the loader
+    alone on 96 synthetic JPEGs at ImageNet's size (``imagenet_like_jpegs``),
+    and per item the ms of each transform step.
+    Returns run 1's K1 and K2 launches."""
+    import random
+    import shutil
+    import tempfile
+
+    from dat_segmentation_tpu_torch import build_model, get_config
+    from dat_segmentation_tpu_torch.data import imagenet
+    from dat_segmentation_tpu_torch.data.image_io import imread_rgb
+    from dat_segmentation_tpu_torch.data.loader import DataLoader
+    from dat_segmentation_tpu_torch.tools import train as train_cli
+    from dat_segmentation_tpu_torch.train import trainer_cls
+    from dat_segmentation_tpu_torch.train.checkpoint import load_pretrained
+    from dat_segmentation_tpu_torch.train.train_step import make_cls_metric_step
+
+    root = Path(__file__).resolve().parent / CLS_DATA
+    tmp = Path(tempfile.mkdtemp(prefix="cls_loop_"))
+    real = (trainer_cls.make_train_step, trainer_cls.evaluate_topk, trainer_cls._restore_state,
+            trainer_cls.PreemptionGuard.should_checkpoint)
+    seen = {"steps": [], "losses": [], "val": [], "restored": []}
+
+    def make_step(*a, **k):
+        step = real[0](*a, **k)
+
+        def counted(state, batch):
+            before = counts()
+            out = step(state, batch)
+            seen["steps"].append({n: counts()[n] - before[n] for n in before})
+            seen["losses"].append(out[1]["loss"])
+            return out
+        return counted
+
+    def evaluate(*a, **k):
+        res = real[1](*a, **k)
+        seen["val"].append(res.tolist())
+        return res
+
+    def restore(st, saved):
+        out = real[2](st, saved)
+        model_eq = all(torch.equal(v.cpu(), saved["model"][k].cpu())
+                       for k, v in st.model.state_dict().items())
+        opt, sopt = st.optimizer.state_dict(), saved["optimizer"]
+        opt_eq = all(torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(sopt["state"][i][k]).cpu())
+                     for i, s_ in opt["state"].items() for k, v in s_.items())
+        seen["restored"].append({"model": model_eq, "adamw": opt_eq,
+                                 "step": st.step == saved["step"],
+                                 "generator": torch.equal(st.generator.get_state(),
+                                                          saved["generator"]),
+                                 "mixup": st.mixup.get_state() == saved["mixup"]})
+        return out
+
+    def args(run, *flags):
+        return [CLS_PRESET, "--data-root", str(root), "--work-dir", str(tmp / run),
+                "--epochs", str(CLS_LOOP_EPOCHS), *flags, "--set", *CLS_LOOP_SETS]
+
+    try:
+        trainer_cls.make_train_step, trainer_cls.evaluate_topk = make_step, evaluate
+        trainer_cls._restore_state = restore
+        # -- run 1: two epochs ---------------------------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        state, hist = train_cli.main(args("run1"))
+        torch.cuda.synchronize()
+        run1_s = time.perf_counter() - t0
+        launches = counts()
+        run_dir = tmp / "run1" / CLS_PRESET
+        names = sorted(p.name for p in run_dir.iterdir() if p.name.startswith(("ckpt_", "backbone")))
+        losses = [float(v) for v in seen["losses"]]
+        best_epoch = int(np.argmax(hist["val_acc1"]))  # the first epoch at the best top-1
+        bmodel = build_model(get_config(CLS_PRESET).model, device=torch.device("cuda"))
+        bmodel.load_state_dict(load_pretrained(str(run_dir / "ckpt_best"),
+                                               get_config(CLS_PRESET).model, kind="classifier"))
+        val_ds = imagenet.ImageNetDataset(str(root), "val", size=CLS_IMG)
+        again = real[1](make_cls_metric_step(bmodel, compute_dtype=torch.bfloat16), val_ds,
+                        CLS_LOOP_BATCH).tolist()
+        del bmodel, state
+        steps_n = len(seen["steps"])
+        emit({"phase": "cls_loop", "card": card, "run": "two epochs", "preset": CLS_PRESET,
+              "dtype": "bfloat16", "batch": CLS_LOOP_BATCH, "epochs": CLS_LOOP_EPOCHS,
+              "sets": CLS_LOOP_SETS, "losses": losses, "launches": launches,
+              "launches_per_step": seen["steps"], "val_counts": seen["val"],
+              "val_acc1": hist["val_acc1"], "val_acc5": hist["val_acc5"],
+              "recount_on_best": again, "ckpt_names": names, "wall_s": run1_s,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        want = {"deform_attn_fwd": n_d, "deform_attn_bwd": n_d, "x_block_fwd": 0}
+        check(steps_n == 6 and all(np.isfinite(losses)), f"cls_loop: steps {steps_n}, {losses}")
+        check(all(st_ == want for st_ in seen["steps"]),
+              f"cls_loop: launches a step {seen['steps']}, want {want}")
+        check(names == ["backbone_best", "ckpt_2", "ckpt_2.meta.json", "ckpt_best",
+                        "ckpt_best.meta.json"], f"cls_loop: checkpoints {names}")
+        check(len(seen["val"]) == 2 and all(v[2] == 6 for v in seen["val"]),
+              f"cls_loop: val counts {seen['val']}")
+        check(again == seen["val"][best_epoch],
+              f"cls_loop: recount on best {again}, in-run {seen['val'][best_epoch]}")
+
+        # -- run 2: preempted at step 3, then resumed ---------------------------
+        seen.update(steps=[], losses=[], val=[])
+        trainer_cls.PreemptionGuard.should_checkpoint = lambda self, step: step == 3
+        cut, cut_hist = train_cli.main(args("run2"))
+        trainer_cls.PreemptionGuard.should_checkpoint = real[3]
+        cut_meta = json.loads((tmp / "run2" / CLS_PRESET / "ckpt_1.meta.json").read_text())
+        seen.update(steps=[], losses=[])
+        resumed, _ = train_cli.main(args("run2", "--resume"))
+        rlosses = [float(v) for v in seen["losses"]]
+        emit({"phase": "cls_loop", "card": card, "run": "preempted at step 3, resumed",
+              "cut_step": cut.step, "cut_meta": cut_meta, "restored_equal": seen["restored"],
+              "resumed_losses": rlosses, "resumed_step": resumed.step})
+        check(cut.step == 3 and cut_meta.get("preempted") is True and cut_hist["val_acc1"] == [],
+              f"cls_loop: preemption gave step {cut.step}, meta {cut_meta}")
+        check(len(seen["restored"]) == 1 and all(seen["restored"][0].values()),
+              f"cls_loop: restore {seen['restored']}")
+        check(resumed.step == 6 and len(rlosses) == 3 and all(np.isfinite(rlosses)),
+              f"cls_loop: resumed to {resumed.step}, losses {rlosses}")
+        del cut, resumed
+        torch.cuda.empty_cache()
+    finally:
+        (trainer_cls.make_train_step, trainer_cls.evaluate_topk, trainer_cls._restore_state,
+         trainer_cls.PreemptionGuard.should_checkpoint) = real
+
+    try:
+        # -- the loader alone, and per item its steps on one thread --------------
+        kib = imagenet_like_jpegs(np, tmp / "loader" / "train", CLS_LOADER_ITEMS)
+        ds = imagenet.ImageNetDataset(str(tmp / "loader"), "train", size=CLS_IMG)
+        loader = DataLoader(ds, CLS_LOADER_BATCH, shuffle=True, drop_last=True, epoch=1)
+        t0 = time.perf_counter()
+        n = sum(len(b["label"]) for b in loader)
+        loader_s = time.perf_counter() - t0
+        parts = dict.fromkeys(("decode", "crop_resize", "flip", "rand_augment",
+                               "jitter_normalise", "erasing"), 0.0)
+        for idx, (path, _) in enumerate(ds.samples):  # train_transform_cls, step by step
+            rng = random.Random(f"0:0:{idx}")
+            steps = (("decode", lambda _: imread_rgb(path)),
+                     ("crop_resize", lambda im: imagenet.random_resized_crop(im, rng, CLS_IMG)),
+                     ("flip", lambda im: np.ascontiguousarray(im[:, ::-1])
+                      if rng.random() < 0.5 else im),
+                     ("rand_augment", lambda im: imagenet.rand_augment(im, rng)),
+                     ("jitter_normalise", lambda im: imagenet.normalize(
+                         imagenet.color_jitter(im, rng))),
+                     ("erasing", lambda im: imagenet.random_erasing(im, rng)))
+            img = None
+            for name, fn in steps:
+                t = time.perf_counter()
+                img = fn(img)
+                parts[name] += time.perf_counter() - t
+        per_item = {k: v / len(ds) * 1e3 for k, v in parts.items()}
+        emit({"phase": "cls_loop", "card": card, "run": "loader", "items": n,
+              "sides": CLS_LOADER_SHAPES, "mean_file_kib": kib, "batch": CLS_LOADER_BATCH, "threads": loader.num_threads,
+              "img_per_s": n / loader_s, "item_ms_one_thread": per_item,
+              "item_ms_total": sum(per_item.values())})
+        check(n == len(ds) // CLS_LOADER_BATCH * CLS_LOADER_BATCH, f"cls_loop: loader gave {n}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: launches[k] for k in ("deform_attn_fwd", "deform_attn_bwd")}
+
+
+def imagenet_like_jpegs(np, train_dir, n, seed=0):
+    """Write ``n`` JPEGs in three class folders under ``train_dir``, each
+    one of ``CLS_LOADER_SHAPES`` (three in four landscape), with
+    ImageNet-like entropy: a smooth colour field, noise at 4 px and noise
+    per pixel, all from ``seed``. Returns the mean file size in KiB."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    total = 0
+    for i in range(n):
+        h, w = CLS_LOADER_SHAPES[int(rng.random() >= 0.75)]
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+        img = np.empty((h, w, 3), np.float32)
+        for c in range(3):
+            fy, fx = rng.uniform(0.5, 4.0, 2)
+            img[..., c] = 128 + 60 * np.sin(2 * np.pi * (fy * yy + fx * xx) + rng.uniform(0, 6.3))
+        coarse = rng.normal(0, 40, (h // 4 + 1, w // 4 + 1, 3)).astype(np.float32)
+        img += np.repeat(np.repeat(coarse, 4, 0), 4, 1)[:h, :w]
+        img += rng.normal(0, 12, (h, w, 3)).astype(np.float32)
+        d = train_dir / f"n{i % 3:03d}"
+        d.mkdir(parents=True, exist_ok=True)
+        path = d / f"synth_{i:03d}.JPEG"
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            path, "JPEG", quality=CLS_LOADER_QUALITY)
+        total += path.stat().st_size
+    return total / n / 1024
+
+
+def grad_compare(gmodel, cmodel):
+    """The card's gradients against the CPU's after one step of the same
+    model: ||g_card - g_cpu|| / ||g_cpu|| over all parameters, the worst
+    parameter whose gradient is not float32 noise (d, ||g||, name), the
+    names beyond TOL_GRAD_PARAM, every (d, ||g||, name) and ||g||². A
+    parameter the loss does not reach (the classifier's out_norm_0-2) has no
+    gradient on either side; one side without it is a difference."""
+    dsq = gsq = 0.0
+    per_param = []
+    for (name, pg), (_, pc) in zip(gmodel.named_parameters(), cmodel.named_parameters()):
+        if pg.grad is None and pc.grad is None:
+            continue
+        if pg.grad is None or pc.grad is None:
+            per_param.append((float("inf"), 0.0, name))
+            continue
+        d = (pg.grad.cpu() - pc.grad).norm().item()
+        gn = pc.grad.norm().item()
+        dsq, gsq = dsq + d * d, gsq + gn * gn
+        per_param.append((d, gn, name))
+    worst = max((t for t in per_param if t[1] > 1e-6 * gsq ** 0.5), key=lambda t: t[0] / t[1])
+    off = [n for d, g, n in per_param if d > TOL_GRAD_PARAM * g + 1e-6 * gsq ** 0.5]
+    return (dsq / gsq) ** 0.5, worst, off, per_param, gsq
+
+
+def stage_geometry(bb, img):
+    """K1's shapes at each stage of backbone ``bb`` on an img x img input:
+    groups, heads a group, channels a group, the query grid, the samples
+    (the offset conv's output grid), the table side, launches a forward."""
+    stages = []
+    for i in range(4):
+        H = img // bb.patch_size // 2 ** i
+        ks, st = bb.ksizes[i], bb.strides[i]
+        Hk = (H + 2 * (ks // 2 if ks != st else 0) - ks) // st + 1  # the offset conv's output
+        q_size = bb.img_size // bb.patch_size // 2 ** i
+        stages.append(dict(
+            stage=i, g=bb.groups[i], h_g=bb.heads[i] // bb.groups[i],
+            Cg=bb.dims[i] // bb.groups[i], H=H, W=H, Ns=Hk * Hk,
+            th=2 * q_size - 1, launches_per_forward=bb.stage_spec[i].count("D"),
+        ))
+    return stages
 
 
 def k3_gate_count(bb, h, w):

@@ -6,8 +6,8 @@ public functions keep its NHWC layout. Entry points (``build_model``,
 ``SegInferencer``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel is replaced by its plain
 PyTorch version, which is how the tests hold the port to the JAX package.
-``create_train_state`` and ``make_train_step`` train a segmentor on one
-card.
+``create_train_state`` and ``make_train_step`` train a segmentor or the
+classifier on one card.
 """
 
 from .configs import get_config, list_configs

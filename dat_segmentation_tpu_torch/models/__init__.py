@@ -1,5 +1,5 @@
 from .builder import build_model
 from .dat import DAT, TransformerStage
 from .deformable_attention import DeformableAttention
-from .heads import ConvBNReLU, FPNHead, FPNNeck
-from .segmentor import EncoderDecoder
+from .heads import ClsHead, ConvBNReLU, FPNHead, FPNNeck
+from .segmentor import DatClassifier, EncoderDecoder

@@ -1,10 +1,9 @@
 """Model construction from configs, in PyTorch.
 
-Counterpart of ``dat_segmentation_tpu/models/builder.py:build_model`` for
-the segmentors: UperNet with its FCN auxiliary head, and SemanticFPN. The
-heads take the JAX builder's defaults (``builder.py:32-63`` there). The
-classifier (``ClsHead``) comes with the classifier slice (ROADMAP.md,
-Queue 1).
+Counterpart of ``dat_segmentation_tpu/models/builder.py:build_model``:
+UperNet with its FCN auxiliary head, SemanticFPN, and the classifier
+(``ClsHead`` on the backbone's last feature). The heads take the JAX
+builder's defaults (``builder.py:32-87`` there).
 """
 
 from __future__ import annotations
@@ -16,8 +15,8 @@ import torch
 from ..configs.schema import BackboneConfig, HeadConfig, ModelConfig
 from ..utils.device import resolve_device
 from .dat import DAT
-from .heads import FCNHead, FPNHead, FPNNeck, UPerHead
-from .segmentor import EncoderDecoder
+from .heads import ClsHead, FCNHead, FPNHead, FPNNeck, UPerHead
+from .segmentor import DatClassifier, EncoderDecoder
 
 
 def build_backbone(cfg: BackboneConfig) -> DAT:
@@ -56,22 +55,21 @@ def build_head(cfg: HeadConfig, in_channels, align_corners: bool = False) -> tor
 
 def build_model(
     cfg: ModelConfig, *, device: Optional[Union[str, torch.device]] = None
-) -> EncoderDecoder:
+) -> Union[EncoderDecoder, DatClassifier]:
     """ModelConfig -> ``EncoderDecoder`` (UperNet + FCN auxiliary head, or
-    SemanticFPN) in eval mode on ``device`` (``cuda`` unless the caller
-    names another).
+    SemanticFPN) or ``DatClassifier`` (a ``ClsHead`` config) in eval mode on
+    ``device`` (``cuda`` unless the caller names another).
 
     Weights are PyTorch's default initialisation from the global RNG
     (seed it with ``torch.manual_seed``); made on the CPU, then moved.
     """
-    if cfg.decode_head.type == "ClsHead":
-        raise NotImplementedError(
-            "ClsHead (the DatClassifier) comes with the classifier slice "
-            "(ROADMAP.md, Queue 1)"
-        )
     device = resolve_device(device)
     dims = cfg.backbone.dims
     backbone = build_backbone(cfg.backbone)
+    if cfg.decode_head.type == "ClsHead":
+        head = ClsHead(dims[-1], cfg.decode_head.num_classes,
+                       cfg.decode_head.kwargs.get("dropout_ratio", 0.0))
+        return DatClassifier(backbone, head).to(device).eval()
     neck = FPNNeck(dims, cfg.neck.out_channels) if cfg.neck is not None else None
     head_in = [cfg.neck.out_channels] * len(dims) if neck is not None else list(dims)
     if cfg.decode_head.type == "FPNHead":

@@ -1,10 +1,9 @@
 """Decode heads (NHWC), in PyTorch.
 
 Counterpart of ``dat_segmentation_tpu/models/heads.py`` for the
-segmentation heads: ``ConvBNReLU``, ``UPerHead`` (with its PPM) and the
-auxiliary ``FCNHead`` of the UperNet presets, ``FPNNeck`` and ``FPNHead``
-of the SemanticFPN ones. The classifier head comes with the classifier
-slice (ROADMAP.md, Queue 1). Exact padded inference (the JAX package's
+heads: ``ConvBNReLU``, ``UPerHead`` (with its PPM) and the auxiliary
+``FCNHead`` of the UperNet presets, ``FPNNeck`` and ``FPNHead`` of the
+SemanticFPN ones, and the classifier's ``ClsHead``. Exact padded inference (the JAX package's
 ``valid_extent`` paths) is not ported: eager PyTorch takes each image at
 its true shape. Dropout is elementwise and draws from the generator that
 ``layers.use_generator`` hands it.
@@ -20,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.interpolate import adaptive_avg_pool, resize_bilinear, resize_nearest
-from .layers import BatchNorm2d, Conv2d, Dropout
+from .layers import BatchNorm2d, Conv2d, Dropout, LayerNorm2d
 
 
 class ConvBNReLU(nn.Module):
@@ -192,3 +191,18 @@ class FPNHead(nn.Module):
             else:
                 out = out + resize_bilinear(x, out.shape[1:3], align_corners=self.align_corners)
         return self.cls_seg(self.dropout(out))
+
+
+class ClsHead(nn.Module):
+    """Classification head (reference models/heads/cls_head.py:10-38): LN on
+    the last feature, the mean over H and W, dropout, ``fc``."""
+
+    def __init__(self, in_channels: int, num_classes: int, dropout_ratio: float = 0.0):
+        super().__init__()
+        self.norm = LayerNorm2d(in_channels)
+        self.drop = Dropout(dropout_ratio)
+        self.fc = nn.Linear(in_channels, num_classes)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        x = self.norm(feats[-1]).mean(dim=(1, 2))
+        return self.fc(self.drop(x))

@@ -1,4 +1,4 @@
-"""EncoderDecoder segmentor (NHWC), in PyTorch.
+"""EncoderDecoder segmentor and DatClassifier (NHWC), in PyTorch.
 
 Counterpart of ``dat_segmentation_tpu/models/segmentor.py:EncoderDecoder``:
 backbone -> neck (SemanticFPN only) -> decode head, then the bilinear
@@ -6,7 +6,8 @@ upsample of the stride-4 logits to the input size unless
 ``upsample=False``. In training (``model.train()``) a segmentor with an
 auxiliary head also runs it on ``feats[aux_in_index]`` and returns
 ``(logits, aux)``, both upsampled to the input size, as the JAX package
-does with ``train=True``.
+does with ``train=True``. ``DatClassifier`` is the backbone and a
+``ClsHead`` (``segmentor.py:102`` there): image -> (B, num_classes) logits.
 """
 
 from __future__ import annotations
@@ -53,3 +54,16 @@ class EncoderDecoder(nn.Module):
             aux = resize_bilinear(aux, x.shape[1:3], align_corners=self.align_corners)
             return logits, aux
         return logits
+
+
+class DatClassifier(nn.Module):
+    """DAT backbone + ClsHead (reference models/dat_classifier.py)."""
+
+    def __init__(self, backbone: nn.Module, head: nn.Module):
+        super().__init__()
+        self.backbone = backbone
+        self.head = head
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, 3) -> logits (B, num_classes)."""
+        return self.head(self.backbone(x))

@@ -12,11 +12,20 @@
 //
 // All images are HWC, uint8 (aug stages) or float32 (post-normalize),
 // C-contiguous.
+//
+// resize_cubic_u8 and warp_affine_u8_c3 (the classifier's transforms) are
+// not in the JAX package's library: they reproduce cv2.resize(INTER_CUBIC)
+// and cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT) on uint8 images bit for
+// bit, as OpenCV's own C++ computes them (its IPP path, not taken here,
+// differs for the resize). Their floating-point steps are written out with
+// std::fmaf where OpenCV fuses and with FMA contraction off elsewhere, so
+// -march=native cannot change them.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 extern "C" {
 
@@ -111,5 +120,117 @@ void photometric_distortion_u8(uint8_t* img, int h, int w,
     }
   }
 }
+
+#pragma GCC push_options
+#pragma GCC optimize("fp-contract=off")
+
+// cv2.resize(src, (dw, dh), interpolation=INTER_CUBIC) of an (h, w, cn)
+// uint8 image, as OpenCV's resizeGeneric_ computes it. The tables come from
+// the caller (native/__init__.py:cubic_table, OpenCV's float32 coefficient
+// arithmetic): per output column the first source column of its 4 taps
+// (before clamping) and the 4 coefficients scaled by 2048 and rounded; the
+// same per output row. The horizontal pass sums in int; the vertical pass
+// takes 8 outputs at a time in float32 (OpenCV's VResizeCubicVec_32s8u,
+// mul then add, rounded half to even) and the tail in fixed point
+// (VResizeCubic: +2^21, >>22).
+void resize_cubic_u8(const uint8_t* src, int h, int w, int cn, uint8_t* dst,
+                     int dh, int dw, const int* xofs, const int16_t* alpha,
+                     const int* yofs, const int16_t* beta) {
+  const int width = dw * cn;
+  std::vector<int> rows(4 * (size_t)width);
+  std::vector<int> tapx(4 * (size_t)dw);
+  for (int dx = 0; dx < dw; ++dx)
+    for (int j = 0; j < 4; ++j)
+      tapx[dx * 4 + j] = std::min(std::max(xofs[dx] + j, 0), w - 1) * cn;
+  int cached[4] = {-1, -1, -1, -1};
+  const float scale = 1.f / (2048 * 2048);
+  for (int dy = 0; dy < dh; ++dy) {
+    int* r[4];
+    for (int k = 0; k < 4; ++k) {
+      const int sy = std::min(std::max(yofs[dy] + k, 0), h - 1);
+      r[k] = rows.data() + (size_t)k * width;
+      if (cached[k] == sy) continue;
+      cached[k] = sy;
+      const uint8_t* s = src + (size_t)sy * w * cn;
+      for (int dx = 0; dx < dw; ++dx) {
+        const int16_t* a = alpha + dx * 4;
+        const int* t = tapx.data() + dx * 4;
+        for (int c = 0; c < cn; ++c)
+          r[k][dx * cn + c] = s[t[0] + c] * a[0] + s[t[1] + c] * a[1] +
+                              s[t[2] + c] * a[2] + s[t[3] + c] * a[3];
+      }
+    }
+    const int16_t* b = beta + dy * 4;
+    const float b0 = b[0] * scale, b1 = b[1] * scale, b2 = b[2] * scale,
+                b3 = b[3] * scale;
+    uint8_t* d = dst + (size_t)dy * width;
+    const int vec_end = width / 8 * 8;
+    int x = 0;
+    for (; x < vec_end; ++x) {
+      float v = (float)r[3][x] * b3;
+      v = (float)r[2][x] * b2 + v;
+      v = (float)r[1][x] * b1 + v;
+      v = (float)r[0][x] * b0 + v;
+      const int iv = (int)std::nearbyint(v);
+      d[x] = (uint8_t)std::min(std::max(iv, 0), 255);
+    }
+    for (; x < width; ++x) {
+      const int v = r[0][x] * b[0] + r[1][x] * b[1] + r[2][x] * b[2] +
+                    r[3][x] * b[3];
+      d[x] = (uint8_t)std::min(std::max((v + (1 << 21)) >> 22, 0), 255);
+    }
+  }
+}
+
+// cv2.warpAffine(src, M, (w, h), flags=INTER_LINEAR | WARP_INVERSE_MAP,
+// borderMode=BORDER_CONSTANT, borderValue=(fill,) * 3) of an (h, w, 3)
+// uint8 image; M (2x3, output -> input, float32) as OpenCV takes it after
+// its conversion to float. OpenCV's warp_kernels compute each source
+// position and the bilinear blend in float32, 16 outputs of a row at a time
+// with FMAs (x * M0 + (y * M1 + M2)), and the row's tail with
+// fma(x, M0, y * M1) + M2; a tap outside the image reads fill. The blend is
+// p00 + a (p01 - p00) per row, then the rows by b, fused, rounded half to
+// even.
+void warp_affine_u8_c3(const uint8_t* src, int h, int w, uint8_t* dst,
+                       int dh, int dw, const float* M, int fill) {
+  const int vec_end = dw / 16 * 16;
+  const float ffill = (float)fill;
+  for (int y = 0; y < dh; ++y) {
+    const float fy = (float)y;
+    const float mx = fy * M[1] + M[2], my = fy * M[4] + M[5];
+    const float tx = fy * M[1], ty = fy * M[4];
+    uint8_t* d = dst + (size_t)y * dw * 3;
+    for (int x = 0; x < dw; ++x) {
+      const float fx = (float)x;
+      float sx, sy;
+      if (x < vec_end) {
+        sx = std::fmaf(fx, M[0], mx);
+        sy = std::fmaf(fx, M[3], my);
+      } else {
+        sx = std::fmaf(fx, M[0], tx) + M[2];
+        sy = std::fmaf(fx, M[3], ty) + M[5];
+      }
+      const float flx = std::floor(sx), fly = std::floor(sy);
+      const int ix = (int)flx, iy = (int)fly;
+      const float a = sx - flx, b = sy - fly;
+      const bool x0 = ix >= 0 && ix < w, x1 = ix + 1 >= 0 && ix + 1 < w;
+      const bool y0 = iy >= 0 && iy < h, y1 = iy + 1 >= 0 && iy + 1 < h;
+      const long long o00 = ((long long)iy * w + ix) * 3, o10 = o00 + (long long)w * 3;
+      for (int c = 0; c < 3; ++c) {
+        const float p00 = (y0 && x0) ? src[o00 + c] : ffill;
+        const float p01 = (y0 && x1) ? src[o00 + 3 + c] : ffill;
+        const float p10 = (y1 && x0) ? src[o10 + c] : ffill;
+        const float p11 = (y1 && x1) ? src[o10 + 3 + c] : ffill;
+        const float v0 = std::fmaf(a, p01 - p00, p00);
+        const float v1 = std::fmaf(a, p11 - p10, p10);
+        const float v = std::fmaf(b, v1 - v0, v0);
+        const int iv = (int)std::nearbyint(v);
+        d[x * 3 + c] = (uint8_t)std::min(std::max(iv, 0), 255);
+      }
+    }
+  }
+}
+
+#pragma GCC pop_options
 
 }  // extern "C"

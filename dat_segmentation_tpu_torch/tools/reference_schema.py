@@ -16,16 +16,21 @@ from typing import Dict, Mapping, Union
 
 import torch
 
-from ..utils.torch_convert import CONV1X1, segmentor_table
+from ..utils.torch_convert import CONV1X1, classifier_table, segmentor_table
 
 
 def to_reference(state_dict: Mapping[str, torch.Tensor], model_cfg, *,
                  mmseg: bool = True) -> Dict[str, torch.Tensor]:
-    """The port's EncoderDecoder ``state_dict`` -> the reference's keys
-    (mmseg's head names, or the standalone heads' with ``mmseg=False``),
-    float32 tensors on the CPU."""
+    """The port's EncoderDecoder ``state_dict`` (mmseg's head names, or the
+    standalone heads' with ``mmseg=False``) or DatClassifier ``state_dict``
+    (a ``ClsHead`` config) -> the reference's keys, float32 tensors on the
+    CPU."""
+    if model_cfg.decode_head.type == "ClsHead":
+        table = classifier_table(model_cfg)
+    else:
+        table = segmentor_table(model_cfg, mmseg=mmseg)
     out = {}
-    for ref, port, layout in segmentor_table(model_cfg, mmseg=mmseg):
+    for ref, port, layout in table:
         v = state_dict[port].detach().cpu()
         v = v.float() if v.is_floating_point() else v
         out[ref] = v[:, :, None, None].clone() if layout == CONV1X1 else v.clone()

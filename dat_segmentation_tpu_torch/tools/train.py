@@ -1,12 +1,15 @@
-"""Training CLI of the port: a preset or an mmseg config file, ADE20K, on
-the card.
+"""Training CLI of the port: a preset or an mmseg config file, ADE20K or
+ImageNet, on the card.
 
     python -m dat_segmentation_tpu_torch.tools.train upn_tiny_160k_dp03_lr6 \\
         --data-root /data/ade20k [--max-iters N] [--resume] [--pretrained X] \\
         [--work-dir DIR] [--set key=value ...] [--device cpu]
+    python -m dat_segmentation_tpu_torch.tools.train cls_tiny_imagenet \\
+        --data-root /data/imagenet [--epochs N] [--no-mixup] ...
 
-The port's ``tools/train.py`` (the JAX package's, with
-``train/trainer_seg.py`` behind it). ``config`` is a preset name or a
+The port's ``tools/train.py`` (the JAX package's): a ``ClsHead`` config
+trains with ``train/trainer_cls.py`` (``--epochs``, ``--no-mixup``), any
+other with ``train/trainer_seg.py`` (``--max-iters``, ``--eval-batch-size``). ``config`` is a preset name or a
 ``.py`` config in mmseg's dict form (its ``_base_`` files merged;
 ``configs/mmseg_compat.py``). ``--set`` takes dotted overrides, as mmseg's
 ``--cfg-options`` (``--set data.batch_size=8 schedule.max_iters=80000``),
@@ -16,9 +19,8 @@ trainer; ``--resume`` continues from the latest ``ckpt_<step>`` in the
 work dir. ``--device`` is the card unless named (``cpu`` runs the plain
 PyTorch versions). ``main(argv)`` returns the trainer's (state, history).
 
-Not yet here (ROADMAP.md, Queue 1): the classifier (a ``ClsHead`` config
-raises, item 5), and with it ``--epochs`` and ``--no-mixup``;
-``--multihost`` (item 4); ``--diff-seed``, a no-op in the JAX package.
+Not yet here (ROADMAP.md, Queue 1): ``--multihost`` (item 4);
+``--diff-seed``, a no-op in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="resume from the latest checkpoint in the work dir")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None, help="classifier only")
+    p.add_argument("--no-mixup", action="store_true", help="classifier only")
     p.add_argument("--eval-batch-size", type=int, default=1,
                    help="whole-mode images a forward in the in-run eval")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
@@ -89,9 +93,11 @@ def main(argv: Optional[Sequence[str]] = None):
         cfg = replace(cfg, work_dir=args.work_dir)
     cfg = apply_overrides(cfg, args.set)
     if cfg.model.decode_head.type == "ClsHead":
-        raise NotImplementedError(
-            "ClsHead: the classifier trainer comes with the classifier slice "
-            "(ROADMAP.md, Queue 1 item 5)"
+        from ..train.trainer_cls import train_classifier
+
+        return train_classifier(
+            cfg, pretrained=args.pretrained, resume=args.resume, epochs=args.epochs,
+            mixup=not args.no_mixup, device=device,
         )
     return train_segmentation(
         cfg, pretrained=args.pretrained, resume=args.resume, max_iters=args.max_iters,

@@ -1,4 +1,4 @@
-"""Training: losses, schedules, AdamW, metrics and the single-card step."""
+"""Training: losses, schedules, AdamW, metrics and the single-card steps."""
 
 from .losses import (
     cross_entropy_loss,
@@ -6,7 +6,7 @@ from .losses import (
     segmentation_loss,
     soft_target_cross_entropy,
 )
-from .metrics import StreamingIoU, intersect_and_union, miou_from_totals
+from .metrics import StreamingIoU, intersect_and_union, miou_from_totals, topk_accuracy
 from .optim import make_optimizer, no_decay_names
 from .schedules import build_schedule, warmup_cosine_schedule, warmup_poly_schedule
-from .train_step import TrainState, create_train_state, make_train_step
+from .train_step import TrainState, create_train_state, make_cls_metric_step, make_train_step

@@ -1,8 +1,8 @@
-"""Segmentation metrics, in PyTorch and numpy.
+"""Segmentation and classification metrics, in PyTorch and numpy.
 
 Counterpart of ``dat_segmentation_tpu/train/metrics.py``: per-class
 intersection and union counts with ignore-index masking, their streaming
-sum and the mean IoU over the classes present. On the card
+sum and the mean IoU over the classes present; top-k accuracy. On the card
 ``torch.bincount`` is the idiom (the JAX package avoided a scatter only
 for the TPU).
 """
@@ -82,3 +82,29 @@ class StreamingIoU:
 
     def accuracy(self) -> float:
         return float(self.inter.sum() / max(self.area_label.sum(), 1))
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, ks=(1, 5)) -> dict:
+    """{k: top-k accuracy} as float32 0-d tensors; soft labels (mixup) are
+    argmaxed first. Ties rank as the JAX package's reversed stable argsort
+    ranks them: the larger class index first (reference
+    train_backbone.py:38-71). The JAX package's public counterpart; the
+    train and metric steps count with argmax and ``topk_hits`` instead."""
+    if labels.ndim == logits.ndim:
+        labels = labels.argmax(-1)
+    order = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+    return {k: (order[..., :k] == labels[..., None]).any(-1).float().mean() for k in ks}
+
+
+def topk_hits(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """int32 ``[hits1, hits5, total]`` over the rows where ``valid``: a row
+    hits top-k when fewer than k classes rank above its label, a class
+    ranking above it when its logit is larger or equal at a smaller index
+    (``argmax`` and ``lax.top_k``'s order, as the JAX metric step counts)."""
+    labels = labels.long()
+    at = logits.gather(-1, labels[:, None])
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    rank = ((logits > at) | ((logits == at) & (idx < labels[:, None]))).sum(-1)
+    k = min(5, logits.shape[-1])
+    return torch.stack([((rank < 1) & valid).sum(), ((rank < k) & valid).sum(),
+                        valid.sum()]).to(torch.int32)

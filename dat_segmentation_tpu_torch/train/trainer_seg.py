@@ -16,7 +16,8 @@ is the card unless the caller names another. The train IoU counts stay on
 the device between log intervals, so no step waits on a read-back.
 
 Resume restores the model (parameters and BatchNorm statistics), the
-AdamW state, the step and the drop-path/dropout generator from the latest
+AdamW state, the step and the drop-path/dropout generator (and the
+classifier's mixup sampler, where the state holds one) from the latest
 ``ckpt_<step>``. The loader starts again at epoch 0, as the JAX trainer's
 does: a resumed run sees other batches than the run it continues would
 have seen (ROADMAP.md).
@@ -85,17 +86,22 @@ def setup_state(cfg, model: torch.nn.Module, *, pretrained: Optional[str] = None
 
 
 def _save_tree(st: TrainState) -> dict:
-    return {"step": st.step, "model": st.model.state_dict(),
+    tree = {"step": st.step, "model": st.model.state_dict(),
             "optimizer": st.optimizer.state_dict(), "generator": st.generator.get_state()}
+    if st.mixup is not None:
+        tree["mixup"] = st.mixup.get_state()
+    return tree
 
 
 def _restore_state(st: TrainState, saved: dict) -> TrainState:
-    """Load a step checkpoint's model, optimizer, step and generator into
-    ``st``, in place."""
+    """Load a step checkpoint's model, optimizer, step, generator and mixup
+    sampler (where it holds one) into ``st``, in place."""
     st.model.load_state_dict(saved["model"])
     st.optimizer.load_state_dict(saved["optimizer"])
     st.step = int(saved["step"])
     st.generator.set_state(saved["generator"])
+    if st.mixup is not None and "mixup" in saved:
+        st.mixup.set_state(saved["mixup"])
     return st
 
 

@@ -7,10 +7,13 @@ record to ``<log>.scalars.jsonl`` and to TensorBoard event files under
 ``<log dir>/tb`` (``utils/tensorboard.py``, no TensorBoard dependency).
 Only the main process logs: rank 0 of ``torch.distributed``, or the only
 process when it is not initialised. ``weight_stats`` is the per-parameter
-mean, std and L2 norm (reference train_backbone.py:73-83).
-``weight_stats_on_device`` and ``grad_update_ratio`` come with the
-classifier trainer (ROADMAP.md, Queue 1 item 5); the train step already
-returns the update ratio.
+mean, std and L2 norm (reference train_backbone.py:73-83);
+``weight_stats_on_device`` the same from one reduction on the parameters'
+device and one copy of its (n, 3) table to the host (the classifier
+trainer's stats interval); ``grad_update_ratio`` is ||update|| / ||param||
+(train_backbone.py:131-135) on the host. No trainer calls it: the train
+step returns the same ratio from the device; it stays as the JAX
+package's public counterpart.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import time
 from pathlib import Path
 from typing import Mapping, Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -87,3 +91,33 @@ def weight_stats(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
             "l2": float(torch.linalg.vector_norm(a)),
         }
     return out
+
+
+def _named(params) -> list:
+    items = params.named_parameters() if isinstance(params, torch.nn.Module) else params.items()
+    return list(items)
+
+
+def weight_stats_on_device(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+                           prefix: str = "") -> dict:
+    """``weight_stats`` computed where the parameters are: an (n, 3) float32
+    table of mean, population std and L2 norm, then one copy to the host."""
+    items = _named(params)
+    with torch.no_grad():
+        rows = []
+        for _, t in items:
+            x = t.detach().float()
+            rows.append(torch.stack([x.mean(), x.std(correction=0), torch.linalg.vector_norm(x)]))
+        table = torch.stack(rows).cpu().numpy() if rows else []
+    return {prefix + name: {"mean": float(r[0]), "std": float(r[1]), "l2": float(r[2])}
+            for (name, _), r in zip(items, table)}
+
+
+def grad_update_ratio(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+                      updates: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> float:
+    """||update|| / ||param|| over all tensors, in float64 on the host."""
+    def norm(tree):
+        return float(np.sqrt(sum(float(torch.sum(t.detach().double() ** 2))
+                                 for _, t in _named(tree))))
+
+    return norm(updates) / max(norm(params), 1e-12)

@@ -9,7 +9,8 @@ rename. The one change of layout: a 1x1 convolution of the reference,
 
 The translation is one table of ``(reference key, port key, layout)``
 entries, built from the model config (``segmentor_table``,
-``backbone_table`` and one function a head), so that its inverse
+``classifier_table``, ``backbone_table`` and one function a head), so that
+its inverse
 (``tools/reference_schema.py``) falls out of it. Both key schemas of
 the heads: the reference's standalone modules (``models/heads/*``) and
 mmseg's published checkpoints (``psp_modules`` / ``bottleneck`` /
@@ -217,6 +218,17 @@ def fpn_head_table(ref: str, port: str,
     return t + _conv(f"{ref}conv_seg", f"{port}cls_seg", layout=CONV1X1)
 
 
+def cls_head_table(ref: str, port: str) -> List[Entry]:
+    """The classifier head: ``norm.norm`` (a LayerNormProxy) and ``fc``."""
+    return _ln(f"{ref}norm.norm", f"{port}norm") + _conv(f"{ref}fc", f"{port}fc")
+
+
+def classifier_table(model_cfg) -> List[Entry]:
+    """The whole DatClassifier: ``backbone.*`` and ``head.*``."""
+    return (backbone_table(model_cfg.backbone, "backbone.", "backbone.")
+            + cls_head_table("head.", "head."))
+
+
 def _is_mmseg(sd: Optional[Mapping], key: str, default: bool) -> bool:
     return default if sd is None else key in sd
 
@@ -307,11 +319,14 @@ def convert_segmentor(sd: Mapping[str, torch.Tensor], model_cfg) -> Dict[str, to
     return apply_table(sd, segmentor_table(model_cfg, sd))
 
 
-def convert_classifier(sd, model_cfg):
-    raise NotImplementedError(
-        "the classifier (ClsHead, DatClassifier) comes with the classifier slice "
-        "(ROADMAP.md, Queue 1 item 5)"
-    )
+def convert_cls_head(sd, prefix: str):
+    """Reference ClsHead -> the port's ``ClsHead`` keys."""
+    return apply_table(sd, cls_head_table(prefix, ""))
+
+
+def convert_classifier(sd: Mapping[str, torch.Tensor], model_cfg) -> Dict[str, torch.Tensor]:
+    """DatClassifier state_dict -> the port's ``DatClassifier`` state_dict."""
+    return apply_table(sd, classifier_table(model_cfg))
 
 
 def report_diff(want: Mapping[str, tuple], have: Mapping[str, tuple]) -> Tuple[list, list]:

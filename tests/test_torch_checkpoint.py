@@ -154,11 +154,23 @@ def test_merge_pretrained_reports_and_keeps_mismatched_at_init(capsys):
 
 
 def test_load_pretrained_refuses_an_orbax_directory(tmp_path):
+    """An orbax directory is refused; a classifier's reference .pth loads
+    with kind='classifier' (the full-key route) to the model's tensors, and
+    a segmentor's .pth read as a classifier lacks the head's keys."""
+    import dataclasses
+
     with pytest.raises(ValueError, match="needs JAX"):
         load_pretrained(str(tmp_path), small_fpn(get_config))
     path = save_reference(_model("fpn"), small_fpn(get_config), tmp_path / "m.pth")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        load_pretrained(str(path), small_fpn(get_config), kind="classifier")
+    cfg = get_config("cls_tiny_imagenet").model
+    cfg = dataclasses.replace(cfg, backbone=small_fpn(get_config).backbone,
+                              decode_head=dataclasses.replace(cfg.decode_head, num_classes=10))
+    with pytest.raises(KeyError, match="head.norm.norm.weight"):
+        load_pretrained(str(path), cfg, kind="classifier")
+    torch.manual_seed(3)
+    cls = build_model(cfg, device="cpu")
+    cls_path = save_reference(cls, cfg, tmp_path / "cls.pth")
+    _assert_equal(load_pretrained(str(cls_path), cfg, kind="classifier"), cls.state_dict())
 
 
 @pytest.mark.parametrize("kind,mmseg", CASES, ids=[f"{k}-{'mmseg' if m else 'standalone'}"

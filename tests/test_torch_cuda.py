@@ -42,7 +42,7 @@ from dat_segmentation_tpu_torch.ops.deform_attn import (
     deform_attn_bwd_reference,
     deform_attn_reference,
 )
-from torch_port_helpers import small_fpn, small_upernet
+from torch_port_helpers import small_classifier, small_fpn, small_upernet
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K2, relative to the largest |gradient| of each of the five: the kernel
@@ -96,6 +96,10 @@ def _inputs(device, dtype, B=2, g=2, h_g=2, H=16, W=24, Ns=49, th=27, pos_range=
         # T++ stage 3: 16 x 16 queries, so a block's 128-query tile spans 8
         # image rows
         dict(g=8, H=16, W=16, Ns=256, th=13, pos_range=1.0),
+        # the classifier at 224²: Ns 49, less than one 64-sample chunk; stage
+        # 3's 49 queries, less than one 128-query tile; stage 2's 14 x 14
+        dict(g=8, H=7, W=7, Ns=49, th=13, pos_range=1.0),
+        dict(g=4, H=14, W=14, Ns=49, th=27, pos_range=1.0),
     ],
 )
 def test_kernel_matches_plain(cuda, dtype, shape):
@@ -183,6 +187,10 @@ def _rel_errs(got, ref):
         dict(B=1, g=1, H=3, W=5, Ns=4, th=13),  # fewer queries than a block step
         dict(g=1, H=136, W=136, Ns=289, th=111, pos_range=1.0),  # stage 0 of a 544² crop
         dict(B=1, g=1, H=224, W=299, Ns=1064, th=111, pos_range=1.0),  # 896x1195, Ns 1064
+        # the classifier at 224² (Ns 49, less than one 128-sample chunk):
+        # stage 3 at batch 16 (BG 128 batch-groups summed into dtable), stage 2
+        dict(B=16, g=8, H=7, W=7, Ns=49, th=13, pos_range=1.0),
+        dict(g=4, H=14, W=14, Ns=49, th=27, pos_range=1.0),
     ],
 )
 def test_bwd_kernel_matches_plain(cuda, dtype, shape):
@@ -653,3 +661,51 @@ def test_small_train_segmentation_on_the_card(cuda, tmp_path):
     assert state.step == 3 and len(hist["loss"]) == 1
     log = (tmp_path / "work" / "small" / "train.log").read_text()
     assert "resumed from iter 2" in log
+
+
+@pytest.mark.cuda
+def test_small_classifier_forward_and_cls_step_match_cpu(cuda):
+    """The small DatClassifier (head width 32) at 64² (stage sides 16/8/4/2,
+    Ns 4) on the
+    card against the same model on the CPU, float32: the logits to 1e-4;
+    one cls train step with mixup from fixed CutMix draws: loss to 1e-5
+    relative, all gradients to 1e-4, acc1 equal; one K1 and one K2 launch
+    a 'D' block."""
+    from dat_segmentation_tpu_torch.data.mixup import MixupDraws
+
+    class Fixed:
+        def draw(self, h, w):
+            return MixupDraws(use_cutmix=True, lam_mix=0.3, lam_cut=0.55, cy=20, cx=40)
+
+    torch.manual_seed(0)
+    model_cfg = small_classifier(get_config, head_width=32)
+    cfg = dataclasses.replace(get_config("cls_tiny_imagenet"), model=model_cfg)
+    cfg = dataclasses.replace(cfg, schedule=dataclasses.replace(cfg.schedule, warmup_iters=0))
+    gpu = build_model(model_cfg, device=cuda)
+    cpu = copy.deepcopy(gpu).cpu()
+    rng = np.random.RandomState(4)
+    x = rng.randn(4, 64, 64, 3).astype(np.float32)
+    with torch.inference_mode():
+        got = gpu(torch.from_numpy(x).to(cuda)).cpu()
+        ref = cpu(torch.from_numpy(x))
+    assert got.shape == (4, 10) and (got - ref).abs().max().item() <= 1e-4
+    batch = {"image": x, "label": rng.randint(0, 10, 4)}
+    out = {}
+    for name, m in (("gpu", gpu), ("cpu", cpu)):
+        state = create_train_state(m, cfg)
+        state.mixup = Fixed()
+        fwd0, bwd0 = deform_attn.launches, deform_attn_bwd.launches
+        step = make_train_step(m, task="cls", num_classes=10, compute_dtype=torch.float32,
+                               mixup=True)
+        _, metrics = step(state, batch)
+        out[name] = (metrics, deform_attn.launches - fwd0, deform_attn_bwd.launches - bwd0)
+    (gm, gf, gb), (cm, _, _) = out["gpu"], out["cpu"]
+    assert (gf, gb) == (4, 4)
+    assert abs(gm["loss"].item() - cm["loss"].item()) <= 1e-5 * abs(cm["loss"].item())
+    assert gm["acc1"].item() == cm["acc1"].item()
+    # out_norm_0-2 feed nothing the classifier reads: no gradient on either side
+    pairs = [(pg.grad, pc.grad) for pg, pc in zip(gpu.parameters(), cpu.parameters())]
+    assert [g is None for g, _ in pairs] == [c is None for _, c in pairs]
+    dsq = sum((g.cpu() - c).square().sum() for g, c in pairs if c is not None)
+    gsq = sum(c.square().sum() for _, c in pairs if c is not None)
+    assert (dsq / gsq).sqrt().item() <= 1e-4

@@ -312,13 +312,24 @@ def test_flagship_preset_has_14_deformable_blocks():
 
 
 def test_build_model_refuses_other_heads():
-    """UperNet (with its FCN auxiliary head) builds; the classifier head
-    is refused, naming its slice."""
+    """UperNet (with its FCN auxiliary head) builds, and so does the
+    classifier: a DatClassifier whose ClsHead reads the last stage's 512
+    channels into 1000 classes, in eval mode; an unknown head is refused."""
+    import dataclasses
+
+    from dat_segmentation_tpu_torch.models.segmentor import DatClassifier
+
     model = build_model(get_config("upn_tiny_160k_dp03_lr6").model, device="cpu")
     assert isinstance(model.decode_head, th.UPerHead)
     assert isinstance(model.auxiliary_head, th.FCNHead)
-    with pytest.raises(NotImplementedError, match="classifier slice"):
-        build_model(get_config("cls_tiny_imagenet").model, device="cpu")
+    cfg = get_config("cls_tiny_imagenet").model
+    cls = build_model(cfg, device="cpu")
+    assert isinstance(cls, DatClassifier) and isinstance(cls.head, th.ClsHead)
+    assert not cls.training and cls.head.fc.weight.shape == (1000, 512)
+    assert cls.head.norm.normalized_shape == (512,)
+    bad = dataclasses.replace(cfg, decode_head=dataclasses.replace(cfg.decode_head, type="Nope"))
+    with pytest.raises(ValueError, match="unknown head"):
+        build_model(bad, device="cpu")
 
 
 # ------------------------------------------------------------------ heads --

@@ -380,12 +380,13 @@ def test_mmseg_config_copy_equals_jax(tmp_path):
     assert train_cfg.name == "small_dat" and train_cfg.model == got
 
 
-def test_train_then_test_cli(tmp_path, capsys):
+def test_train_then_test_cli(tmp_path, capsys, monkeypatch):
     """Pattern tests/test_cli.py: the port's train CLI for 3 iterations on
     the CPU, then its test CLI on the ckpt_3 directory it wrote, both with
     --set; the CLI's result equals evaluate_dataset's on the checkpoint's
-    weights. A ClsHead config is refused, and so is a host without a card
-    unless --device cpu is given."""
+    weights. A ClsHead config goes to the classifier trainer with
+    --epochs and --no-mixup; a host without a card is refused unless
+    --device cpu is given."""
     from dat_segmentation_tpu_torch.eval.evaluate import evaluate_dataset
     from dat_segmentation_tpu_torch.eval.inference import SegInferencer
     from dat_segmentation_tpu_torch.tools import test as test_cli
@@ -416,8 +417,16 @@ def test_train_then_test_cli(tmp_path, capsys):
     direct = evaluate_dataset(SegInferencer(state.model, num_classes=150, device="cpu"),
                               ADE20KDataset(data, "val"), max_images=2, verbose=False)
     assert res["inter"] == direct["inter"] and res["union"] == direct["union"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train_cli.main(["cls_tiny_imagenet", "--data-root", str(data), "--device", "cpu"])
+    from dat_segmentation_tpu_torch.train import trainer_cls
+
+    calls = []
+    monkeypatch.setattr(trainer_cls, "train_classifier",
+                        lambda cfg, **kw: calls.append((cfg, kw)) or "trained")
+    assert train_cli.main(["cls_tiny_imagenet", "--data-root", str(data), "--device", "cpu",
+                           "--epochs", "2", "--no-mixup"]) == "trained"
+    (cfg, kw), = calls
+    assert cfg.model.decode_head.type == "ClsHead" and cfg.data.data_root == str(data)
+    assert kw["epochs"] == 2 and kw["mixup"] is False and kw["device"] == torch.device("cpu")
     if not torch.cuda.is_available():  # the card unless the CPU is asked for
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main(["upn_tiny_160k_dp03_lr6", "--data-root", str(data)])

@@ -1,7 +1,7 @@
 """Shared by the PyTorch port's tests (tests/test_torch_*.py).
 
-A small SemanticFPN and a small UperNet configuration built the same way
-in both packages,
+A small SemanticFPN, a small UperNet and a small classifier configuration
+built the same way in both packages,
 random variables for a JAX module made from a numpy seed, and the same
 weights carried into a port module through ``utils/convert.py``. JAX is
 imported only where it is used: ``tests/test_torch_cuda.py`` runs on a
@@ -76,6 +76,25 @@ def small_upernet(get_config, head_width=16, num_classes=8, drop=0.0, topdown="m
             kwargs={"dropout_ratio": drop},
         ),
         num_classes=num_classes,
+    )
+
+
+def small_classifier(get_config, head_width=16, num_classes=10):
+    """cls_tiny_imagenet at depths (1, 2, 1, 1), heads ``head_width`` wide
+    (dims 32-64 at 16), a 'D' block in every stage, drop path 0 and
+    ``num_classes`` classes, from either package's ``get_config``; returns
+    the ModelConfig. (The CUDA kernel takes head width 32, as every
+    preset.)"""
+    cfg = get_config("cls_tiny_imagenet").model
+    hw = head_width
+    bb = dataclasses.replace(
+        cfg.backbone, dim_stem=2 * hw, dims=(2 * hw, 2 * hw, 4 * hw, 4 * hw), depths=(1, 2, 1, 1),
+        heads=(2, 2, 4, 4), groups=(1, 1, 2, 2),
+        stage_spec=(("D",), ("X", "D"), ("D",), ("D",)), drop_path_rate=0.0,
+    )
+    return dataclasses.replace(
+        cfg, backbone=bb, num_classes=num_classes,
+        decode_head=dataclasses.replace(cfg.decode_head, num_classes=num_classes),
     )
 
 
