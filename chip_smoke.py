@@ -1180,6 +1180,9 @@ def main() -> int:
         timed=timed, k1_inputs=k1_inputs, k1_stage_time=k1_stage_time,
         k2_stage_time=k2_stage_time, add_stage=add_stage))
 
+    # ---- 17. scale_out: the step over processes --------------------------------
+    scale_launches = scale_out_phase(torch, np, card, dev, n_d, timed)
+
     # ---- kernels line, card, verdict ----------------------------------------
     def line(kernel, n, err, tot):
         return dict(kernel, launches=n, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -1191,7 +1194,8 @@ def main() -> int:
     k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"],
                               "eval": eval_launches,
                               "train_loop": loop_launches["deform_attn_fwd"],
-                              **cls_launches["deform_attn_fwd"]}
+                              **cls_launches["deform_attn_fwd"],
+                              "scale_out_rank0": scale_launches["deform_attn_fwd"]}
     k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
               attribution_ms={v: totals[f"{v}_ms"] for v in K1_VARIANTS})
     k2 = line(KERNELS[1], train_launches["deform_attn_bwd"], max_err_bwd, btot)
@@ -1201,7 +1205,8 @@ def main() -> int:
                                 "train_crop": crop_launches["deform_attn_bwd"],
                                 "train_checkpoint": ck_launches["deform_attn_bwd"],
                                 "train_loop": loop_launches["deform_attn_bwd"],
-                                **cls_launches["deform_attn_bwd"]})
+                                **cls_launches["deform_attn_bwd"],
+                                "scale_out_rank0": scale_launches["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
     k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"], mma_instructions=k3_mma,
               warps_per_sm=k3_warps,
@@ -1809,6 +1814,7 @@ def cls_phases(torch, np, card, dev, h):
     from dat_segmentation_tpu_torch.data.mixup import MixupDraws
     from dat_segmentation_tpu_torch.ops import deform_attn as da
     from dat_segmentation_tpu_torch.ops import x_block as xb
+    from dat_segmentation_tpu_torch.tools.k3_time import stock_chain, xb_inputs
     from dat_segmentation_tpu_torch.train.train_step import make_cls_metric_step
 
     timed = h["timed"]
@@ -2064,6 +2070,29 @@ def cls_phases(torch, np, card, dev, h):
         row = h["k2_stage_time"](s, CLS_BATCH)
         h["add_stage"](k2tot, row)
         emit({"phase": "cls_kernel_time", "card": card, **row})
+    # K3 at the classifier's shapes: its gate fuses stage 0 only (56², C 64),
+    # an 'X' block and a 'D' block's MLP half, n_x launches a forward
+    xrows = x_block_bound(mc.backbone, stages[:1], card, batch=CLS_BATCH)["rows"]
+    check(sum(r["calls_per_forward"] for r in xrows) == n_x,
+          f"cls_kernel_time: K3 rows {xrows}, want {n_x} launches")
+    for row in xrows:
+        mode = "lpu" if row["mode"] == "X" else "mlp"
+        B, H, W, C = row["x"]
+        x, prm = xb_inputs(dev, torch.bfloat16, B=B, H=H, W=W, C=C, k=row["k"], mode=mode)
+        args = [prm[n] for n in XB_PARAMS]
+        lpu = mode == "lpu"
+        with torch.inference_mode():
+            ms = timed(lambda: xb.x_block_fwd(x, *args, with_lpu=lpu), 20)
+            plain_ms = timed(lambda: xb.x_block_reference(x, *args, with_lpu=lpu), 5, 1)
+            chain_ms = timed(lambda: stock_chain(x, prm, mode), 10)
+        emit({"phase": "cls_kernel_time", "card": card, "kernel": "x_block_fwd",
+              "stage": row["stage"], "mode": row["mode"], "dtype": "bfloat16", "batch": B,
+              "x": row["x"], "k": row["k"], "launches_per_forward": row["calls_per_forward"],
+              "ms": ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+              "yardstick": "the unfused stock-op chain, not one call",
+              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+              "roofline_share": row["bound_ms"] / ms, "chain_over_kernel": chain_ms / ms})
+        del x, prm, args
     k12 = sum(prof.get("kernels_ms", {}).get(k, 0.0) for k in ("deform_attn_fwd", "deform_attn_bwd"))
     emit({"phase": "cls_train", "card": card, "dtype": "bfloat16", "batch": CLS_BATCH,
           "compare": "kernel_impl auto vs pallas, in turns", "order": "auto pallas pallas auto",
@@ -2286,6 +2315,445 @@ def imagenet_like_jpegs(np, train_dir, n, seed=0):
             path, "JPEG", quality=CLS_LOADER_QUALITY)
         total += path.stat().st_size
     return total / n / 1024
+
+
+# ---- 17. scale_out: the step over processes (parallel/mesh.py) ---------------
+SCALE_BATCH = 4  # the global batch of the two-rank float32 step, 2 a rank
+SCALE_IGNORED = 0.9  # the share of rank 1's pixels labelled 255 (rank 0's: 5%)
+SCALE_TORCHRUN_ITERS = 4
+SCALE_SETS = ("schedule.warmup_iters=0", "checkpoint_interval=2", "eval_interval=4",
+              "log_interval=1")
+
+
+def scale_batch(np, mc):
+    """The two-rank step's global batch: rank 1's rows (2, 3) mostly ignored."""
+    rng = np.random.RandomState(SEED + 21)
+    label = rng.randint(0, mc.num_classes, (SCALE_BATCH, IMG, IMG))
+    label[rng.rand(SCALE_BATCH, IMG, IMG) < 0.05] = 255
+    label[SCALE_BATCH // 2:][rng.rand(SCALE_BATCH // 2, IMG, IMG) < SCALE_IGNORED] = 255
+    return {"image": rng.randn(SCALE_BATCH, IMG, IMG, 3).astype(np.float32), "label": label}
+
+
+def scale_cfg():
+    """The preset as it is (drop path 0.3, dropout 0.1), float32, warm-up 0."""
+    from dataclasses import replace
+
+    from dat_segmentation_tpu_torch import get_config
+
+    cfg = get_config(TRAIN_PRESET)
+    return replace(cfg, dtype="float32", schedule=replace(cfg.schedule, warmup_iters=0))
+
+
+def dict_grad_compare(got, want):
+    """||g - g_ref|| / ||g_ref|| over two name -> gradient dicts, and the names
+    beyond TOL_GRAD_PARAM (grad_compare's rule)."""
+    dsq = gsq = 0.0
+    per = []
+    for name, w in want.items():
+        d, gn = (got[name].float() - w.float()).norm().item(), w.float().norm().item()
+        dsq, gsq = dsq + d * d, gsq + gn * gn
+        per.append((d, gn, name))
+    off = [n for d, g, n in per if d > TOL_GRAD_PARAM * g + 1e-6 * gsq ** 0.5]
+    return (dsq / gsq) ** 0.5, off
+
+
+def params_rel(got, want):
+    num = sum((got[n].float() - w.float()).norm().item() ** 2 for n, w in want.items())
+    den = sum(w.float().norm().item() ** 2 for w in want.values())
+    return (num / den) ** 0.5
+
+
+def scale_rank(rank, world, tmp):
+    """One of two gloo ranks on the one card (NCCL refuses two ranks on one
+    GPU): the distributed eval, the float32 step, an fsdp step; the result
+    to ``tmp/rank<r>.pt``. Spawned by ``scale_out_phase``."""
+    import hashlib
+    import os
+    from dataclasses import replace
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dat_segmentation_tpu_torch import SegInferencer, build_model, create_train_state
+    from dat_segmentation_tpu_torch import make_train_step
+    from dat_segmentation_tpu_torch.data.ade20k import ADE20KDataset
+    from dat_segmentation_tpu_torch.eval.evaluate import evaluate_dataset
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.parallel import (destroy_distributed, init_distributed,
+                                                     process_shard_info)
+    from dat_segmentation_tpu_torch.parallel import mesh
+
+    tmp = Path(tmp)
+    dev = init_distributed("gloo", init_method=f"file://{tmp}/rendezvous")
+    out = {"device": str(dev)}
+    try:
+        cfg = scale_cfg()
+        mc = cfg.model
+        # the distributed eval of the seed's weights, three images a rank
+        torch.manual_seed(SEED)
+        model = build_model(mc, device=dev)
+        inf = SegInferencer(model, num_classes=mc.num_classes, compute_dtype=torch.float32,
+                            device=dev)
+        t0 = time.perf_counter()
+        res = evaluate_dataset(inf, ADE20KDataset(str(tmp / "data"), "val"),
+                               num_classes=mc.num_classes, shard_info=process_shard_info(),
+                               distributed=True, verbose=False)
+        out["eval"] = dict(inter=res["inter"], union=res["union"], mIoU=res["mIoU"],
+                           num_images=res["num_images"], seconds=time.perf_counter() - t0)
+        del inf
+        # the float32 step on this rank's rows of the global batch
+        n = SCALE_BATCH // world
+        local = {k: torch.as_tensor(v[rank * n:(rank + 1) * n]).to(dev)
+                 for k, v in scale_batch(np, mc).items()}
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
+                               compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        da.deform_attn.launches = da.deform_attn_bwd.launches = 0
+        t0 = time.perf_counter()
+        _, met = step(state, local)
+        torch.cuda.synchronize()
+        out["step"] = {"seconds": time.perf_counter() - t0,
+                       "launches": {"deform_attn_fwd": da.deform_attn.launches,
+                                    "deform_attn_bwd": da.deform_attn_bwd.launches},
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       **{k: v.cpu() for k, v in met.items()}}
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        out["step"]["params_sha256"] = digest.hexdigest()
+        grads = {n_: p.grad.detach() for n_, p in model.named_parameters() if p.grad is not None}
+        params = {n_: p.detach() for n_, p in model.named_parameters()}
+        # fsdp over the two gloo ranks, if gloo's CUDA collectives carry it
+        try:
+            torch.manual_seed(SEED)
+            fmodel = build_model(mc, device=dev)
+            fstate = create_train_state(fmodel, replace(cfg, fsdp=True))
+            fstep = make_train_step(fmodel, aux_weight=mc.aux_loss_weight,
+                                    num_classes=mc.num_classes, compute_dtype=torch.float32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, fmet = fstep(fstate, local)
+            torch.cuda.synchronize()
+            # each rank's shards against the same rows of the replicated
+            # parameters (gathering them, a DTensor redistribute, crashes in
+            # gloo's CUDA path)
+            shards = {n_: mesh.local(p) for n_, p in fmodel.named_parameters()}
+            rows = {n_: (list(p.chunk(world, dim=0)) + [p[:0]] * world)[rank]
+                    for n_, p in params.items()}
+            out["fsdp"] = {"loss": fmet["loss"].item(),
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "params_rel_vs_replicated": params_rel(shards, rows),
+                           "sharded": {n_: [list(s.shape), list(params[n_].shape)]
+                                       for n_, s in list(shards.items())[:1]}}
+            del fmodel, fstate, fstep, shards, rows
+        except RuntimeError as e:  # only the backend's refusal is an answer
+            if "gloo" not in str(e).lower() and "not supported" not in str(e).lower():
+                raise
+            out["fsdp"] = {"unsupported": str(e)[:400]}
+        # against the one-process step, once the parent has written it
+        ref_path = tmp / "ref.pt"
+        end = time.time() + 300
+        while not (tmp / "ref.done").exists():
+            if time.time() > end:
+                raise TimeoutError("no one-process reference")
+            time.sleep(0.2)
+        ref = torch.load(ref_path, map_location=dev, weights_only=True)
+        out["vs_one_process"] = {
+            "loss_rel_err": abs(met["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item()),
+            "grad": dict_grad_compare(grads, ref["grads"]),
+            "params_rel_err": params_rel(params, ref["params"]),
+            "iou_count_abs_diff": int((met["inter"] - ref["inter"]).abs().sum()
+                                      + (met["union"] - ref["union"]).abs().sum()),
+        }
+    finally:
+        destroy_distributed()
+    torch.save(out, tmp / f"rank{rank}.pt")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def fixture_layout(root, copies):
+    """The fixture's six images (and masks), each ``copies`` times, as the
+    train split, and once as the val split, under ``root``."""
+    import shutil
+
+    src = Path(__file__).resolve().parent / EVAL_DATA
+    for split, n in (("training", copies), ("validation", 1)):
+        for kind, suffix in (("images", ".jpg"), ("annotations", ".png")):
+            d = root / kind / split
+            d.mkdir(parents=True)
+            for p in sorted((src / kind / "validation").glob(f"*{suffix}")):
+                for c in range(n):
+                    shutil.copy(p, d / (p.name if n == 1 else f"{p.stem}_{c}{suffix}"))
+    return root
+
+
+def scale_out_phase(torch, np, card, dev, n_d, timed):
+    """17. scale_out (see the module docstring). Returns K1's and K2's
+    launches in rank 0's step of the two-rank run (counts set to 0 just
+    before, in that process)."""
+    import os
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    import torch.multiprocessing as mp
+
+    from dat_segmentation_tpu_torch import SegInferencer, build_model, create_train_state
+    from dat_segmentation_tpu_torch import make_train_step
+    from dat_segmentation_tpu_torch.data.ade20k import ADE20KDataset
+    from dat_segmentation_tpu_torch.eval.evaluate import evaluate_dataset
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.parallel import destroy_distributed, init_distributed
+    from dat_segmentation_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="scale_out_"))
+    try:
+        fixture_layout(tmp / "data", LOOP_COPIES)
+        torch.cuda.empty_cache()
+        ctx = mp.start_processes(scale_rank, args=(2, str(tmp)), nprocs=2, start_method="spawn",
+                                 join=False)
+        try:
+            # the one-process step on the whole global batch (no group), meanwhile
+            cfg = scale_cfg()
+            mc = cfg.model
+            torch.manual_seed(SEED)
+            model = build_model(mc, device=dev)
+            inf = SegInferencer(model, num_classes=mc.num_classes, compute_dtype=torch.float32,
+                                device=dev)
+            one_eval = evaluate_dataset(inf, ADE20KDataset(str(tmp / "data"), "val"),
+                                        num_classes=mc.num_classes, verbose=False)
+            del inf
+            state = create_train_state(model, cfg)
+            step = make_train_step(model, aux_weight=mc.aux_loss_weight,
+                                   num_classes=mc.num_classes, compute_dtype=torch.float32)
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in scale_batch(np, mc).items()}
+            _, met = step(state, batch)
+            torch.save({"loss": met["loss"], "inter": met["inter"], "union": met["union"],
+                        "grads": {n: p.grad for n, p in model.named_parameters()
+                                  if p.grad is not None},
+                        "params": dict(model.named_parameters())}, tmp / "ref.pt")
+            (tmp / "ref.done").touch()
+            one_loss = met["loss"].item()
+            del model, state, step, batch, met
+            torch.cuda.empty_cache()
+            end = time.time() + 600
+            while not ctx.join(timeout=10):
+                if time.time() > end:
+                    raise TimeoutError("scale_out: the two ranks still run after 600 s")
+        except BaseException:
+            for p in ctx.processes:
+                p.kill()
+            raise
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        r0, r1 = ranks
+        rel = [r["vs_one_process"] for r in ranks]
+        emit({"phase": "scale_out", "card": card, "part": "two gloo ranks on one card",
+              "preset": TRAIN_PRESET, "dtype": "float32", "tf32": False,
+              "global_batch": SCALE_BATCH, "rank1_ignored_share": SCALE_IGNORED,
+              "drop_path_rate": mc.backbone.drop_path_rate,
+              "devices": [r["device"] for r in ranks],
+              "loss": [r["step"]["loss"].item() for r in ranks], "loss_one_process": one_loss,
+              "loss_rel_err": [v["loss_rel_err"] for v in rel],
+              "grad_rel_err": [v["grad"][0] for v in rel],
+              "grads_beyond_tol": [v["grad"][1] for v in rel],
+              "params_rel_err": [v["params_rel_err"] for v in rel],
+              "iou_count_abs_diff": [v["iou_count_abs_diff"] for v in rel],
+              "pixels": SCALE_BATCH * IMG * IMG,
+              "replicas_equal": r0["step"]["params_sha256"] == r1["step"]["params_sha256"],
+              "launches_per_rank": [r["step"]["launches"] for r in ranks],
+              "step_s": [r["step"]["seconds"] for r in ranks],
+              "peak_gib_replicated": [r["step"]["peak_gib"] for r in ranks],
+              "fsdp": [r["fsdp"] for r in ranks],
+              "tol": {"loss": TOL_TRAIN_LOSS, "grad": TOL_GRAD, "params": TOL_GRAD,
+                      "grad_param": TOL_GRAD_PARAM}})
+        for r, (rank, v) in enumerate(zip(ranks, rel)):
+            what = f"scale_out rank {r}"
+            check(v["loss_rel_err"] <= TOL_TRAIN_LOSS,
+                  f"{what}: loss rel err {v['loss_rel_err']} > {TOL_TRAIN_LOSS}")
+            check(v["grad"][0] <= TOL_GRAD, f"{what}: grad rel err {v['grad'][0]} > {TOL_GRAD}")
+            check(not v["grad"][1], f"{what}: gradients beyond {TOL_GRAD_PARAM}: {v['grad'][1]}")
+            check(v["params_rel_err"] <= TOL_GRAD,
+                  f"{what}: params rel err {v['params_rel_err']} > {TOL_GRAD}")
+            # argmax near-ties may flip under float32 rounding (train_model's rule)
+            check(v["iou_count_abs_diff"] <= 1e-4 * SCALE_BATCH * IMG * IMG,
+                  f"{what}: IoU counts differ by {v['iou_count_abs_diff']}")
+            check(rank["step"]["launches"] == {"deform_attn_fwd": n_d, "deform_attn_bwd": n_d},
+                  f"{what}: launches {rank['step']['launches']}, want {n_d} each")
+            if "unsupported" not in rank["fsdp"]:
+                check(abs(rank["fsdp"]["loss"] - rank["step"]["loss"].item())
+                      <= TOL_TRAIN_LOSS * abs(one_loss)
+                      and rank["fsdp"]["params_rel_vs_replicated"] <= TOL_GRAD,
+                      f"{what}: fsdp vs replicated {rank['fsdp']}")
+        check(r0["step"]["params_sha256"] == r1["step"]["params_sha256"],
+              "scale_out: the two ranks' parameters differ")
+        for r, rank in enumerate(ranks):
+            ev = rank["eval"]
+            check(ev["inter"] == one_eval["inter"] and ev["union"] == one_eval["union"]
+                  and ev["num_images"] == one_eval["num_images"] == 6,
+                  f"scale_out rank {r}: distributed eval counts differ from one process's")
+        emit({"phase": "scale_out", "card": card, "part": "evaluate_dataset(distributed=True)",
+              "ranks": 2, "backend": "gloo", "images": one_eval["num_images"],
+              "mIoU": [r["eval"]["mIoU"] for r in ranks], "mIoU_one_process": one_eval["mIoU"],
+              "counts_equal": [r["eval"]["inter"] == one_eval["inter"]
+                               and r["eval"]["union"] == one_eval["union"] for r in ranks],
+              "seconds": [r["eval"]["seconds"] for r in ranks]})
+
+        # -- one NCCL rank in this process: fsdp against replicated, the cost
+        # of the machinery against the plain step, the gradient all-reduce --
+        def join():
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                              MASTER_PORT=str(free_port()))
+            return init_distributed()
+
+        join()
+        backend = torch.distributed.get_backend()
+        b2 = {k: torch.as_tensor(v[:2]).to(dev) for k, v in scale_batch(np, mc).items()}
+        runs = {}
+        for name, fsdp in (("replicated", False), ("fsdp", True)):
+            torch.manual_seed(SEED)
+            m = build_model(mc, device=dev)
+            st = create_train_state(m, replace(cfg, fsdp=fsdp))
+            stp = make_train_step(m, aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
+                                  compute_dtype=torch.float32)
+            _, mt = stp(st, b2)
+            torch.cuda.synchronize()
+            runs[name] = (mt["loss"].item(), {n: mesh.local(p.grad).detach()
+                                              for n, p in m.named_parameters()
+                                              if p.grad is not None})
+            del m, st, stp, mt
+        loss_rel = abs(runs["fsdp"][0] - runs["replicated"][0]) / abs(runs["replicated"][0])
+        grad_rel, off = dict_grad_compare(runs["fsdp"][1], runs["replicated"][1])
+        emit({"phase": "scale_out", "card": card, "part": "fsdp vs replicated, one NCCL rank",
+              "backend": backend, "dtype": "float32", "batch": 2,
+              "loss": {k: v[0] for k, v in runs.items()}, "loss_rel_err": loss_rel,
+              "grad_rel_err": grad_rel, "grads_beyond_tol": off})
+        check(backend == "nccl", f"scale_out: backend {backend}, want nccl")
+        check(loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_GRAD and not off,
+              f"scale_out: fsdp vs replicated under NCCL: loss {loss_rel}, grad {grad_rel}, {off}")
+        del runs
+        torch.cuda.empty_cache()
+
+        bcfg = replace(cfg, dtype="bfloat16")
+        rng = np.random.RandomState(SEED + 22)
+        b16 = {"image": torch.tensor(rng.randn(TRAIN_BATCH, IMG, IMG, 3), dtype=torch.float32,
+                                     device=dev),
+               "label": torch.tensor(rng.randint(0, mc.num_classes, (TRAIN_BATCH, IMG, IMG)),
+                                     device=dev)}
+        torch.manual_seed(SEED)
+        model = build_model(mc, device=dev)
+        state = create_train_state(model, bcfg)
+        kw = dict(aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
+                  compute_dtype=torch.bfloat16)
+        dist_step = make_train_step(model, **kw)
+        torch.cuda.synchronize()
+        da.deform_attn.launches = da.deform_attn_bwd.launches = 0
+        dist_step(state, b16)
+        torch.cuda.synchronize()
+        nccl_launches = {"deform_attn_fwd": da.deform_attn.launches,
+                         "deform_attn_bwd": da.deform_attn_bwd.launches}
+        check(nccl_launches == {"deform_attn_fwd": n_d, "deform_attn_bwd": n_d},
+              f"scale_out: NCCL bf16 step launches {nccl_launches}")
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+        reduce_ms = timed(lambda: mesh.reduce_gradients(grads), 10)
+        torch.cuda.reset_peak_memory_stats()
+        dist_step(state, b16)
+        torch.cuda.synchronize()
+        peak_rep = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = {"distributed": [], "plain": []}
+        plain_step = None
+        for turn in ("distributed", "plain", "plain", "distributed"):
+            if turn == "plain" and mesh.is_distributed():
+                destroy_distributed()
+                plain_step = plain_step or make_train_step(model, **kw)
+            if turn == "distributed" and not mesh.is_distributed():
+                join()
+            fn = dist_step if turn == "distributed" else plain_step
+            ms[turn].append(timed(lambda: fn(state, b16), TIME_STEPS, warmup=1))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        # where the machinery's time goes: each step's device time by kernel
+        profiles = {"distributed": profile_device(torch, lambda: dist_step(state, b16), card,
+                                                  med["distributed"], "step", iters=2)}
+        destroy_distributed()
+        profiles["plain"] = profile_device(torch, lambda: plain_step(state, b16), card,
+                                           med["plain"], "step", iters=2)
+        join()
+        for name, prof in profiles.items():
+            emit(dict(prof, part=f"scale_out, one NCCL rank: the {name} step", batch=TRAIN_BATCH))
+        del model, state, dist_step, plain_step, grads
+        torch.cuda.empty_cache()
+        torch.manual_seed(SEED)
+        fmodel = build_model(mc, device=dev)
+        fstate = create_train_state(fmodel, replace(bcfg, fsdp=True))
+        fstep = make_train_step(fmodel, **kw)
+        fstep(fstate, b16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fstep(fstate, b16)
+        torch.cuda.synchronize()
+        peak_fsdp = torch.cuda.max_memory_allocated() / 2 ** 30
+        del fmodel, fstate, fstep
+        destroy_distributed()
+        torch.cuda.empty_cache()
+        device_ms = {k: v.get("device_ms_per_step") for k, v in profiles.items()}
+        emit({"phase": "scale_out", "card": card, "part": "one NCCL rank, bf16 step",
+              "preset": TRAIN_PRESET, "batch": TRAIN_BATCH, "order": "dist plain plain dist",
+              "ms_per_step": ms, "median_ms_per_step": med,
+              "machinery_ms": med["distributed"] - med["plain"],
+              "machinery_share": med["distributed"] / med["plain"] - 1,
+              "device_ms_per_step": device_ms,
+              "device_machinery_ms": (device_ms["distributed"] - device_ms["plain"]
+                                      if None not in device_ms.values() else "not measured"),
+              "gradient_all_reduce_ms": reduce_ms, "gradient_bytes": grad_bytes,
+              "gradient_buckets": -(-grad_bytes // mesh.BUCKET_BYTES),
+              "peak_gib": {"replicated": peak_rep, "fsdp": peak_fsdp},
+              "note": "world 1: NCCL reduces over one card; NCCL across cards is unmeasured"})
+
+        # -- the train CLI under torchrun, one NCCL rank ----------------------
+        work = tmp / "torchrun"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+               f"--master_port={free_port()}", "-m", "dat_segmentation_tpu_torch.tools.train",
+               TRAIN_PRESET, "--multihost", "--data-root", str(tmp / "data"), "--work-dir",
+               str(work), "--max-iters", str(SCALE_TORCHRUN_ITERS), "--set", *SCALE_SETS]
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(k, None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=400, env=env,
+                              cwd=Path(__file__).resolve().parent)
+        cli_s = time.perf_counter() - t0
+        run_dir = work / TRAIN_PRESET
+        log = (run_dir / "train.log").read_text() if (run_dir / "train.log").exists() else ""
+        losses = [float(x) for x in re.findall(r"loss=([-0-9.naif]+)", log)]
+        names = sorted(p.name for p in run_dir.glob("ckpt_*")) if run_dir.exists() else []
+        emit({"phase": "scale_out", "card": card, "part": "torchrun train CLI, one NCCL rank",
+              "command": " ".join(cmd[1:4] + cmd[5:10]) + " ...", "rc": proc.returncode,
+              "seconds": cli_s, "losses": losses, "checkpoints": names,
+              "val_lines": [ln for ln in log.splitlines() if "val mIoU" in ln],
+              "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})
+        check(proc.returncode == 0, f"scale_out: torchrun train CLI rc {proc.returncode}")
+        check(len(losses) == SCALE_TORCHRUN_ITERS and all(np.isfinite(losses)),
+              f"scale_out: torchrun losses {losses}")
+        check({"ckpt_2", "ckpt_4", "ckpt_best"} <= set(names),
+              f"scale_out: torchrun checkpoints {names}")
+        check(any("val mIoU" in ln for ln in log.splitlines()), "scale_out: no in-run val")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "scale_out", "card": card, "seconds": time.perf_counter() - t_phase})
+    return r0["step"]["launches"]
 
 
 def grad_compare(gmodel, cmodel):

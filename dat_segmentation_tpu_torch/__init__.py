@@ -7,7 +7,8 @@ public functions keep its NHWC layout. Entry points (``build_model``,
 ``device="cpu"``; on the CPU every kernel is replaced by its plain
 PyTorch version, which is how the tests hold the port to the JAX package.
 ``create_train_state`` and ``make_train_step`` train a segmentor or the
-classifier on one card.
+classifier on one card, or over the processes of a ``torch.distributed``
+group (``parallel/``: data parallel, ``fsdp=True`` for ZeRO).
 """
 
 from .configs import get_config, list_configs

@@ -3,7 +3,7 @@
 Counterpart of ``dat_segmentation_tpu/data/mixup.py`` (reference
 datasets/imagenet.py:16-36): Mixup (alpha 0.8) or CutMix (alpha 1.0),
 switch probability 0.5, label smoothing 0.1, one lambda a batch, each image
-paired with its mirror in the flipped batch, and CutMix's lambda corrected
+paired with its mirror in the flipped (global) batch, and CutMix's lambda corrected
 by the box's area after clipping.
 
 The draws are split from their application. ``MixupSampler`` draws the
@@ -23,6 +23,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import mirror_rows
 
 
 MIXUP_ALPHA, CUTMIX_ALPHA, SWITCH_PROB = 0.8, 1.0, 0.5
@@ -84,9 +86,12 @@ def one_hot_smooth(labels: torch.Tensor, num_classes: int, smoothing: float) -> 
 def mixup_cutmix(images: torch.Tensor, labels: torch.Tensor, draws: MixupDraws, *,
                  num_classes: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mixed images in ``images``' dtype, float32 soft targets
-    (B, num_classes)) for NHWC ``images`` and integer ``labels`` (B,)."""
+    (B, num_classes)) for NHWC ``images`` and integer ``labels`` (B,).
+    Inside a process group the pairs are the global batch's: this
+    process's rows with their mirrors on rank W-1-r (an all-gather of the
+    images and labels)."""
     _, h, w, _ = images.shape
-    flipped = images.flip(0)
+    flipped = mirror_rows(images)
     if draws.use_cutmix:
         y1, y2, x1, x2 = cutmix_box(h, w, draws.lam_cut, draws.cy, draws.cx)
         out = images.clone()
@@ -97,6 +102,6 @@ def mixup_cutmix(images: torch.Tensor, labels: torch.Tensor, draws: MixupDraws, 
         rest = float(np.float32(1) - lam)
         out = (images.float() * float(lam) + flipped.float() * rest).to(images.dtype)
     t1 = one_hot_smooth(labels, num_classes, LABEL_SMOOTHING)
-    t2 = one_hot_smooth(labels.flip(0), num_classes, LABEL_SMOOTHING)
+    t2 = one_hot_smooth(mirror_rows(labels), num_classes, LABEL_SMOOTHING)
     targets = t1 * float(lam) + t2 * float(np.float32(1) - np.float32(lam))
     return out, targets

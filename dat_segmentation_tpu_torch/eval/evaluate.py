@@ -17,9 +17,12 @@ summed in int64, then mIoU, aAcc and the per-class IoU and Acc.
 The JAX package's ``postproc_workers`` (host threads overlapping the
 resize and argmax with the next forward) has no counterpart: the port's
 resize and argmax run on the device, so there is no host postproc to
-overlap. ``distributed=True`` (an in-run reduction of the counts across
-processes) comes with the port's scale-out (ROADMAP.md, Queue 1 item 4);
-``shard_info`` plus ``merge_shard_results`` covers sharded runs.
+overlap. ``shard_info`` gives a process its images; ``distributed=True``
+sums the counts of every process of a ``torch.distributed`` group in
+int64 at the end (JAX ``evaluate.py:40-70``, one all-reduce over the gloo
+control group of ``parallel/mesh.py``), so every process returns the whole
+set's result; alone it changes nothing. ``merge_shard_results`` sums the
+results of separate sharded runs offline.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..parallel import mesh
 from ..train.metrics import StreamingIoU, miou_from_totals
 from .inference import MS_RATIOS, SegInferencer
 
@@ -63,6 +67,15 @@ def _batched(inferencer, dataset, indices, finish, *, img_scale, keep_ratio, bat
         flush()
 
 
+def _reduce_across_processes(iou: StreamingIoU, done: int) -> int:
+    """Sum ``iou``'s counts (in place) and the image count over the
+    processes; returns the summed image count."""
+    c = iou.num_classes
+    totals = mesh.all_reduce_host(np.concatenate([iou.inter, iou.union, iou.area_label, [done]]))
+    iou.inter, iou.union, iou.area_label = totals[:c], totals[c:2 * c], totals[2 * c:3 * c]
+    return int(totals[-1])
+
+
 def evaluate_dataset(
     inferencer: SegInferencer,
     dataset,
@@ -86,13 +99,9 @@ def evaluate_dataset(
 
     ``aug_test``: ``MS_RATIOS`` with horizontal flip. ``shard_info``
     (rank, world): this process takes images rank, rank + world, ... of
-    the first ``max_images``. ``on_pred(idx, pred)`` fires once an image
+    the first ``max_images``; ``distributed``: the counts summed over the
+    processes of the group. ``on_pred(idx, pred)`` fires once an image
     with its original-resolution int32 class map."""
-    if distributed:
-        raise NotImplementedError(
-            "distributed evaluation comes with the port's scale-out (ROADMAP.md, Queue 1 "
-            "item 4); use shard_info and merge_shard_results"
-        )
     ratios: Sequence[float] = MS_RATIOS if aug_test else (1.0,)
     flip = bool(aug_test)
     iou = StreamingIoU(num_classes, ignore_index)
@@ -118,6 +127,8 @@ def evaluate_dataset(
     else:
         _per_image(inferencer, dataset, indices, finish, img_scale=img_scale, ratios=ratios,
                    flip=flip, keep_ratio=keep_ratio)
+    if distributed and mesh.is_distributed():
+        done = _reduce_across_processes(iou, done)
     _, per_class = miou_from_totals(iou.inter, iou.union)
     # per-class Acc = inter / GT area (mmseg's per-class table columns)
     with np.errstate(invalid="ignore", divide="ignore"):

@@ -25,6 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce, is_distributed, process_shard_info
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
@@ -63,30 +65,85 @@ class BatchNorm2d(nn.BatchNorm2d):
     |mean| >> std, so that the card and the CPU, summing in other orders,
     drift apart; PyTorch's kernels do not take that form. In eval it is
     ``nn.BatchNorm2d``.
+
+    Inside a process group the statistics are the global batch's, as the
+    JAX package's under GSPMD (``_GlobalBatchNorm``): two all-reduces, the
+    sum with the count and then the sum of squared deviations from the
+    global mean (no E[x²] - E[x]² either), and one in the backward; the
+    running statistics come out the same on every process.
+    (``nn.SyncBatchNorm`` refuses CPU tensors.)
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         dt = torch.promote_types(x.dtype, torch.float32)
+        if is_distributed():
+            y, mean, var = _GlobalBatchNorm.apply(
+                x.permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt), self.eps)
+            self._track(mean, var)
+            return y.permute(0, 2, 3, 1)
         y, mean, rstd = torch.native_batch_norm(
             x.permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt), None, None, True,
             0.0, self.eps,
         )
         with torch.no_grad():
-            var = (rstd.pow(-2) - self.eps).clamp_min(0.0)
-            m = self.momentum
-            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1.0 - m) * self.running_var + m * var)
-            self.num_batches_tracked += 1
+            self._track(mean, (rstd.pow(-2) - self.eps).clamp_min(0.0))
         return y.permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+        self.num_batches_tracked += 1
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training BatchNorm of an NCHW view over the global batch of the
+    process group: the output and the biased (mean, var) of every
+    process's channels together. The backward's dx takes the global sums of
+    dy and dy * x_hat (one all-reduce); the affine's gradients are this
+    process's share, which the step sums with the others'. Only x (as the
+    plain BatchNorm) and the per-channel statistics are kept for it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        n = torch.tensor([x.numel() // c], dtype=torch.float32, device=x.device)
+        s = all_reduce(torch.cat([x.sum((0, 2, 3), dtype=torch.float32), n]))
+        count = s[c]
+        mean = s[:c] / count
+        m2 = all_reduce((x.float() - mean[:, None, None]).square().sum((0, 2, 3)))
+        var = m2 / count
+        rstd = torch.rsqrt(var + eps)
+        # eval-mode batch norm with the global statistics: one pass, x's dtype
+        y = torch.native_batch_norm(x, weight, bias, mean, var, False, 0.0, eps)[0]
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.count = count
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        c = x.shape[1]
+        g = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+        local = torch.cat([g.sum((0, 2, 3)), (g * xhat).sum((0, 2, 3))])
+        dbias, dweight = local[:c].clone(), local[c:].clone()
+        s = all_reduce(local) / ctx.count
+        dx = (g - s[:c, None, None] - xhat * s[c:, None, None]) * (weight * rstd)[:, None, None]
+        return dx.to(x.dtype), dweight, dbias, None
 
 
 class Dropout(nn.Module):
     """Elementwise dropout (flax ``nn.Dropout``, which the JAX package's
     heads use, not mmseg's channel-wise ``Dropout2d``): x / keep where a
     Bernoulli(keep) mask drawn from ``self.generator`` keeps it, else 0.
-    Identity in eval or at rate 0."""
+    Identity in eval or at rate 0. Over W processes each draws the mask of
+    the global batch (W times its own rows, the leading axis) and keeps its
+    rows, so the masks are the one-process step's at the global batch."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -105,8 +162,14 @@ class Dropout(nn.Module):
                 "hand one to the model with layers.use_generator(model, generator)"
             )
         keep = 1.0 - self.rate
-        mask = torch.empty(self.mask_shape(x), device=x.device)
+        shape = self.mask_shape(x)
+        rank, world = process_shard_info()
+        # inside a process group: the global batch's mask (the generator is
+        # seeded alike on every process), this process's rows of it
+        mask = torch.empty((shape[0] * world,) + shape[1:], device=x.device)
         mask.bernoulli_(keep, generator=self.generator)
+        if world > 1:
+            mask = mask[rank * shape[0]:(rank + 1) * shape[0]]
         return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
 
 

@@ -17,7 +17,12 @@ mIoU, and writes the result dict (mIoU, aAcc, per-class IoU and Acc,
 ``inter``, ``union``, ``num_images``) to ``--out``. ``--device`` is the
 card unless named (``cpu`` runs the plain PyTorch versions).
 
-Not yet here (ROADMAP.md, Queue 1): ``--show-dir`` and ``--format-dir``, ``--distributed``; the JAX
+``--distributed`` joins the process group torchrun describes
+(``parallel.init_distributed``): each process evaluates its shard of the
+images and the counts are summed, so every process holds the whole
+result; rank 0 prints it and writes ``--out``.
+
+Not yet here (ROADMAP.md, Queue 1): ``--show-dir`` and ``--format-dir``; the JAX
 package's ``--pad-bucket``, ``--no-exact`` and ``--postproc-workers``
 have no counterpart (the port runs true shapes and resizes on the device).
 """
@@ -35,6 +40,7 @@ from ..data.ade20k import ADE20K_CLASSES, ADE20KDataset
 from ..eval.evaluate import evaluate_dataset
 from ..eval.inference import SegInferencer
 from ..models.builder import build_model
+from ..parallel import init_distributed, process_shard_info
 from ..train.checkpoint import load_pretrained, merge_pretrained
 from ..utils.device import resolve_device
 from .train import apply_overrides, load_config
@@ -56,12 +62,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
                    help="dotted config overrides (must match the checkpoint)")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join torchrun's process group: shard the images, sum the counts")
     return p.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = init_distributed(device=args.device) if args.distributed else resolve_device(args.device)
     cfg = load_config(args.config)
     cfg = apply_overrides(cfg, args.set)
     torch.manual_seed(0)  # keys the checkpoint lacks stay at a reproducible init
@@ -77,11 +85,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     )
     del model
     shard_info = tuple(map(int, args.shard.split("/"))) if args.shard else None
+    if args.distributed:
+        shard_info = process_shard_info()
     res = evaluate_dataset(
         inferencer, ADE20KDataset(args.data_root, "val"), num_classes=cfg.model.num_classes,
         img_scale=cfg.data.img_scale, aug_test=args.aug_test, max_images=args.max_images,
-        shard_info=shard_info, batch_size=args.batch_size,
+        shard_info=shard_info, batch_size=args.batch_size, distributed=args.distributed,
     )
+    if args.distributed and shard_info[0] != 0:
+        return res  # rank 0 reports
     names = (ADE20K_CLASSES if cfg.model.num_classes == len(ADE20K_CLASSES)
              else [str(i) for i in range(cfg.model.num_classes)])
     width = max(len(n) for n in names)

@@ -6,6 +6,8 @@ ImageNet, on the card.
         [--work-dir DIR] [--set key=value ...] [--device cpu]
     python -m dat_segmentation_tpu_torch.tools.train cls_tiny_imagenet \\
         --data-root /data/imagenet [--epochs N] [--no-mixup] ...
+    torchrun --nproc_per_node=8 -m dat_segmentation_tpu_torch.tools.train \\
+        upn_tiny_160k_dp03_lr6 --multihost --data-root /data/ade20k ...
 
 The port's ``tools/train.py`` (the JAX package's): a ``ClsHead`` config
 trains with ``train/trainer_cls.py`` (``--epochs``, ``--no-mixup``), any
@@ -17,10 +19,14 @@ each value read as a Python literal where it parses as one.
 ``--pretrained`` is a reference ``.pth`` or a ``ckpt_*`` directory of this
 trainer; ``--resume`` continues from the latest ``ckpt_<step>`` in the
 work dir. ``--device`` is the card unless named (``cpu`` runs the plain
-PyTorch versions). ``main(argv)`` returns the trainer's (state, history).
+PyTorch versions). ``--multihost`` joins the process group torchrun
+describes (``parallel.init_distributed``: NCCL on the cards, one process a
+card, gloo with ``--device cpu``); the config's ``data.batch_size`` is then
+the global batch, and ``fsdp=True`` (``--set fsdp=True``) shards the
+parameters and AdamW's moments. ``main(argv)`` returns the trainer's
+(state, history).
 
-Not yet here (ROADMAP.md, Queue 1): ``--multihost`` (item 4);
-``--diff-seed``, a no-op in the JAX package.
+Not here: ``--diff-seed``, a no-op in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
                    help="dotted config overrides")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's process group (data parallel over its processes)")
     return p.parse_args(argv)
 
 
@@ -84,9 +92,10 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     from ..configs.schema import replace
     from ..train.trainer_seg import train_segmentation
+    from ..parallel import init_distributed
     from ..utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    device = init_distributed(device=args.device) if args.multihost else resolve_device(args.device)
     cfg = load_config(args.config)
     cfg = replace(cfg, **{"data.data_root": args.data_root, "seed": args.seed})
     if args.work_dir:

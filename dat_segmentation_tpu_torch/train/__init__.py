@@ -1,4 +1,4 @@
-"""Training: losses, schedules, AdamW, metrics and the single-card steps."""
+"""Training: losses, schedules, AdamW, metrics, the steps and the trainers."""
 
 from .losses import (
     cross_entropy_loss,

@@ -11,6 +11,12 @@ buffers), the AdamW ``state_dict``, the step and the drop-path/dropout
 generator's ``get_state()``; ``best`` holds the model's ``state_dict``
 only, as the JAX package's holds params and batch_stats.
 
+Inside a ``torch.distributed`` process group rank 0 writes and every rank
+waits for it (``save``); every rank reads. The trainers gather a sharded
+(fsdp) model's state to the one-process format first
+(``parallel/mesh.py:full_state``), so a checkpoint written by W processes
+resumes in one, and the reverse.
+
 ``load_pretrained`` reads a reference ``.pth`` (translated by
 ``utils/torch_convert.py``) or a ``ckpt_*`` directory written here; the
 JAX package's orbax directories need JAX to read and are refused.
@@ -26,6 +32,7 @@ from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 
+from ..parallel import mesh
 from ..utils import torch_convert as tc
 
 STATE_FILE = "state.pt"
@@ -47,8 +54,18 @@ class CheckpointManager:
              overwrite: bool = True) -> Path:
         """Write ``state`` (anything ``torch.save`` takes: tensors on any
         device, state_dicts, numbers) as ``ckpt_{tag}``; then the metadata
-        and the collection of old steps."""
+        and the collection of old steps. In a process group rank 0 writes
+        and every rank returns once it has."""
         path = self._step_dir(tag)
+        if mesh.is_distributed():
+            if mesh.process_shard_info()[0] == 0:
+                self._write(path, state, metadata, overwrite)
+            mesh.barrier()
+            return path
+        return self._write(path, state, metadata, overwrite)
+
+    def _write(self, path: Path, state, metadata, overwrite: bool) -> Path:
+        tag = path.name[len("ckpt_"):]
         if path.exists():
             if not overwrite:
                 raise FileExistsError(path)

@@ -7,6 +7,13 @@ soft-target CE of mixup and label-smoothing CE. Logits come in NHWC (or
 (N, C)) with the classes last and are taken in float32, as in the JAX
 package. On the card ``F.cross_entropy`` with ``ignore_index`` is the
 idiom; the JAX package's gather-free masked sum was a TPU workaround.
+
+Inside a process group each process's loss is its local sum over the
+GLOBAL count (of valid pixels, one int64 all-reduce for the main and the
+auxiliary CE; of samples for the classifier's), so the sum of the
+processes' losses, and of their gradients, is the JAX package's mean over
+the global batch. (A mean of per-process means is not, where processes
+hold different numbers of ignored pixels.)
 """
 
 from __future__ import annotations
@@ -16,15 +23,28 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce, is_distributed, process_shard_info
+
+
+def valid_count(labels: torch.Tensor, *, ignore_index: int = 255) -> torch.Tensor:
+    """int64 count of the pixels that are not ignored, over the global batch
+    inside a process group."""
+    count = (labels != ignore_index).sum()
+    return all_reduce(count) if is_distributed() else count
+
 
 def cross_entropy_loss(
-    logits: torch.Tensor, labels: torch.Tensor, *, ignore_index: int = 255
+    logits: torch.Tensor, labels: torch.Tensor, *, ignore_index: int = 255,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """logits (..., C), labels (...) int: mean CE over non-ignored pixels."""
+    """logits (..., C), labels (...) int: CE summed over non-ignored pixels
+    over ``count`` (default ``valid_count(labels)``): their mean."""
     flat = logits.float().reshape(-1, logits.shape[-1])
     lbl = labels.reshape(-1).long()
     nll = F.cross_entropy(flat, lbl, ignore_index=ignore_index, reduction="sum")
-    return nll / (lbl != ignore_index).sum().clamp_min(1)
+    if count is None:
+        count = valid_count(lbl, ignore_index=ignore_index)
+    return nll / count.clamp_min(1)
 
 
 def segmentation_loss(
@@ -36,19 +56,32 @@ def segmentation_loss(
     ignore_index: int = 255,
 ) -> torch.Tensor:
     """main CE + aux_weight * aux CE."""
-    loss = cross_entropy_loss(logits, labels, ignore_index=ignore_index)
+    count = valid_count(labels, ignore_index=ignore_index)
+    loss = cross_entropy_loss(logits, labels, ignore_index=ignore_index, count=count)
     if aux_logits is not None:
-        loss = loss + aux_weight * cross_entropy_loss(aux_logits, labels, ignore_index=ignore_index)
+        loss = loss + aux_weight * cross_entropy_loss(aux_logits, labels,
+                                                      ignore_index=ignore_index, count=count)
     return loss
+
+
+def _batch_mean(per_row: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch; inside a process group this process's sum
+    over the global batch size (the processes' batches are equal)."""
+    if not is_distributed():
+        return per_row.mean()
+    return per_row.sum() / (per_row.shape[0] * process_shard_info()[1])
 
 
 def soft_target_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """timm SoftTargetCrossEntropy: batch mean of -sum(t * log_softmax)."""
-    return torch.sum(-targets * F.log_softmax(logits.float(), dim=-1), dim=-1).mean()
+    return _batch_mean(torch.sum(-targets * F.log_softmax(logits.float(), dim=-1), dim=-1))
 
 
 def label_smoothing_cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor, *, smoothing: float = 0.1
 ) -> torch.Tensor:
     """torch ``CrossEntropyLoss(label_smoothing=s)`` on (N, C) logits."""
-    return F.cross_entropy(logits.float(), labels.long(), label_smoothing=smoothing)
+    if not is_distributed():
+        return F.cross_entropy(logits.float(), labels.long(), label_smoothing=smoothing)
+    return _batch_mean(F.cross_entropy(logits.float(), labels.long(), label_smoothing=smoothing,
+                                       reduction="none"))

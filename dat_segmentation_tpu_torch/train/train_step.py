@@ -1,8 +1,7 @@
-"""The single-card train steps (segmentation and classification) and the
-classifier's metric step, in PyTorch.
+"""The train steps (segmentation and classification) and the classifier's
+metric step, in PyTorch, on one card or over the processes of a group.
 
-Counterpart of ``dat_segmentation_tpu/parallel/train_step.py`` on one
-device (no mesh, no fsdp: DDP and FSDP come with the scale-out slice).
+Counterpart of ``dat_segmentation_tpu/parallel/train_step.py``.
 ``create_train_state`` gathers the model, its AdamW optimizer, the
 learning-rate schedule, the step count, the ``torch.Generator`` that
 every drop path and dropout draws from (seeded with ``cfg.seed + 1`` on
@@ -37,6 +36,25 @@ forward would not be the JAX package's, and the deformable-attention
 kernels would see float32 and bf16 inputs mixed. BatchNorm statistics
 are taken in float32 either way, and the running statistics stay
 float32 buffers.
+
+Inside a ``torch.distributed`` process group (``parallel/mesh.py``) the
+step is the JAX package's over the GLOBAL batch (the processes' batches
+in rank order): ``create_train_state`` checks ``cfg.mesh_shape``
+(``resolve_mesh``), broadcasts rank 0's parameters and buffers, and with
+``cfg.fsdp`` shards the model (``shard_model``: FSDP2, which gathers the
+parameters in ``compute_dtype`` for the forward in place of the cast
+copies, whose ``functional_call`` would see sharded parameters). The
+model's BatchNorms, dropout and the losses take the global batch (see
+``parallel/mesh.py``); after the backward the step sums the float32
+gradients over the processes in buckets (FSDP2 reduce-scatters them
+itself), so ``grad_norm``, the clip and ``update_ratio`` read the global
+gradient, and the metrics are global on every process: ``loss`` and
+``acc1`` over the global batch, ``inter``/``union`` summed in int64. Not wrapping the
+model in ``DistributedDataParallel`` is deliberate: the cast forward's
+``functional_call`` bypasses DDP's ``forward``, so its reducer would never
+run. The gradient reduction runs after the backward, not beside it
+(ROADMAP.md, Queue 2). The metric step's ``[hits1, hits5, total]`` are
+summed over the processes.
 """
 
 from __future__ import annotations
@@ -49,6 +67,7 @@ import torch.nn as nn
 
 from ..data.mixup import LABEL_SMOOTHING, MixupSampler, mixup_cutmix
 from ..models.layers import use_generator
+from ..parallel import mesh
 from .losses import label_smoothing_cross_entropy, segmentation_loss, soft_target_cross_entropy
 from .metrics import intersect_and_union, topk_hits
 from .optim import make_optimizer
@@ -68,8 +87,19 @@ class TrainState:
 
 def create_train_state(model: nn.Module, cfg) -> TrainState:
     """The train state of ``model`` (its weights as they are) under the
-    optimizer and schedule of ``cfg`` (a ``TrainConfig``)."""
+    optimizer and schedule of ``cfg`` (a ``TrainConfig``). Inside a
+    process group: rank 0's weights on every process, and with
+    ``cfg.fsdp`` the model sharded (in place) before the optimizer sees
+    its parameters."""
     device = next(model.parameters()).device
+    mesh.resolve_mesh(cfg.mesh_shape, cfg.fsdp)
+    if mesh.is_distributed():
+        mesh.broadcast_module(model)
+        if cfg.fsdp:
+            mesh.shard_model(model, torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    elif cfg.fsdp:
+        raise ValueError("fsdp shards over the processes of a group: call "
+                         "parallel.init_distributed() first")
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     use_generator(model, generator)
     opt = cfg.optimizer
@@ -82,8 +112,11 @@ def create_train_state(model: nn.Module, cfg) -> TrainState:
     return TrainState(model, optimizer, build_schedule(cfg), 0, generator, opt.grad_clip, mixup)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
+def global_norm(tensors: Iterable[torch.Tensor], sharded: bool = False) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32; over every
+    process's shards when ``sharded`` (FSDP's DTensors)."""
+    if sharded:
+        return mesh.sharded_norm(list(tensors))
     return torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
     )
@@ -92,11 +125,12 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 def _forward_in(model: nn.Module, compute_dtype: torch.dtype) -> Callable:
     """``model``'s forward with its parameters cast to ``compute_dtype`` (the
     JAX ``_cast``): differentiable bf16 copies through
-    ``torch.func.functional_call``, the float32 masters untouched."""
+    ``torch.func.functional_call``, the float32 masters untouched. A
+    sharded model casts as FSDP2 gathers (``shard_model``)."""
     params = dict(model.named_parameters())
 
     def forward(image):
-        if compute_dtype == torch.float32:
+        if compute_dtype == torch.float32 or mesh.is_sharded(model):
             return model(image)
         cast = {n: p.to(compute_dtype) for n, p in params.items()}
         return torch.func.functional_call(model, cast, (image,))
@@ -131,6 +165,7 @@ def make_train_step(
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
     forward = _forward_in(model, compute_dtype)
+    distributed, sharded = mesh.is_distributed(), mesh.is_sharded(model)
 
     def seg_loss(image, label):
         out = forward(image)
@@ -164,10 +199,12 @@ def make_train_step(
 
         with torch.no_grad():
             live = [p for p in params.values() if p.grad is not None]
-            grads = [p.grad for p in live]
-            grad_norm = global_norm(grads)
-            param_norm = global_norm(params.values())
-            before = [p.detach().clone() for p in live]
+            if distributed and not sharded:
+                mesh.reduce_gradients([p.grad for p in live])
+            grads = [mesh.local(p.grad) for p in live]
+            grad_norm = global_norm(grads, sharded)
+            param_norm = global_norm([mesh.local(p) for p in params.values()], sharded)
+            before = [mesh.local(p).detach().clone() for p in live]
             if state.grad_clip is not None:
                 # optax.clip_by_global_norm: g * clip / norm where norm > clip
                 factor = torch.clamp(state.grad_clip / grad_norm, max=1.0)
@@ -175,7 +212,8 @@ def make_train_step(
             for group in state.optimizer.param_groups:
                 group["lr"] = state.schedule(state.step)
             state.optimizer.step()
-            update_norm = global_norm(torch._foreach_sub([p.detach() for p in live], before))
+            update_norm = global_norm(
+                torch._foreach_sub([mesh.local(p).detach() for p in live], before), sharded)
             metrics = {
                 "loss": loss.detach(),
                 "grad_norm": grad_norm,
@@ -188,10 +226,27 @@ def make_train_step(
                     logits.argmax(-1), hard, num_classes, ignore_index=ignore_index
                 )
                 metrics.update(inter=inter, union=union)
+            if distributed:
+                _global_metrics(metrics, task)
         state.step += 1
         return state, metrics
 
     return step
+
+
+def _global_metrics(metrics: Dict[str, torch.Tensor], task: str) -> None:
+    """The step's metrics over the global batch, in place: the loss (each
+    process's share of the global mean) summed, acc1 averaged (equal
+    batches), the IoU counts summed in int64."""
+    world = mesh.process_shard_info()[1]
+    sums = [metrics["loss"].float()] + ([metrics["acc1"] / world] if task == "cls" else [])
+    sums = mesh.all_reduce(torch.stack(sums))
+    metrics["loss"] = sums[0]
+    if task == "cls":
+        metrics["acc1"] = sums[1]
+    elif "inter" in metrics:
+        counts = mesh.all_reduce(torch.stack([metrics["inter"], metrics["union"]]))
+        metrics.update(inter=counts[0], union=counts[1])
 
 
 def make_cls_metric_step(
@@ -200,7 +255,8 @@ def make_cls_metric_step(
     """``fn(image, label, valid) -> int32 [hits1, hits5, total]`` on the
     model's device: the eval forward in ``compute_dtype``, its logits taken
     in float32, the hits counted over the rows where ``valid`` (a padded
-    tail batch counts only its real rows)."""
+    tail batch counts only its real rows); summed over the processes of a
+    group, so every process gets the global counts."""
     device = next(model.parameters()).device
     forward = _forward_in(model, compute_dtype)
 
@@ -210,6 +266,7 @@ def make_cls_metric_step(
         label = torch.as_tensor(label).to(device, torch.long, non_blocking=True)
         valid = torch.as_tensor(valid).to(device, torch.bool, non_blocking=True)
         with torch.no_grad():
-            return topk_hits(forward(image).float(), label, valid)
+            hits = topk_hits(forward(image).float(), label, valid)
+        return mesh.all_reduce(hits) if mesh.is_distributed() else hits
 
     return fn

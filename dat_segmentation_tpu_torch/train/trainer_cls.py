@@ -1,4 +1,5 @@
-"""Epoch-based ImageNet classifier training on one card.
+"""Epoch-based ImageNet classifier training, on one card or over the
+processes of a ``torch.distributed`` group.
 
 Counterpart of ``dat_segmentation_tpu/train/trainer_cls.py`` (reference
 train_backbone.py:85-331): AdamW under a cosine schedule with linear
@@ -15,9 +16,15 @@ trainer's), ``best`` and the backbone-only export ``backbone_best`` when
 the val top-1 improves; on SIGTERM one last resumable checkpoint. The log
 lines, scalars, checkpoint names and ``history`` are the JAX package's.
 
-One process, one device, as ``trainer_seg.py``: ``cfg.mesh_shape`` must
-resolve to one device and ``cfg.fsdp`` be False (ROADMAP.md, Queue 1 item
-4). Resume restores the model, AdamW, the step, the dropout generator and
+Inside a ``torch.distributed`` group, as ``trainer_seg.py``:
+``cfg.data.batch_size`` is the global batch, each
+process loads its share of every epoch, the step is the global batch's
+(replicated or, with ``cfg.fsdp``, sharded), the val is sharded with each
+process's items counted once (a process with fewer pads its last batches
+with masked rows) and its counts summed, so "best" is decided alike on
+every rank; rank 0 logs and writes. A ``spatial`` or ``model`` mesh axis
+and ``fsdp`` over another axis are left for later (ROADMAP.md, Queue 1
+item 10). Resume restores the model, AdamW, the step, the dropout generator and
 the mixup sampler from the latest checkpoint and restarts the epoch
 ``step // steps_per_epoch`` from its beginning.
 """
@@ -35,29 +42,46 @@ import torch
 from ..data.imagenet import ImageNetDataset
 from ..data.loader import DataLoader, device_prefetch
 from ..models.builder import build_model
+from ..parallel.mesh import full_state, is_sharded, local_batch_size, process_shard_info
 from ..utils.device import resolve_device
 from ..utils.logging import MetricLogger, weight_stats_on_device
 from .checkpoint import (CheckpointManager, load_pretrained, merge_pretrained,
                          save_backbone_only)
 from .preemption import PreemptionGuard
 from .train_step import create_train_state, make_cls_metric_step, make_train_step
-from .trainer_seg import _check_one_device, _restore_state, _save_tree
+from .trainer_seg import _restore_state, _save_tree
 
 
 def evaluate_topk(eval_fn, val_ds, batch_size: int) -> np.ndarray:
     """int64 ``[hits1, hits5, total]`` of ``eval_fn`` (``make_cls_metric_step``)
     over every item of ``val_ds``, the tail batch padded to ``batch_size``
-    with zeros and masked out."""
+    with zeros and masked out. In a process group each process takes its
+    shard (``process_shard_info``); the loader pads the shards to one length
+    with items of other shards, which are masked out too, so every process
+    runs as many batches and each item counts once."""
+    rank, world = process_shard_info()
     counts = np.zeros(3, np.int64)
-    for batch in DataLoader(val_ds, batch_size, drop_last=False):
+    loader = DataLoader(val_ds, batch_size, drop_last=False, shard_info=(rank, world))
+    for bi, batch in enumerate(loader):
         n = int(batch["label"].shape[0])
         image, label = batch["image"], batch["label"].astype(np.int32)
         if n < batch_size:
             pad = batch_size - n
             image = np.concatenate([image, np.zeros((pad, *image.shape[1:]), image.dtype)])
             label = np.concatenate([label, np.zeros((pad,), label.dtype)])
-        counts += eval_fn(image, label, np.arange(batch_size) < n).cpu().numpy()
+        # the k-th item of this shard is item rank + k * world of the padded epoch
+        k = bi * batch_size + np.arange(batch_size)
+        valid = (np.arange(batch_size) < n) & (rank + k * world < len(val_ds))
+        counts += eval_fn(image, label, valid).cpu().numpy()
     return counts
+
+
+def _whole_params(model: torch.nn.Module):
+    """``model``, or a sharded model's parameters gathered on every rank."""
+    if not is_sharded(model):
+        return model
+    names = {n for n, _ in model.named_parameters()}
+    return {n: t for n, t in full_state(model, everywhere=True)[0].items() if n in names}
 
 
 def train_classifier(
@@ -75,7 +99,6 @@ def train_classifier(
     (the classifier presets give their schedule in epochs);
     ``steps_per_epoch`` caps an epoch (default: the train set's full
     batches). Returns (state, history dict)."""
-    _check_one_device(cfg)
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):  # the init's draws leave the global RNG alone
         torch.manual_seed(cfg.seed)
@@ -83,12 +106,12 @@ def train_classifier(
     if pretrained:
         merge_pretrained(model, load_pretrained(pretrained, cfg.model, kind="classifier"))
     size = cfg.data.crop_size[0]
-    bs = cfg.data.batch_size
+    bs = local_batch_size(cfg.data.batch_size)
 
     train_ds = ImageNetDataset(cfg.data.data_root, "train", size=size, seed=cfg.seed)
     val_ds = ImageNetDataset(cfg.data.data_root, "val", size=size)
     n_epochs = epochs or cfg.schedule.max_iters  # the cls schedule is in epochs
-    spe = steps_per_epoch or max(len(train_ds) // bs, 1)
+    spe = steps_per_epoch or max(len(train_ds) // cfg.data.batch_size, 1)
     # the per-iteration schedule over the total steps (train_backbone.py:250-264)
     sched = dataclasses.replace(cfg.schedule, max_iters=n_epochs * spe,
                                 warmup_iters=cfg.schedule.warmup_iters * spe)
@@ -116,14 +139,15 @@ def train_classifier(
     metrics = None
     for epoch in range(start_epoch, n_epochs):
         loader = DataLoader(train_ds, bs, shuffle=True, drop_last=True,
-                            num_threads=cfg.data.num_workers, seed=cfg.seed, epoch=epoch)
+                            num_threads=cfg.data.num_workers, seed=cfg.seed, epoch=epoch,
+                            shard_info=process_shard_info())
         batches = device_prefetch(iter(loader), device)
         t0, seen = time.time(), 0
         for bi, batch in enumerate(batches):
             if steps_per_epoch and bi >= steps_per_epoch:
                 break
             state, metrics = step_fn(state, batch)
-            seen += bs
+            seen += cfg.data.batch_size
             # graceful preemption: a resumable checkpoint; the resume restarts
             # this epoch from its beginning (step // spe)
             if guard.should_checkpoint(state.step):
@@ -143,7 +167,7 @@ def train_classifier(
                 # per-parameter mean/std/L2 and the grad/update scalars at the
                 # reference's TensorBoard cadence (train_backbone.py:73-83,131-135)
                 flat = {f"w/{name}/{key}": val
-                        for name, st in weight_stats_on_device(model).items()
+                        for name, st in weight_stats_on_device(_whole_params(model)).items()
                         for key, val in st.items()}
                 logger.scalars(state.step, loss=float(metrics["loss"]),
                                grad_norm=float(metrics["grad_norm"]),
@@ -166,9 +190,10 @@ def train_classifier(
             ckpt.save(epoch + 1, _save_tree(state), metadata={"epoch": epoch, "acc1": acc1})
         if acc1 > best_acc:
             best_acc = acc1
-            ckpt.save("best", {"model": model.state_dict()},
-                      metadata={"epoch": epoch, "acc1": acc1})
-            save_backbone_only(work_dir / "backbone_best", model.state_dict())
+            whole = full_state(model)[0]
+            ckpt.save("best", {"model": whole}, metadata={"epoch": epoch, "acc1": acc1})
+            if process_shard_info()[0] == 0:
+                save_backbone_only(work_dir / "backbone_best", whole)
     guard.close()
     logger.close()
     return state, history

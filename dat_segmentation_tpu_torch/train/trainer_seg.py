@@ -1,4 +1,5 @@
-"""Iteration-based segmentation trainer on one card.
+"""Iteration-based segmentation trainer, on one card or over the processes
+of a ``torch.distributed`` group.
 
 Counterpart of ``dat_segmentation_tpu/train/trainer_seg.py`` (the reference
 standalone loop, new_train.py:73-268, and the mmseg 160k recipe): an
@@ -8,12 +9,21 @@ backward and AdamW) -> logging every ``log_interval`` -> a checkpoint every
 ``checkpoint_interval`` and val mIoU every ``eval_interval`` (and at the
 end) with best tracking, and one last checkpoint on SIGTERM. The log
 lines, scalars, checkpoint names and ``history`` are the JAX package's.
+``device`` is the card unless the caller names another. The train IoU
+counts stay on the device between log intervals, so no step waits on a
+read-back.
 
-One process, one device: ``cfg.mesh_shape`` must resolve to one device and
-``cfg.fsdp`` be False (DDP and FSDP come with the port's scale-out,
-ROADMAP.md Queue 1 item 4), so there is no ``mesh`` argument; ``device``
-is the card unless the caller names another. The train IoU counts stay on
-the device between log intervals, so no step waits on a read-back.
+Inside a process group (``parallel.init_distributed``; ``tools/train.py
+--multihost``) ``cfg.data.batch_size`` is the GLOBAL batch: each process
+loads its ``local_batch_size`` share, a disjoint slice of each epoch
+(``process_shard_info``), and the step is the global batch's
+(``train/train_step.py``), replicated or, with ``cfg.fsdp``, sharded. The
+in-run val is sharded and its counts summed (``evaluate_dataset(
+distributed=True)``), so "best" is decided alike on every rank; rank 0
+logs and writes checkpoints, which are the one-process format (a sharded
+state is gathered first). Left for later (ROADMAP.md, Queue 1 item 10): a
+``spatial`` or ``model`` mesh axis and ``fsdp`` over another axis; and
+overlapping the gradient reduction with the backward (Queue 2).
 
 Resume restores the model (parameters and BatchNorm statistics), the
 AdamW state, the step and the drop-path/dropout generator (and the
@@ -38,6 +48,8 @@ from ..data.loader import DataLoader, device_prefetch
 from ..eval.evaluate import evaluate_dataset
 from ..eval.inference import SegInferencer
 from ..models.builder import build_model
+from ..parallel.mesh import (full_state, is_distributed, is_sharded, load_full_state,
+                             local_batch_size, process_shard_info)
 from ..utils.device import resolve_device
 from ..utils.logging import MetricLogger
 from .checkpoint import CheckpointManager, load_pretrained, merge_pretrained
@@ -67,15 +79,6 @@ def _dataset_meta(ds) -> dict:
     return meta
 
 
-def _check_one_device(cfg) -> None:
-    if any(v not in (1, -1) for v in dict(cfg.mesh_shape).values()) or cfg.fsdp:
-        raise NotImplementedError(
-            f"mesh_shape {cfg.mesh_shape} with fsdp={cfg.fsdp!r}: the port trains on one "
-            "device; data and model parallelism come with its scale-out (ROADMAP.md, "
-            "Queue 1 item 4)"
-        )
-
-
 def setup_state(cfg, model: torch.nn.Module, *, pretrained: Optional[str] = None) -> TrainState:
     """The train state of ``model`` (optionally merged with ``pretrained``:
     a reference ``.pth`` or a ``ckpt_*`` directory) under ``cfg``'s AdamW
@@ -86,8 +89,11 @@ def setup_state(cfg, model: torch.nn.Module, *, pretrained: Optional[str] = None
 
 
 def _save_tree(st: TrainState) -> dict:
-    tree = {"step": st.step, "model": st.model.state_dict(),
-            "optimizer": st.optimizer.state_dict(), "generator": st.generator.get_state()}
+    """The step checkpoint of ``st`` in the one-process format (a sharded
+    model's gathered: every rank calls this)."""
+    model, optimizer = full_state(st.model, st.optimizer)
+    tree = {"step": st.step, "model": model, "optimizer": optimizer,
+            "generator": st.generator.get_state()}
     if st.mixup is not None:
         tree["mixup"] = st.mixup.get_state()
     return tree
@@ -96,13 +102,22 @@ def _save_tree(st: TrainState) -> dict:
 def _restore_state(st: TrainState, saved: dict) -> TrainState:
     """Load a step checkpoint's model, optimizer, step, generator and mixup
     sampler (where it holds one) into ``st``, in place."""
-    st.model.load_state_dict(saved["model"])
-    st.optimizer.load_state_dict(saved["optimizer"])
+    load_full_state(st.model, saved["model"], st.optimizer, saved["optimizer"])
     st.step = int(saved["step"])
     st.generator.set_state(saved["generator"])
     if st.mixup is not None and "mixup" in saved:
         st.mixup.set_state(saved["mixup"])
     return st
+
+
+def eval_model(cfg, model: torch.nn.Module, device) -> torch.nn.Module:
+    """``model`` for the in-run val: itself, or a sharded model's whole
+    copy (its state gathered on every rank)."""
+    if not is_sharded(model):
+        return model
+    whole = build_model(cfg.model, device=device)
+    whole.load_state_dict(full_state(model, everywhere=True)[0])
+    return whole
 
 
 def train_segmentation(
@@ -117,7 +132,6 @@ def train_segmentation(
     device: Optional[Union[str, torch.device]] = None,
 ):
     """Run the 160k-style iteration loop. Returns (state, history dict)."""
-    _check_one_device(cfg)
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):  # the init's draws leave the global RNG alone
         torch.manual_seed(cfg.seed)
@@ -142,8 +156,9 @@ def train_segmentation(
     )
     val_ds = dataset_cls(cfg.data.data_root, "val", crop_size=crop)
     loader = DataLoader(
-        train_ds, cfg.data.batch_size, shuffle=True, drop_last=True, infinite=True,
-        num_threads=cfg.data.num_workers, seed=cfg.seed,
+        train_ds, local_batch_size(cfg.data.batch_size), shuffle=True, drop_last=True,
+        infinite=True, num_threads=cfg.data.num_workers, seed=cfg.seed,
+        shard_info=process_shard_info(),
     )
     batches = device_prefetch(iter(loader), device)
 
@@ -215,12 +230,13 @@ def train_segmentation(
 
         if it % cfg.eval_interval == 0 or it == total:
             inf = SegInferencer(
-                model, num_classes=cfg.model.num_classes, mode=cfg.model.test_mode,
-                compute_dtype=compute_dtype, device=device,
+                eval_model(cfg, model, device), num_classes=cfg.model.num_classes,
+                mode=cfg.model.test_mode, compute_dtype=compute_dtype, device=device,
             )
             res = evaluate_dataset(
                 inf, val_ds, num_classes=cfg.model.num_classes, max_images=eval_max_images,
-                batch_size=eval_batch_size, verbose=False,
+                batch_size=eval_batch_size, verbose=False, shard_info=process_shard_info(),
+                distributed=is_distributed(),
             )
             del inf
             miou = res["mIoU"]
@@ -230,7 +246,7 @@ def train_segmentation(
             if miou > best_miou:
                 best_miou = miou
                 ckpt.save(
-                    "best", {"model": model.state_dict()},
+                    "best", {"model": full_state(model)[0]},
                     metadata=dict({"iter": it, "mIoU": miou}, **_dataset_meta(train_ds)),
                 )
     batches.close()

@@ -6,6 +6,8 @@ without them, with the JAX-pinning conftest left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
+``test_two_gloo_ranks_on_the_card_equal_one_process`` runs the scale-out's
+step over two processes on the card (``tests/torch_parallel_worker.py``).
 The last three tests run the eval slice on the card's machine: its JPEG
 decoder against the fixture's stored cv2 decodes, ``evaluate_dataset``
 card against CPU, and a reference ``.pth`` loaded on the card.
@@ -317,6 +319,41 @@ def test_small_upernet_train_step_matches_cpu(cuda):
     BN running statistics to 1e-5; one K1 and one K2 launch per 'D'
     block."""
     assert _small_upernet_step_card_vs_cpu(cuda, use_checkpoint=False) == (4, 4)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path):
+    """The small UperNet (head width 32, drop path and dropout 0.1), one
+    float32 step over two gloo ranks on the card (NCCL refuses two ranks on
+    one GPU) against the one-process card step on the concatenated batch
+    (rank 1's labels 90% ignored): loss to 1e-5 relative, all gradients to
+    1e-4 (K2's float32 atomics and the all-reduces sum in other orders),
+    the two replicas bit for bit equal, 4 K1 and 4 K2 launches a rank."""
+    import torch_parallel_worker as W
+
+    model_cfg = small_upernet(get_config, head_width=32, drop=0.1)
+    torch.manual_seed(0)
+    weights = tmp_path / "w.pt"
+    torch.save(build_model(model_cfg, device="cpu").state_dict(), weights)
+    kw = dict(weights=weights, batches=W.seg_batches(steps=1), model_cfg=model_cfg,
+              device="cuda")
+    ctx = W.spawn(tmp_path / "ranks", [("seg", "seg_steps", kw)], device="cuda")
+    try:
+        (one,) = W.seg_steps(0, 1, **kw)["steps"]
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
+    (r0,), (r1,) = (r["seg"]["steps"] for r in W.collect(ctx, tmp_path / "ranks"))
+    want = one["metrics"]["loss"]
+    for got in (r0, r1):
+        assert abs(got["metrics"]["loss"] - want) <= 1e-5 * abs(want)
+        dsq = sum(float(np.square(got["grads"][n] - g).sum()) for n, g in one["grads"].items())
+        gsq = sum(float(np.square(g).sum()) for g in one["grads"].values())
+        assert (dsq / gsq) ** 0.5 <= 1e-4
+        assert got["launches"] == (4, 4)
+    for name in r0["state"]:
+        np.testing.assert_array_equal(r0["state"][name], r1["state"][name], err_msg=name)
 
 
 @pytest.mark.cuda

@@ -317,8 +317,14 @@ def test_batched_eval_equals_per_image(pair):
 
 
 def test_distributed_is_not_ported(pair):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        evaluate_dataset(pair[1], ADE20KDataset(ROOT, "val"), distributed=True)
+    """``distributed=True`` outside a process group is the one-process
+    evaluation, as the JAX package's is with one process (the reduction
+    over processes is held in tests/test_torch_parallel.py)."""
+    ds = ADE20KDataset(ROOT, "val")
+    got = evaluate_dataset(pair[1], ds, distributed=True, max_images=2, verbose=False)
+    want = evaluate_dataset(pair[1], ds, max_images=2, verbose=False)
+    assert got["num_images"] == want["num_images"] == 2
+    assert got["inter"] == want["inter"] and got["union"] == want["union"]
 
 
 def test_cli_writes_the_result_dict(pair, tmp_path, monkeypatch, capsys):
