@@ -85,10 +85,26 @@ line each:
    (``tools/test.py:main``) in bf16 whole mode at the preset's
    ``img_scale``, batch 1 and batch 4 (counts set to 0 just before: 14 K1
    launches a forward; batch 4's counts within a stated share of batch
-   1's), and one image with ``--aug-test`` (12 forwards). The float32 eval
-   card against CPU, per pixel. img/s of the bf16 eval at batch 1 and 4
-   in turns, and the share of batch 1's wall time in decode, ``predict``
-   and the IoU update.
+   1's; batch 1 also writes ``--show-dir`` and ``--format-dir`` PNGs, a
+   pair an image at its size), and one image with ``--aug-test`` (12
+   forwards). The float32 eval card against CPU, per pixel. img/s of the
+   bf16 eval at batch 1 and 4 in turns, and the share of batch 1's wall
+   time in decode, ``predict`` and the IoU update.
+10b. export: the serving export (``serving/``). The flagship from the eval
+   phase's ``.pth`` through ``tools/export.py --check`` (bf16, batch 16,
+   entries 512x512 and 512x704, the artifact within 1e-3 relative of
+   ``SegInferencer.forward_batch``), and with ``--no-portable`` on a
+   ``'pallas'`` config (batch 1); both served in a fresh process (beside
+   the classifier's exports) that imports only
+   ``dat_segmentation_tpu_torch.serving`` (no ``models`` module may be
+   loaded there): 14 K1 launches a forward, and 26 K3 with 'pallas'
+   (counts set to 0 just before), the logits against
+   ``SegInferencer.forward_batch`` on the same input (equal bit for bit or
+   not, reported), ``predict_semseg`` on the raw 512x683 image against the
+   live model on the same padded input (gated) and the live whole mode
+   (reported); the classifier (cls_tiny_imagenet, 224², batch 1 and 128)
+   against the live ``DatClassifier``; the artifact's and the live model's
+   ms a batch of 16 in turns, each artifact's bytes and export seconds.
 11. train_loop: the seg trainer end to end through the train CLI
    (``tools/train.py:main``), the recipe as it is (upn_tiny_160k_dp03_lr6:
    full width and depth, drop path 0.3, dropout 0.1, bf16 on float32
@@ -254,6 +270,12 @@ EVAL_BATCH_SHARE = 0.01
 # comparison says little.
 EVAL_F32_TIE = 2 * TOL_MODEL
 EVAL_F32_SHARE = 0.01
+
+# 10b. export: the flagship's entries (the second holds PREDICT_HW) and the
+# gate of tools/export.py --check (bf16 on both sides, the same kernels: only
+# a graph that computes something else moves the logits by more)
+EXPORT_SHAPES = ((IMG, IMG), (IMG, 704))
+EXPORT_TOL_REL = 1e-3
 
 # 12-16. the classifier slice (cls_tiny_imagenet: DAT-T++, 26 blocks, 1000
 # classes, 224²). Batch 128 is one card's share of the preset's 1024 over
@@ -1168,7 +1190,15 @@ def main() -> int:
           "peak_mem_gib": speak})
 
     # ---- 10. eval: ADE20K val to mIoU through the port's test CLI ----------
-    eval_launches = eval_phase(torch, np, card, dev, get_config(PRESET), n_d)
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="eval_export_"))
+    eval_launches, eval_ckpt = eval_phase(torch, np, card, dev, get_config(PRESET), n_d, work)
+
+    # ---- 10b. export: torch.export artifacts, served without the model code --
+    export_launches = export_phase(torch, np, card, dev, eval_ckpt, work, n_d, n_x, timed)
+    shutil.rmtree(work, ignore_errors=True)
 
     # ---- 11. train_loop: the seg trainer through the train CLI --------------
     del steps, step, state, model, pstep, pstate, pmodel, b16
@@ -1192,7 +1222,7 @@ def main() -> int:
 
     k1 = line(KERNELS[0], train_launches["deform_attn_fwd"], max_err, totals)
     k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"],
-                              "eval": eval_launches,
+                              "eval": eval_launches, "export": export_launches["deform_attn_fwd"],
                               "train_loop": loop_launches["deform_attn_fwd"],
                               **cls_launches["deform_attn_fwd"],
                               "scale_out_rank0": scale_launches["deform_attn_fwd"]}
@@ -1214,6 +1244,7 @@ def main() -> int:
                         "stock-op chain the model runs without K3, per forward",
               launches_by_path={"serve": pserve_launches["x_block_fwd"],
                                 "predict": predict_launches,
+                                "export": export_launches["x_block_fwd"],
                                 "train": ptrain_launches["x_block_fwd"],
                                 "train_loop": loop_launches["x_block_fwd"],
                                 **cls_launches["x_block_fwd"]})
@@ -1236,14 +1267,14 @@ def main() -> int:
 KERNEL_NAMES = tuple(k["name"] for k in KERNELS)  # each a part of its CUDA kernels' names
 
 
-def eval_phase(torch, np, card, dev, full_cfg, n_d):
+def eval_phase(torch, np, card, dev, full_cfg, n_d, work):
     """10. eval: ADE20K val to mIoU on the card through the port's test CLI,
     on the fixture ``tests/data/ade20k_tiny`` (six images, 512x512 to
     512x768, masks labelled 0-150), with the flagship at full width and
     depth, random weights from the seed, bf16. Returns K1's launches in
-    the batch-1 CLI run (counts set to 0 just before)."""
+    the batch-1 CLI run (counts set to 0 just before) and the mmseg-schema
+    ``.pth`` it wrote under ``work``."""
     import hashlib
-    import tempfile
 
     import PIL
 
@@ -1298,77 +1329,92 @@ def eval_phase(torch, np, card, dev, full_cfg, n_d):
         check(d["max_abs_diff"] <= DECODE_MAX_DIFF and d["share_differing"] <= DECODE_MAX_SHARE,
               f"eval decode {name}: {d} beyond ({DECODE_MAX_DIFF}, {DECODE_MAX_SHARE})")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # -- load: a mmseg-schema .pth of the flagship, loaded back ------------
-        torch.manual_seed(SEED)
-        model = build_model(cfg, device=dev)
-        ckpt = save_reference(model, cfg, Path(tmp) / f"{PRESET}_mmseg.pth", mmseg=True)
-        torch.manual_seed(SEED + 5)
-        fresh = build_model(cfg, device=dev)
+    # -- load: a mmseg-schema .pth of the flagship, loaded back ------------
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device=dev)
+    ckpt = save_reference(model, cfg, work / f"{PRESET}_mmseg.pth", mmseg=True)
+    torch.manual_seed(SEED + 5)
+    fresh = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    _, report = merge_pretrained(fresh, load_pretrained(str(ckpt), cfg), verbose=False,
+                                 return_report=True)
+    load_s = time.perf_counter() - t0
+    want = model.state_dict()
+    unequal = [k for k, v in fresh.state_dict().items() if not torch.equal(v, want[k])]
+    emit({"phase": "eval", "card": card, "step": "load", "preset": PRESET,
+          "schema": "mmseg", "pth_mib": ckpt.stat().st_size / 2 ** 20,
+          "tensors": len(want), "missing": len(report["missing"]),
+          "unexpected": len(report["unexpected"]), "mismatched": len(report["mismatched"]),
+          "tensors_unequal": len(unequal), "load_s": load_s})
+    check(not any(report.values()), f"eval load: report not empty: {report}")
+    check(not unequal, f"eval load: {len(unequal)} tensors differ, e.g. {unequal[:3]}")
+    del fresh
+
+    # -- evaluate through the CLI: batch 1, batch 4, one image with TTA ----
+    def forwards(batch):
+        """Forwards of a batched whole-mode eval: runs of consecutive
+        images whose resized inputs share a shape, ``batch`` at most."""
+        shapes = [resized(*ds.load_raw(i)[1].shape) for i in range(n_img)]
+        n, run = 0, 0
+        for i, s in enumerate(shapes):
+            run = 1 if i == 0 or s != shapes[i - 1] or run == batch else run + 1
+            n += run == 1
+        return n
+
+    results, k1 = {}, {}
+    pngs = {"show": work / "show", "format": work / "format"}
+    for name, extra, n_fwd in (("batch1", ["--batch-size", "1", "--show-dir", str(pngs["show"]),
+                                           "--format-dir", str(pngs["format"])], n_img),
+                               ("batch4", ["--batch-size", "4"], forwards(4)),
+                               ("aug_test", ["--batch-size", "1", "--aug-test",
+                                             "--max-images", "1"], 2 * len(MS_RATIOS))):
+        out = work / f"{name}.json"
+        da.deform_attn.launches = 0
         t0 = time.perf_counter()
-        _, report = merge_pretrained(fresh, load_pretrained(str(ckpt), cfg), verbose=False,
-                                     return_report=True)
-        load_s = time.perf_counter() - t0
-        want = model.state_dict()
-        unequal = [k for k, v in fresh.state_dict().items() if not torch.equal(v, want[k])]
-        emit({"phase": "eval", "card": card, "step": "load", "preset": PRESET,
-              "schema": "mmseg", "pth_mib": ckpt.stat().st_size / 2 ** 20,
-              "tensors": len(want), "missing": len(report["missing"]),
-              "unexpected": len(report["unexpected"]), "mismatched": len(report["mismatched"]),
-              "tensors_unequal": len(unequal), "load_s": load_s})
-        check(not any(report.values()), f"eval load: report not empty: {report}")
-        check(not unequal, f"eval load: {len(unequal)} tensors differ, e.g. {unequal[:3]}")
-        del fresh
+        res = test_cli.main([PRESET, str(ckpt), "--data-root", str(root), "--mode", "whole",
+                             "--out", str(out), *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1[name] = da.deform_attn.launches
+        results[name] = res
+        n_want = 1 if name == "aug_test" else n_img
+        ok = bool(json.loads(out.read_text()) == json.loads(json.dumps(res))
+                  and sum(res["union"]) >= sum(res["inter"]) >= 0 < sum(res["union"])
+                  and 0.0 <= res["aAcc"] <= 1.0 and np.isfinite(res["mIoU"]))
+        emit({"phase": "eval", "card": card, "step": f"cli {name}", "dtype": "bfloat16",
+              "args": extra, "img_scale": list(scale), "num_images": res["num_images"],
+              "forwards": n_fwd, "k1_launches": k1[name], "k1_launches_per_forward":
+              k1[name] / n_fwd, "mIoU": res["mIoU"], "aAcc": res["aAcc"],
+              "classes_present": sum(u > 0 for u in res["union"]), "result_ok": ok,
+              "wall_s_with_model_build_and_load": wall})
+        check(res["num_images"] == n_want, f"eval {name}: {res['num_images']} images")
+        check(k1[name] == n_d * n_fwd, f"eval {name}: {k1[name]} K1 launches, "
+                                       f"want {n_d} a forward x {n_fwd}")
+        check(ok, f"eval {name}: result dict inconsistent")
+    # --show-dir/--format-dir of the batch-1 run: a PNG an image, at its size
+    from dat_segmentation_tpu_torch.data.image_io import read_png_gray8
 
-        # -- evaluate through the CLI: batch 1, batch 4, one image with TTA ----
-        def forwards(batch):
-            """Forwards of a batched whole-mode eval: runs of consecutive
-            images whose resized inputs share a shape, ``batch`` at most."""
-            shapes = [resized(*ds.load_raw(i)[1].shape) for i in range(n_img)]
-            n, run = 0, 0
-            for i, s in enumerate(shapes):
-                run = 1 if i == 0 or s != shapes[i - 1] or run == batch else run + 1
-                n += run == 1
-            return n
-
-        results, k1 = {}, {}
-        for name, extra, n_fwd in (("batch1", ["--batch-size", "1"], n_img),
-                                   ("batch4", ["--batch-size", "4"], forwards(4)),
-                                   ("aug_test", ["--batch-size", "1", "--aug-test",
-                                                 "--max-images", "1"], 2 * len(MS_RATIOS))):
-            out = Path(tmp) / f"{name}.json"
-            da.deform_attn.launches = 0
-            t0 = time.perf_counter()
-            res = test_cli.main([PRESET, str(ckpt), "--data-root", str(root), "--mode", "whole",
-                                 "--out", str(out), *extra])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            k1[name] = da.deform_attn.launches
-            results[name] = res
-            n_want = 1 if name == "aug_test" else n_img
-            ok = bool(json.loads(out.read_text()) == json.loads(json.dumps(res))
-                      and sum(res["union"]) >= sum(res["inter"]) >= 0 < sum(res["union"])
-                      and 0.0 <= res["aAcc"] <= 1.0 and np.isfinite(res["mIoU"]))
-            emit({"phase": "eval", "card": card, "step": f"cli {name}", "dtype": "bfloat16",
-                  "args": extra, "img_scale": list(scale), "num_images": res["num_images"],
-                  "forwards": n_fwd, "k1_launches": k1[name], "k1_launches_per_forward":
-                  k1[name] / n_fwd, "mIoU": res["mIoU"], "aAcc": res["aAcc"],
-                  "classes_present": sum(u > 0 for u in res["union"]), "result_ok": ok,
-                  "wall_s_with_model_build_and_load": wall})
-            check(res["num_images"] == n_want, f"eval {name}: {res['num_images']} images")
-            check(k1[name] == n_d * n_fwd, f"eval {name}: {k1[name]} K1 launches, "
-                                           f"want {n_d} a forward x {n_fwd}")
-            check(ok, f"eval {name}: result dict inconsistent")
-        pixels = sum(np.prod(ds.load_raw(i)[1].shape) for i in range(n_img))
-        d_inter = int(np.abs(np.subtract(results["batch4"]["inter"],
-                                         results["batch1"]["inter"])).sum())
-        d_union = int(np.abs(np.subtract(results["batch4"]["union"],
-                                         results["batch1"]["union"])).sum())
-        emit({"phase": "eval", "card": card, "step": "batch4 vs batch1", "dtype": "bfloat16",
-              "pixels": int(pixels), "sum_abs_d_inter": d_inter, "sum_abs_d_union": d_union,
-              "tol_share": EVAL_BATCH_SHARE})
-        check(d_inter <= EVAL_BATCH_SHARE * pixels and d_union <= 2 * EVAL_BATCH_SHARE * pixels,
-              f"eval batch4 vs batch1: counts differ by {d_inter}, {d_union} of {pixels} pixels")
+    fmt = {p.stem: read_png_gray8(p.read_bytes(), str(p)) for p in pngs["format"].glob("*.png")}
+    shapes_ok = all(fmt.get(Path(m).stem) is not None and fmt[Path(m).stem].shape ==
+                    ds.load_raw(i)[1].shape for i, m in enumerate(ds.images))
+    emit({"phase": "eval", "card": card, "step": "cli batch1 pngs",
+          "show_pngs": len(list(pngs["show"].glob("*.png"))), "format_pngs": len(fmt),
+          "format_shapes_ok": shapes_ok,
+          "format_labels": [int(min(a.min() for a in fmt.values())),
+                            int(max(a.max() for a in fmt.values()))]})
+    check(len(fmt) == n_img == len(list(pngs["show"].glob("*.png"))) and shapes_ok
+          and all(1 <= a.min() and a.max() <= cfg.num_classes for a in fmt.values()),
+          "eval cli --show-dir/--format-dir: PNGs missing or of the wrong size or labels")
+    pixels = sum(np.prod(ds.load_raw(i)[1].shape) for i in range(n_img))
+    d_inter = int(np.abs(np.subtract(results["batch4"]["inter"],
+                                     results["batch1"]["inter"])).sum())
+    d_union = int(np.abs(np.subtract(results["batch4"]["union"],
+                                     results["batch1"]["union"])).sum())
+    emit({"phase": "eval", "card": card, "step": "batch4 vs batch1", "dtype": "bfloat16",
+          "pixels": int(pixels), "sum_abs_d_inter": d_inter, "sum_abs_d_union": d_union,
+          "tol_share": EVAL_BATCH_SHARE})
+    check(d_inter <= EVAL_BATCH_SHARE * pixels and d_union <= 2 * EVAL_BATCH_SHARE * pixels,
+          f"eval batch4 vs batch1: counts differ by {d_inter}, {d_union} of {pixels} pixels")
 
     # -- card vs CPU, float32, TF32 off: per pixel -----------------------------
     preds, secs = {}, {}
@@ -1448,7 +1494,225 @@ def eval_phase(torch, np, card, dev, full_cfg, n_d):
     emit(profile_device(torch, lambda: ev.evaluate_dataset(server, ds, img_scale=scale,
                                                            verbose=False),
                         card, min(walls[1]) * 1e3, "eval_pass"))
-    return k1["batch1"]
+    return k1["batch1"], ckpt
+
+
+def export_worker(spec_path: str) -> None:
+    """Run by ``export_phase`` in a fresh process: serve each artifact of
+    the spec through ``ServingModel``, importing only
+    ``dat_segmentation_tpu_torch.serving`` of the port (its op modules come
+    with it), one forward an entry with the kernels' counts set to 0 just
+    before and read just after, and ``predict_semseg`` on the raw image;
+    arrays to the spec's files, one JSON line to stdout with the modules
+    the process imported."""
+    import numpy as np
+    import torch
+
+    from dat_segmentation_tpu_torch.serving import ServingModel
+
+    da = sys.modules["dat_segmentation_tpu_torch.ops.deform_attn"]
+    xb = sys.modules["dat_segmentation_tpu_torch.ops.x_block"]
+    out = {}
+    for key, job in json.loads(Path(spec_path).read_text()).items():
+        srv = ServingModel.load(job["dir"])
+        x = np.load(job["input"])
+        t0 = time.perf_counter()
+        srv(job["entry"], x)  # loads the entry (and its kernels' libraries)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        da.deform_attn.launches = xb.x_block_fwd.launches = 0
+        y = srv(job["entry"], x)
+        torch.cuda.synchronize()
+        res = {"first_call_s": first_s, "launches": {"deform_attn_fwd": da.deform_attn.launches,
+                                                     "x_block_fwd": xb.x_block_fwd.launches}}
+        np.save(job["logits"], y.cpu().numpy())
+        if "raw" in job:
+            raw = np.load(job["raw"])
+            res["map_entry"] = srv._pick_entry(*raw.shape[:2])
+            np.save(job["map"], srv.predict_semseg(raw))
+        out[key] = res
+    out["modules"] = sorted(m for m in sys.modules if m.startswith("dat_segmentation_tpu"))
+    print(json.dumps(out), flush=True)
+
+
+def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
+    """10b. export: the flagship through ``tools/export.py --check`` from the
+    eval phase's ``.pth`` (bf16, batch 16, entries 512x512 and 512x704, the
+    second holding the 512x683 raw image), and with ``--no-portable`` on a
+    ``'pallas'`` config (512x512, batch 1); both artifacts served in a fresh
+    process that imports only ``serving`` (``export_worker``, run while this
+    process exports the classifier: K1's and K3's launches a forward), their
+    logits against ``SegInferencer.forward_batch`` and ``predict_semseg``
+    against the live class maps; the classifier exported at 224² (batches 1
+    and 128) against the live ``DatClassifier``; the artifact's and the live
+    model's ms a batch of 16, in turns. Returns the launches of the fresh
+    process's forwards (portable: K1; 'pallas': K3)."""
+    import dataclasses
+
+    from dat_segmentation_tpu_torch import SegInferencer, build_model, get_config
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.ops.interpolate import resize_bilinear
+    from dat_segmentation_tpu_torch.serving import ServingModel, export_classifier, save_artifact
+    from dat_segmentation_tpu_torch.tools import export as export_cli
+    from dat_segmentation_tpu_torch.train.checkpoint import load_pretrained, merge_pretrained
+
+    t_phase = time.perf_counter()
+    cfg = get_config(PRESET).model
+    pcfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone,
+                                                                 kernel_impl="pallas"))
+    arts = {"portable": work / "art", "pallas": work / "art_pallas"}
+    runs = {"portable": ([f"{h}x{w}" for h, w in EXPORT_SHAPES], TIME_BATCH, []),
+            "pallas": ([f"{IMG}x{IMG}"], 1, ["--no-portable", "--set",
+                                             "model.backbone.kernel_impl=pallas"])}
+    entry = {key: f"seg_{IMG}x{IMG}_b{b}" for key, (_, b, _) in runs.items()}
+    for key, (shapes, batch, extra) in runs.items():
+        t0 = time.perf_counter()
+        summary = export_cli.main([PRESET, str(ckpt), "--output", str(arts[key]), "--shapes",
+                                   ",".join(shapes), "--batch", str(batch), "--check",
+                                   "--device", str(dev), *extra])
+        want_k = ["dat::deform_attn_fwd"] + (["dat::x_block_fwd"] if key == "pallas" else [])
+        emit({"phase": "export", "card": card, "part": f"cli {key}", "preset": PRESET,
+              "dtype": "bfloat16", "batch": batch, "args": extra, "entries": summary["entries"],
+              "cli_wall_s": time.perf_counter() - t0, "tol_rel": EXPORT_TOL_REL})
+        for name, e in summary["entries"].items():
+            check(e["kernels"] == want_k, f"export {key} {name}: kernels {e['kernels']}, want {want_k}")
+
+    # the fresh process: the artifacts without the model code, in the background
+    rng = np.random.RandomState(SEED + 11)
+    x16 = rng.randn(TIME_BATCH, IMG, IMG, 3).astype(np.float32)
+    inputs = {"portable": x16, "pallas": x16[:1]}
+    raw = rng.randint(0, 256, (*PREDICT_HW, 3)).astype(np.uint8)
+    np.save(work / "raw.npy", raw)
+    spec = {}
+    for key in arts:
+        np.save(work / f"x_{key}.npy", inputs[key])
+        spec[key] = {"dir": str(arts[key]), "entry": entry[key], "input": str(work / f"x_{key}.npy"),
+                     "logits": str(work / f"y_{key}.npy")}
+    spec["portable"].update(raw=str(work / "raw.npy"), map=str(work / "map.npy"))
+    (work / "spec.json").write_text(json.dumps(spec))
+    t_fresh = time.perf_counter()
+    worker = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.export_worker("
+                               f"{str(work / 'spec.json')!r})"], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              cwd=Path(__file__).resolve().parent)
+
+    # meanwhile, the classifier: batch 1 and the cls phase's batch, 224²
+    ccfg = get_config(CLS_PRESET).model
+    torch.manual_seed(SEED)
+    cmodel = build_model(ccfg, device=dev)
+    entries, cls_s = {}, {}
+    for b in (1, CLS_BATCH):
+        t0 = time.perf_counter()
+        entries[f"cls_{CLS_IMG}x{CLS_IMG}_b{b}"] = export_classifier(
+            ccfg, cmodel.state_dict(), batch=b, input_size=(CLS_IMG, CLS_IMG), device=dev)
+        cls_s[b] = time.perf_counter() - t0
+    srv = ServingModel.load(save_artifact(work / "art_cls", entries, task="classifier",
+                                          model_cfg=ccfg, num_classes=ccfg.num_classes))
+    cast = copy.deepcopy(cmodel).to(dtype=torch.bfloat16).eval()
+    for b in (1, CLS_BATCH):
+        name = f"cls_{CLS_IMG}x{CLS_IMG}_b{b}"
+        xc = torch.from_numpy(rng.randn(b, CLS_IMG, CLS_IMG, 3).astype(np.float32)).to(dev)
+        srv(name, xc)  # loads the entry
+        da.deform_attn.launches = 0
+        got = srv(name, xc)
+        k1 = da.deform_attn.launches
+        with torch.inference_mode():
+            want = cast(xc.to(torch.bfloat16)).float()
+        rel = float((got - want).abs().max() / want.abs().max())
+        emit({"phase": "export", "card": card, "part": "classifier", "preset": CLS_PRESET,
+              "entry": name, "export_s": cls_s[b], "bytes": srv.entries[name]["bytes"],
+              "k1_launches_per_forward": k1, "rel_vs_live": rel,
+              "bit_equal_live": bool(torch.equal(got, want)), "tol_rel": EXPORT_TOL_REL})
+        check(k1 == n_d, f"export classifier {name}: {k1} K1 launches, want {n_d}")
+        check(rel <= EXPORT_TOL_REL, f"export classifier {name}: rel {rel} vs the live model")
+    del srv, cast, cmodel, entries
+
+    # the live models on the same inputs: the .pth merged into a fresh build
+    state = load_pretrained(str(ckpt), cfg)
+    lives = {}
+    for key, c in (("portable", cfg), ("pallas", pcfg)):
+        m = build_model(c, device=dev)
+        merge_pretrained(m, state, verbose=False)
+        lives[key] = SegInferencer(m, num_classes=cfg.num_classes, device=dev)
+        del m
+    try:
+        out, err = worker.communicate(timeout=600)
+    finally:
+        worker.kill()
+    fresh_s = time.perf_counter() - t_fresh
+    check(worker.returncode == 0, f"export fresh process: rc {worker.returncode}: {err[-2000:]}")
+    served = json.loads(out.strip().splitlines()[-1]) if worker.returncode == 0 else {}
+    modules = served.get("modules", [])
+    model_code = [m for m in modules if m.startswith("dat_segmentation_tpu_torch.models")
+                  or m.split(".")[0] == "dat_segmentation_tpu"]
+    launches = {}
+    for key in arts:
+        want = lives[key].forward_batch(inputs[key])
+        got = torch.from_numpy(np.load(spec[key]["logits"])).to(dev) if served else want + 1
+        rel = float((got - want).abs().max() / want.abs().max())
+        n = served.get(key, {}).get("launches", {})
+        launches[key] = n
+        want_n = {"deform_attn_fwd": n_d, "x_block_fwd": n_x if key == "pallas" else 0}
+        emit({"phase": "export", "card": card, "part": f"served {key}", "entry": entry[key],
+              "fresh_process_s_beside_the_classifier": fresh_s,
+              "first_call_s": served.get(key, {}).get("first_call_s"),
+              "launches_per_forward": n, "want": want_n, "rel_vs_forward_batch": rel,
+              "bit_equal_forward_batch": bool(torch.equal(got, want)),
+              "tol_rel": EXPORT_TOL_REL})
+        check(n == want_n, f"export served {key}: launches {n}, want {want_n}")
+        check(rel <= EXPORT_TOL_REL, f"export served {key}: rel {rel} vs forward_batch")
+    check(bool(modules) and not model_code, f"export fresh process imported {model_code}")
+
+    # predict_semseg on the raw image: against the live model on the same
+    # zero-padded batch (the same computation; a batch of another size runs
+    # other cuDNN and cuBLAS algorithms, whose bf16 sums flip near-ties) and
+    # the live whole mode (the true-shape forward: padding moves every
+    # deformable sample)
+    live = lives["portable"]
+    h, w = PREDICT_HW
+    eh, ew = EXPORT_SHAPES[1]
+    img = torch.from_numpy(raw).to(dev).float()
+    padded = torch.zeros(TIME_BATCH, eh, ew, 3, device=dev)
+    padded[0, :h, :w] = (img - live._mean) / live._std
+    with torch.inference_mode():
+        same = resize_bilinear(live.forward_batch(padded)[:1], (eh, ew))[0, :h, :w]
+        same = same.argmax(-1).to(torch.int32).cpu().numpy()
+    whole = live.predict(raw)
+    got_map = np.load(work / "map.npy") if served else np.full((h, w), -1, np.int32)
+    share_padded = float((got_map != same).mean())
+    share_whole = float((got_map != whole).mean())
+    map_entry = served.get("portable", {}).get("map_entry")
+    emit({"phase": "export", "card": card, "part": "predict_semseg", "raw_hw": list(PREDICT_HW),
+          "entry": map_entry, "share_differing_live_padded": share_padded,
+          "equal_live_padded": share_padded == 0.0,
+          "share_differing_live_whole_true_shape": share_whole,
+          "tol_share_padded": EVAL_BATCH_SHARE, "modules_of_the_fresh_process": modules})
+    check(map_entry == f"seg_{eh}x{ew}_b{TIME_BATCH}", f"export predict_semseg: entry {map_entry}")
+    check(share_padded <= EVAL_BATCH_SHARE,
+          f"export predict_semseg: {share_padded} of pixels differ from the live padded forward")
+
+    # the artifact and the live model at batch 16, in turns
+    srv = ServingModel.load(arts["portable"])
+    xt = torch.from_numpy(x16).to(dev)
+    fns = {"artifact": lambda: srv(entry["portable"], xt), "live": lambda: live.forward_batch(xt)}
+    ms = {"artifact": [], "live": []}
+    for name in ("artifact", "live", "live", "artifact") * 3:
+        ms[name].append(timed(fns[name], 5, warmup=1))
+    got, want = fns["artifact"](), fns["live"]()
+    rel = float((got - want).abs().max() / want.abs().max())
+    emit({"phase": "export", "card": card, "part": "time", "dtype": "bfloat16",
+          "batch": TIME_BATCH, "hw": [IMG, IMG], "order": "(artifact live live artifact) x 3",
+          "ms_per_batch": ms, "median_ms": {k: statistics.median(v) for k, v in ms.items()},
+          "rel_vs_forward_batch": rel, "bit_equal_forward_batch": bool(torch.equal(got, want))})
+    check(rel <= EXPORT_TOL_REL, f"export time: batch 16's artifact rel {rel} vs forward_batch")
+    for name, fn in fns.items():
+        emit(dict(profile_device(torch, fn, card, statistics.median(ms[name]), "forward"),
+                  export=name))
+    del srv, lives, live, fns
+    torch.cuda.empty_cache()
+    emit({"phase": "export", "card": card, "part": "wall", "phase_s": time.perf_counter() - t_phase})
+    return {"deform_attn_fwd": launches["portable"].get("deform_attn_fwd"),
+            "x_block_fwd": launches["pallas"].get("x_block_fwd")}
 
 
 class LoopProbe:

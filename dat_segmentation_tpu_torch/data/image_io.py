@@ -13,6 +13,9 @@ there). The port does not depend on cv2; it reads:
   greyscale, non-interlaced, all five row filters, which is what an
   ADE20K annotation is. Any other kind raises, naming it; nothing is
   converted silently. The reader is exact by construction.
+
+``write_png`` writes the test CLI's class maps (8-bit greyscale or RGB,
+unfiltered rows, ``zlib``), which cv2 reads back unchanged.
 """
 
 from __future__ import annotations
@@ -140,3 +143,25 @@ def _paeth(row, up):
         cur[x] = a
         c = b
     return np.frombuffer(cur, np.uint8)
+
+
+def write_png(path: PathLike, img: np.ndarray) -> Path:
+    """Write (H, W) uint8 as an 8-bit greyscale PNG, or (H, W, 3) uint8 as
+    8-bit RGB (channels in RGB order; ``cv2.imread`` gives them back as
+    BGR). Rows unfiltered, deflated by ``zlib``; lossless."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if img.ndim == 3 else 0, 0, 0, 0)
+    path = Path(path)
+    path.write_bytes(_PNG_SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw))
+                     + chunk(b"IEND", b""))
+    return path

@@ -126,7 +126,10 @@ class DeformableAttention(nn.Module):
             pos = pos.clamp(-1.0, 1.0)
 
         samp = grid_sample(grouped(x), pos.flip(-1))  # grid in (x, y) order
-        sampled = samp.reshape(B, g, Ns, cg).permute(0, 2, 1, 3).reshape(B, Ns, C)
+        # contiguous: for a strided 3-d input, nn.Linear's matmul takes one
+        # path or another by the weight's requires_grad, which rounds
+        # differently on the card (a frozen, exported copy against the server)
+        sampled = samp.reshape(B, g, Ns, cg).permute(0, 2, 1, 3).reshape(B, Ns, C).contiguous()
         k = self.proj_k(sampled)
         v = self.proj_v(sampled)
 

@@ -19,12 +19,15 @@ query's log-sum-exp of the scores; K2 takes P from it and the output, a
 chunk of samples at a time, and returns the gradients of q, k, v, pos and
 the table. The scores, the bias and P never reach device memory.
 
-``deform_attn`` runs on CUDA tensors through K1 alone when no gradient is
-wanted (serving), and through ``DeformAttnFunction`` when one is, whose
-forward launches K1 (with the log-sum-exp) and whose backward launches K2
-(``deform_attn_bwd``); on CPU tensors it is the plain version
-``deform_attn_reference``, which autograd differentiates. It never falls
-back from one to the other. The plain version is ``_xla_reference``
+``deform_attn`` runs through the op ``dat::deform_attn_fwd`` when no
+gradient is wanted (serving): a ``torch.library`` custom op with a fake
+function for its shape, so that graph capture (``torch.export``) keeps it
+as one node on either device; its CUDA implementation is K1 alone, its CPU
+one the plain version. When a gradient is wanted it runs through
+``DeformAttnFunction`` on CUDA tensors, whose forward launches K1 (with the
+log-sum-exp) and whose backward launches K2 (``deform_attn_bwd``), and on
+CPU tensors through the plain version ``deform_attn_reference``, which
+autograd differentiates. It never falls back from one to the other. The plain version is ``_xla_reference``
 (``:1549``) written in PyTorch; ``deform_attn_bwd_reference`` is autograd
 of it. They are what the tests hold to the JAX package and what
 ``chip_smoke.py`` holds the kernels to.
@@ -409,6 +412,26 @@ class DeformAttnFunction(torch.autograd.Function):
                 None, None, None, None)
 
 
+@torch.library.custom_op("dat::deform_attn_fwd", mutates_args=(), device_types="cpu")
+def _deform_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                        table: torch.Tensor, n_groups: int, scale: float, hn: int,
+                        wn: int) -> torch.Tensor:
+    """``dat::deform_attn_fwd``, K1 without autograd; on the CPU its plain
+    version (the table in its own dtype, as the plain version takes it)."""
+    return deform_attn_reference(q, k, v, pos, table, n_groups=n_groups, scale=scale,
+                                 hn=hn, wn=wn)
+
+
+@_deform_attn_fwd_op.register_kernel("cuda")
+def _deform_attn_fwd_cuda(q, k, v, pos, table, n_groups, scale, hn, wn):
+    return _fwd_kernel(q, k, v, pos, table.to(q.dtype).contiguous(), n_groups, scale, hn, wn)
+
+
+@_deform_attn_fwd_op.register_fake
+def _deform_attn_fwd_fake(q, k, v, pos, table, n_groups, scale, hn, wn):
+    return torch.empty_like(q)
+
+
 def deform_attn(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -427,18 +450,18 @@ def deform_attn(
     Shapes as in ``deform_attn_reference``. ``hn``/``wn`` are the true
     height and width when q's rows and columns were padded (0: unpadded).
     On the card the table may be float32 (a master weight) while q, k and
-    v are bf16: the kernels take it in q's dtype.
+    v are bf16: the kernels take it in q's dtype. Without a gradient the
+    call is the op ``dat::deform_attn_fwd`` on either device.
     """
-    if q.device.type == "cpu":
-        return deform_attn_reference(
-            q, k, v, pos, table, n_groups=n_groups, scale=scale, hn=hn, wn=wn
-        )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"deform_attn runs on cuda or cpu, not {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, pos, table)):
+        if q.device.type == "cpu":
+            return deform_attn_reference(
+                q, k, v, pos, table, n_groups=n_groups, scale=scale, hn=hn, wn=wn
+            )
         return DeformAttnFunction.apply(q, k, v, pos, table, n_groups, float(scale), hn, wn)
-    return _fwd_kernel(q, k, v, pos, table.to(q.dtype).contiguous(), n_groups, float(scale),
-                       hn, wn)
+    return torch.ops.dat.deform_attn_fwd(q, k, v, pos, table, n_groups, float(scale), hn, wn)
 
 
 deform_attn.launches = 0  # K1 launches; chip_smoke.py reads and resets it

@@ -17,13 +17,17 @@ with zero padding at every depthwise conv: x1 and h are zero outside the
 image before the next conv reads them. In MLP-only mode (the second half of
 a 'D' block) there is no LPU and no window conv: y = x.
 
-``fused_x_block`` and ``fused_conv_mlp`` take the port's own parameter
-tensors (depthwise ``Conv2d`` weights (C, 1, k, k), ``nn.Linear`` weights
-(out, in)) and run ``XBlockFunction``: its forward is ``x_block_fwd`` (K3
-on a CUDA tensor, the plain version on a CPU tensor; on the card it
-launches the kernel or raises, it never falls back), and its backward
-recomputes the plain version under autograd, as the TPU wrapper's
-``_fxb_bwd`` does with ``jax.vjp``. Only (x, params) are saved.
+``x_block_fwd`` is the op ``dat::x_block_fwd``: a ``torch.library``
+custom op with a fake function for its shape, so that graph capture
+(``torch.export``) keeps it as one node; K3 on a CUDA tensor (it launches
+the kernel or raises, it never falls back), the plain version on a CPU
+tensor. ``fused_x_block`` and ``fused_conv_mlp`` take the port's own
+parameter tensors (depthwise ``Conv2d`` weights (C, 1, k, k),
+``nn.Linear`` weights (out, in)); without a gradient they call
+``x_block_fwd``, with one they run ``XBlockFunction``: its forward is
+``x_block_fwd``, and its backward recomputes the plain version under
+autograd, as the TPU wrapper's ``_fxb_bwd`` does with ``jax.vjp``. Only
+(x, params) are saved.
 
 ``x_block_reference`` is the plain version, the JAX ``_composite`` (``:193``)
 written in PyTorch. It works in x's dtype (the parameters are cast to it)
@@ -180,7 +184,8 @@ def _vec(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return p.to(dtype).contiguous()
 
 
-def x_block_fwd(
+@torch.library.custom_op("dat::x_block_fwd", mutates_args=(), device_types="cpu")
+def _x_block_fwd_op(
     x: torch.Tensor,
     w3: Optional[torch.Tensor],
     b3: Optional[torch.Tensor],
@@ -194,23 +199,21 @@ def x_block_fwd(
     bd: torch.Tensor,
     wf2: torch.Tensor,
     bf2: torch.Tensor,
-    *,
     with_lpu: bool,
 ) -> torch.Tensor:
-    """K3 on a CUDA tensor, its plain version on a CPU tensor; no autograd.
+    """``dat::x_block_fwd``, K3 without autograd; on the CPU its plain version."""
+    return x_block_reference(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2,
+                             with_lpu=with_lpu)
 
-    Arguments as in ``x_block_reference``. For the kernel every parameter
+
+@_x_block_fwd_op.register_kernel("cuda")
+def _x_block_fwd_cuda(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2, with_lpu):
+    """Launch K3 on checked CUDA tensors. For the kernel every parameter
     is cast to x's dtype (no copy when it already is, as in a bf16 serving
     model); the kernel reads every weight as the module stores it: the
     depthwise ones (C, 1, k, k), which it stages into shared memory a
     channel chunk at a time, and the linear ones (out, in), the column-major
-    B operand of its products.
-    """
-    if x.device.type == "cpu":
-        return x_block_reference(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2,
-                                 with_lpu=with_lpu)
-    if x.device.type != "cuda":
-        raise ValueError(f"x_block runs on cuda or cpu, not {x.device}")
+    B operand of its products."""
     window = 0 if w7 is None else w7.shape[-1]
     params = dict(w3=w3, b3=b3, w7=w7, b7=b7, g=g, be=be, wf1=wf1, bf1=bf1, wd=wd, bd=bd,
                   wf2=wf2, bf2=bf2)
@@ -244,6 +247,36 @@ def x_block_fwd(
     return out
 
 
+@_x_block_fwd_op.register_fake
+def _x_block_fwd_fake(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2, with_lpu):
+    return torch.empty_like(x)
+
+
+def x_block_fwd(
+    x: torch.Tensor,
+    w3: Optional[torch.Tensor],
+    b3: Optional[torch.Tensor],
+    w7: Optional[torch.Tensor],
+    b7: Optional[torch.Tensor],
+    g: torch.Tensor,
+    be: torch.Tensor,
+    wf1: torch.Tensor,
+    bf1: torch.Tensor,
+    wd: torch.Tensor,
+    bd: torch.Tensor,
+    wf2: torch.Tensor,
+    bf2: torch.Tensor,
+    *,
+    with_lpu: bool,
+) -> torch.Tensor:
+    """K3 on a CUDA tensor, its plain version on a CPU tensor; no autograd
+    (the op ``dat::x_block_fwd``). Arguments as in ``x_block_reference``."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x_block runs on cuda or cpu, not {x.device}")
+    return torch.ops.dat.x_block_fwd(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2,
+                                     with_lpu)
+
+
 class XBlockFunction(torch.autograd.Function):
     """``x_block_fwd`` forward; backward by autograd of the plain version,
     recomputed from the saved (x, params). Absent parameters (no LPU, or
@@ -272,6 +305,14 @@ class XBlockFunction(torch.autograd.Function):
         return (dx, *dparams, None)
 
 
+def _apply(x, *params_and_lpu):
+    """``XBlockFunction`` when a gradient is wanted, else ``x_block_fwd``."""
+    *params, with_lpu = params_and_lpu
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, *params)):
+        return XBlockFunction.apply(x, *params, with_lpu)
+    return x_block_fwd(x, *params, with_lpu=with_lpu)
+
+
 def fused_x_block(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2, k, with_lpu):
     """The 'X' block's LPU + window conv + LN + ConvMLP in one kernel.
 
@@ -281,15 +322,14 @@ def fused_x_block(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2, k, with_
     """
     if w7.shape[-1] != k:
         raise ValueError(f"fused_x_block: window {k}, but w7 is {tuple(w7.shape)}")
-    return XBlockFunction.apply(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2, with_lpu)
+    return _apply(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2, with_lpu)
 
 
 def fused_conv_mlp(x, g, be, wf1, bf1, wd, bd, wf2, bf2):
     """LN -> fc1 -> residual dw3 -> GELU -> fc2 in one kernel (the 'D'
     block's second half; the caller applies LayerScale, drop path and the
     residual)."""
-    return XBlockFunction.apply(x, None, None, None, None, g, be, wf1, bf1, wd, bd, wf2, bf2,
-                                False)
+    return _apply(x, None, None, None, None, g, be, wf1, bf1, wd, bd, wf2, bf2, False)
 
 
 x_block_fwd.launches = 0  # K3 launches (both modes); chip_smoke.py reads and resets it

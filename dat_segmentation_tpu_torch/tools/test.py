@@ -3,7 +3,7 @@ mIoU, on the card.
 
     python -m dat_segmentation_tpu_torch.tools.test fpn_tiny_80k_dp04_lr2 CKPT.pth \\
         --data-root /data/ade20k [--aug-test] [--mode slide] [--out r.json] \\
-        [--set key=value ...]
+        [--show-dir DIR] [--format-dir DIR] [--set key=value ...]
 
 The port's ``tools/test.py`` (the JAX package's ``tools/test.py:22-61``)
 for what it has: the config is a preset or an mmseg-style ``.py`` file,
@@ -22,9 +22,14 @@ card unless named (``cpu`` runs the plain PyTorch versions).
 images and the counts are summed, so every process holds the whole
 result; rank 0 prints it and writes ``--out``.
 
-Not yet here (ROADMAP.md, Queue 1): ``--show-dir`` and ``--format-dir``; the JAX
-package's ``--pad-bucket``, ``--no-exact`` and ``--postproc-workers``
-have no counterpart (the port runs true shapes and resizes on the device).
+``--show-dir`` writes each prediction as a colour PNG (the ADE20K palette
+at 150 classes, else a palette drawn from seed 42, as the JAX CLI's),
+``--format-dir`` as the submission's greyscale PNG (label + 1, the ADE20K
+convention); both from ``evaluate_dataset``'s ``on_pred``, in the one
+inference pass, named after the image, by ``data/image_io.py:write_png``
+(no cv2). The JAX package's ``--pad-bucket``, ``--no-exact`` and
+``--postproc-workers`` have no counterpart (the port runs true shapes and
+resizes on the device).
 """
 
 from __future__ import annotations
@@ -34,9 +39,11 @@ import json
 from pathlib import Path
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from ..data.ade20k import ADE20K_CLASSES, ADE20KDataset
+from ..data.ade20k import ADE20K_CLASSES, ADE20K_NUM_CLASSES, ADE20K_PALETTE, ADE20KDataset
+from ..data.image_io import write_png
 from ..eval.evaluate import evaluate_dataset
 from ..eval.inference import SegInferencer
 from ..models.builder import build_model
@@ -55,6 +62,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--mode", default=None, choices=[None, "whole", "slide"])
     p.add_argument("--max-images", type=int, default=None)
     p.add_argument("--out", default=None, help="json results path")
+    p.add_argument("--show-dir", default=None, help="write colour prediction maps here")
+    p.add_argument("--format-dir", default=None,
+                   help="write submission-format greyscale maps (label+1, the ADE20K convention)")
     p.add_argument("--shard", default=None, metavar="RANK/WORLD",
                    help="evaluate a shard (merge with merge_shard_results)")
     p.add_argument("--batch-size", type=int, default=4,
@@ -65,6 +75,34 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--distributed", action="store_true",
                    help="join torchrun's process group: shard the images, sum the counts")
     return p.parse_args(argv)
+
+
+def _png_writers(args, ds, num_classes: int):
+    """``on_pred`` for ``--show-dir`` and ``--format-dir`` (None without
+    either): the JAX CLI's maps, written without cv2."""
+    writers = []
+    if args.format_dir:
+        fmt_dir = Path(args.format_dir)
+        fmt_dir.mkdir(parents=True, exist_ok=True)
+        writers.append(lambda idx, pred: write_png(
+            fmt_dir / f"{Path(ds.images[idx]).stem}.png", (pred + 1).astype(np.uint8)))
+    if args.show_dir:
+        show_dir = Path(args.show_dir)
+        show_dir.mkdir(parents=True, exist_ok=True)
+        if num_classes == ADE20K_NUM_CLASSES:
+            palette = np.asarray(ADE20K_PALETTE, np.uint8)
+        else:
+            palette = np.random.RandomState(42).randint(0, 255, (num_classes, 3)).astype(np.uint8)
+        writers.append(lambda idx, pred: write_png(
+            show_dir / f"{Path(ds.images[idx]).stem}.png", palette[pred]))
+    if not writers:
+        return None
+
+    def on_pred(idx, pred):
+        for write in writers:
+            write(idx, pred)
+
+    return on_pred
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -87,10 +125,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     shard_info = tuple(map(int, args.shard.split("/"))) if args.shard else None
     if args.distributed:
         shard_info = process_shard_info()
+    ds = ADE20KDataset(args.data_root, "val")
     res = evaluate_dataset(
-        inferencer, ADE20KDataset(args.data_root, "val"), num_classes=cfg.model.num_classes,
+        inferencer, ds, num_classes=cfg.model.num_classes,
         img_scale=cfg.data.img_scale, aug_test=args.aug_test, max_images=args.max_images,
         shard_info=shard_info, batch_size=args.batch_size, distributed=args.distributed,
+        on_pred=_png_writers(args, ds, cfg.model.num_classes),
     )
     if args.distributed and shard_info[0] != 0:
         return res  # rank 0 reports

@@ -4,8 +4,6 @@
 // dat_x_block_fwd, each an int64 byte count (0: none) and its bytes; OUT:
 // the output's bytes. Prints the tile rows and the launch's return code.
 #include <cstdio>
-#include <memory>
-#include <thread>
 #include <vector>
 #include <cuda_runtime.h>
 namespace { alignas(16) unsigned char smem[262144]; }
@@ -29,23 +27,12 @@ cudaError_t cudaLaunchKernel(const void* fn, dim3 grid, dim3 block, void** args,
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         blockIdx = dim3(bx, by, bz);
         memset(smem, 0xff, smemsz);
-        std::barrier<> bb(block.x);
-        emu_block_bar = &bb;
-        std::vector<std::unique_ptr<std::barrier<>>> wb;
-        for (unsigned w = 0; w < block.x / 32; ++w) {
-          wb.emplace_back(new std::barrier<>(32));
-          emu_warp_bar[w] = wb.back().get();
-        }
-        std::vector<std::thread> ts;
-        for (unsigned t = 0; t < block.x; ++t)
-          ts.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            k(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12],
-              out, iv[0], iv[1], iv[2], iv[3], iv[4], iv[5], eps);
-            emu_open.clear();
-            emu_groups.clear();
-          });
-        for (auto& t : ts) t.join();
+        emu_block_bar = EmuBarrier{(int)block.x};
+        for (unsigned w = 0; w < block.x / 32; ++w) emu_warp_bar[w] = EmuBarrier{32};
+        emu_run_block(block.x, [&](int) {
+          k(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12],
+            out, iv[0], iv[1], iv[2], iv[3], iv[4], iv[5], eps);
+        });
       }
   return 0;
 }

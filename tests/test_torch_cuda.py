@@ -10,7 +10,10 @@ without them, with the JAX-pinning conftest left out:
 step over two processes on the card (``tests/torch_parallel_worker.py``).
 The last three tests run the eval slice on the card's machine: its JPEG
 decoder against the fixture's stored cv2 decodes, ``evaluate_dataset``
-card against CPU, and a reference ``.pth`` loaded on the card.
+card against CPU, and a reference ``.pth`` loaded on the card;
+``test_exported_small_model_on_the_card`` the serving export (an artifact
+exported and served on the card against the live model, with K1's and
+K3's launches).
 
 Tolerances, as in chip_smoke.py: float32 1e-4 (the kernel sums in another
 order and uses the fast exp), bf16 1e-2 (outputs rounded to bf16, and the
@@ -746,3 +749,42 @@ def test_small_classifier_forward_and_cls_step_match_cpu(cuda):
     dsq = sum((g.cpu() - c).square().sum() for g, c in pairs if c is not None)
     gsq = sum(c.square().sum() for _, c in pairs if c is not None)
     assert (dsq / gsq).sqrt().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,launches", [("fpn", (4, 0)), ("fpn_pallas", (4, 3)),
+                                           ("classifier", (4, 0))])
+def test_exported_small_model_on_the_card(cuda, tmp_path, kind, launches):
+    """The small SemanticFPN (portable, and with ``kernel_impl='pallas'``
+    and ``portable=False``) and the small DatClassifier (head width 32),
+    exported on the card in float32 (TF32 off) at 64x64 and served by
+    ``ServingModel``, against the live model on the card: equal within
+    1e-5 relative (the same kernels on the same inputs), and the forward's
+    (K1, K3) launches: one K1 a 'D' block, K3 at stages 0 and 1."""
+    from dat_segmentation_tpu_torch.serving import (ServingModel, export_classifier,
+                                                    export_segmentor, save_artifact)
+
+    torch.manual_seed(0)
+    if kind == "classifier":
+        cfg = small_classifier(get_config, head_width=32)
+    else:
+        cfg = small_fpn(get_config, head_width=32)
+        if kind == "fpn_pallas":
+            cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone,
+                                                                        kernel_impl="pallas"))
+    model = build_model(cfg, device=cuda)
+    export = export_classifier if kind == "classifier" else export_segmentor
+    program = export(cfg, model.state_dict(), batch=2, input_size=(64, 64),
+                     compute_dtype=torch.float32, device=cuda, portable=kind != "fpn_pallas")
+    srv = ServingModel.load(save_artifact(tmp_path, {"e": program}, model_cfg=cfg,
+                                          task="classifier" if kind == "classifier" else "segmentor"))
+    assert srv.entries["e"]["device"].startswith("cuda")
+    x = torch.tensor(np.random.RandomState(1).randn(2, 64, 64, 3), dtype=torch.float32)
+    srv("e", x)
+    before = (deform_attn.launches, xb.x_block_fwd.launches)
+    got = srv("e", x)
+    assert (deform_attn.launches - before[0], xb.x_block_fwd.launches - before[1]) == launches
+    with torch.inference_mode():
+        want = (model(x.to(cuda)) if kind == "classifier" else model(x.to(cuda), upsample=False))
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5

@@ -64,7 +64,7 @@ def harness(tmp_path_factory):
     (out / "x_block_fwd_emulated.cu").write_text(src)
     exe = out / "x_block_harness"
     proc = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-pthread", "-w", f"-I{EMU}",
+        [cxx, "-std=c++20", "-O1", "-w", f"-I{EMU}",
          f'-DXB_SOURCE="{out / "x_block_fwd_emulated.cu"}"', "-o", str(exe),
          str(EMU / "x_block_harness.cpp")],
         capture_output=True, text=True)
@@ -102,7 +102,7 @@ def _run(exe, tmp_path, x, p, k, mode):
             raw = b"" if a is None else a.contiguous().view(bits).numpy().tobytes()
             f.write(np.int64(len(raw)).tobytes() + raw)
     proc = subprocess.run([str(exe), str(inp), str(outp)], capture_output=True, text=True,
-                          timeout=600)
+                          timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     got = np.fromfile(outp, dtype=np.int16 if bits == torch.int16 else np.int32)
     return torch.from_numpy(got.copy()).view(x.dtype).reshape(x.shape), proc.stdout
