@@ -154,6 +154,27 @@ line each:
    generator, mixup sampler); the loader alone (img/s) and per item the ms
    of decode, crop + resize, flip, RandAugment, jitter + normalise, erasing.
 
+17. scale_out: the step over two gloo ranks on the card against one
+   process, fsdp against replicated, the distributed eval; one NCCL rank:
+   the machinery's cost in turns with the plain step, peak memory
+   replicated, fsdp and fsdp with ``use_checkpoint`` (28 K1 and 14 K2
+   launches a step, its first loss the fsdp step's); the train CLI under
+   torchrun.
+18. pe_modes: the position-bias modes the JAX package runs in its
+   composite. Each of dwc_pe, fixed_pe, log_cpb, no_off and no position
+   bias on all four stages of the full flagship, float32, TF32 off: card
+   vs CPU (logits within the model phase's gate, 0 K1 launches). A mixed
+   model (dwc_pe on stages 0-1, the continuous bias on stages 2-3) served
+   in bf16 at batch 16 (counts set to 0 just before: 11 K1 launches and 3
+   composite blocks a forward), in turns with the flagship, peak memory;
+   the UperNet preset with that backbone, bf16, batch 16: 11 K1 and 11 K2
+   launches a step at attention dropout 0, none at 0.1, and at 0.1 with
+   ``use_checkpoint`` the first step's loss and grad norm those of the
+   step without it. Then, for the continuous bias and each mode on every
+   stage, ms and peak memory of the bf16 forward at batch 16 and of the
+   step at the largest of batches 16, 8, 4, 2 that fits; a profile of the
+   dwc_pe forward.
+
 Then a ``kernels`` line (K1, K1-v1, K2, K3, with their launches by path),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero.
@@ -1213,6 +1234,9 @@ def main() -> int:
     # ---- 17. scale_out: the step over processes --------------------------------
     scale_launches = scale_out_phase(torch, np, card, dev, n_d, timed)
 
+    # ---- 18. pe_modes: the other position-bias modes --------------------------
+    pe_launches = pe_modes_phase(torch, np, card, dev, timed)
+
     # ---- kernels line, card, verdict ----------------------------------------
     def line(kernel, n, err, tot):
         return dict(kernel, launches=n, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -1225,7 +1249,9 @@ def main() -> int:
                               "eval": eval_launches, "export": export_launches["deform_attn_fwd"],
                               "train_loop": loop_launches["deform_attn_fwd"],
                               **cls_launches["deform_attn_fwd"],
-                              "scale_out_rank0": scale_launches["deform_attn_fwd"]}
+                              "scale_out_rank0": scale_launches["deform_attn_fwd"],
+                              "pe_modes_mixed_serve": pe_launches["serve"],
+                              "pe_modes_mixed_train": pe_launches["train"]["deform_attn_fwd"]}
     k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
               attribution_ms={v: totals[f"{v}_ms"] for v in K1_VARIANTS})
     k2 = line(KERNELS[1], train_launches["deform_attn_bwd"], max_err_bwd, btot)
@@ -1236,7 +1262,8 @@ def main() -> int:
                                 "train_checkpoint": ck_launches["deform_attn_bwd"],
                                 "train_loop": loop_launches["deform_attn_bwd"],
                                 **cls_launches["deform_attn_bwd"],
-                                "scale_out_rank0": scale_launches["deform_attn_bwd"]})
+                                "scale_out_rank0": scale_launches["deform_attn_bwd"],
+                                "pe_modes_mixed_train": pe_launches["train"]["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
     k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"], mma_instructions=k3_mma,
               warps_per_sm=k3_warps,
@@ -2963,13 +2990,35 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
         fmodel = build_model(mc, device=dev)
         fstate = create_train_state(fmodel, replace(bcfg, fsdp=True))
         fstep = make_train_step(fmodel, **kw)
-        fstep(fstate, b16)
+        fsdp_loss = fstep(fstate, b16)[1]["loss"].item()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fstep(fstate, b16)
         torch.cuda.synchronize()
         peak_fsdp = torch.cuda.max_memory_allocated() / 2 ** 30
         del fmodel, fstate, fstep
+        torch.cuda.empty_cache()
+        # fsdp with use_checkpoint: each stage's recompute on the parameters
+        # FSDP2 gathers again before its backward
+        ckmc = replace(mc, backbone=replace(mc.backbone, use_checkpoint=True))
+        torch.manual_seed(SEED)
+        fmodel = build_model(ckmc, device=dev)
+        fstate = create_train_state(fmodel, replace(bcfg, model=ckmc, fsdp=True))
+        fstep = make_train_step(fmodel, **kw)
+        torch.cuda.synchronize()
+        da.deform_attn.launches = da.deform_attn_bwd.launches = 0
+        ck_loss = fstep(fstate, b16)[1]["loss"].item()
+        torch.cuda.synchronize()
+        ck_launches = (da.deform_attn.launches, da.deform_attn_bwd.launches)
+        torch.cuda.reset_peak_memory_stats()
+        fstep(fstate, b16)
+        torch.cuda.synchronize()
+        peak_fsdp_ck = torch.cuda.max_memory_allocated() / 2 ** 30
+        del fmodel, fstate, fstep
+        ck_rel = abs(ck_loss - fsdp_loss) / abs(fsdp_loss)
+        check(ck_launches == (2 * n_d, n_d) and ck_rel <= TOL_TRAIN_LOSS,
+              f"scale_out: fsdp with use_checkpoint: launches {ck_launches}, want "
+              f"{(2 * n_d, n_d)}; loss {ck_loss} against fsdp's {fsdp_loss}")
         destroy_distributed()
         torch.cuda.empty_cache()
         device_ms = {k: v.get("device_ms_per_step") for k, v in profiles.items()}
@@ -2983,7 +3032,10 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
                                       if None not in device_ms.values() else "not measured"),
               "gradient_all_reduce_ms": reduce_ms, "gradient_bytes": grad_bytes,
               "gradient_buckets": -(-grad_bytes // mesh.BUCKET_BYTES),
-              "peak_gib": {"replicated": peak_rep, "fsdp": peak_fsdp},
+              "peak_gib": {"replicated": peak_rep, "fsdp": peak_fsdp,
+                           "fsdp_use_checkpoint": peak_fsdp_ck},
+              "fsdp_use_checkpoint": {"launches_step1": ck_launches, "loss_step1": ck_loss,
+                                      "loss_step1_fsdp": fsdp_loss, "loss_rel": ck_rel},
               "note": "world 1: NCCL reduces over one card; NCCL across cards is unmeasured"})
 
         # -- the train CLI under torchrun, one NCCL rank ----------------------
@@ -3020,13 +3072,226 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
     return r0["step"]["launches"]
 
 
+# ---- 18. pe_modes: the other position-bias modes (models/deformable_attention.py)
+# Each mode on all four stages of the flagship, card vs CPU; then a mixed
+# model (dwc_pe on stages 0-1, the continuous bias, K1's, on stages 2-3)
+# served and trained. The JAX gate sends only the continuous bias (offsets
+# on, attention dropout 0 or eval) to the kernel.
+PE_MODES = ("dwc_pe", "fixed_pe", "log_cpb", "no_off", "no_pe")
+PE_MIXED = ("dwc_pe", "dwc_pe", "continuous", "continuous")
+PE_ATTN_DROP = 0.1
+PE_BATCHES = (TRAIN_BATCH, 8, 4, 2)  # a step's batch: the largest of these that fits
+PE_TIME_ITERS = 3
+_PE_FLAGS = {"dwc_pe": "dwc_pes", "fixed_pe": "fixed_pes", "log_cpb": "log_cpb",
+             "no_off": "no_offs"}
+
+
+def with_modes(model_cfg, modes, **backbone):
+    """``model_cfg`` with stage i's 'D' blocks in the position-bias mode
+    ``modes[i]`` ('continuous', a key of ``_PE_FLAGS`` or 'no_pe') and the
+    backbone's other fields ``backbone``."""
+    from dataclasses import replace
+
+    kw = {field: tuple(m == mode for m in modes) for mode, field in _PE_FLAGS.items()}
+    kw["use_pes"] = tuple(m != "no_pe" for m in modes)
+    return replace(model_cfg, backbone=replace(model_cfg.backbone, **kw, **backbone))
+
+
+def pe_modes_phase(torch, np, card, dev, timed):
+    """18. pe_modes (see the module docstring). Returns K1's and K2's
+    launches on the mixed model's serve (one forward) and its train step
+    with attention dropout 0 (one step), counts set to 0 just before each."""
+    from dataclasses import replace
+
+    from dat_segmentation_tpu_torch import (SegInferencer, build_model, create_train_state,
+                                            get_config, make_train_step)
+    from dat_segmentation_tpu_torch.models.deformable_attention import DeformableAttention
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(PRESET).model
+    spec = cfg.backbone.stage_spec
+    k1_blocks = sum(spec[i].count("D") for i, m in enumerate(PE_MIXED) if m == "continuous")
+    composite_blocks = sum(s.count("D") for s in spec) - k1_blocks
+    composite_calls = [0]
+    real_composite = DeformableAttention._composite
+
+    def counted(self, *a, **k):  # the composite's blocks, counted as K1's launches are
+        composite_calls[0] += 1
+        return real_composite(self, *a, **k)
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # -- each mode on every stage, float32, TF32 off: card vs CPU --------------
+    image = torch.tensor(np.random.RandomState(SEED + 30).randn(1, IMG, IMG, 3),
+                         dtype=torch.float32)
+    for mode in PE_MODES:
+        torch.manual_seed(SEED)
+        model = build_model(with_modes(cfg, (mode,) * 4), device=dev)
+        da.deform_attn.launches = 0
+        with torch.inference_mode():
+            got = model(image.to(dev)).float()
+            torch.cuda.synchronize()
+            launches = da.deform_attn.launches
+            t0 = time.perf_counter()
+            ref = copy.deepcopy(model).cpu()(image)
+            cpu_s = time.perf_counter() - t0
+        d = (got.cpu() - ref).abs().max().item()
+        emit({"phase": "pe_modes", "card": card, "part": "card vs CPU", "preset": PRESET,
+              "mode": mode, "stages": "all four", "dtype": "float32", "tf32": False,
+              "input": list(image.shape), "max_abs_dlogit": d, "tol": TOL_MODEL,
+              "logit_absmax": ref.abs().max().item(),
+              "argmax_agreement": (got.cpu().argmax(-1) == ref.argmax(-1)).float().mean().item(),
+              "deform_attn_fwd_launches": launches, "cpu_forward_s": cpu_s})
+        check(d <= TOL_MODEL and bool(torch.isfinite(got).all()),
+              f"pe_modes {mode}: card vs CPU max |dlogit| {d} > {TOL_MODEL}")
+        check(launches == 0, f"pe_modes {mode}: {launches} K1 launches, want 0 (the JAX gate)")
+        del model, got, ref
+    torch.cuda.empty_cache()
+
+    # -- the mixed model served in bf16 at batch 16, in turns with the flagship --
+    torch.manual_seed(SEED)
+    servers = {"flagship": SegInferencer(build_model(cfg, device=dev), num_classes=cfg.num_classes,
+                                         device=dev)}
+    torch.manual_seed(SEED)
+    servers["mixed"] = SegInferencer(build_model(with_modes(cfg, PE_MIXED), device=dev),
+                                     num_classes=cfg.num_classes, device=dev)
+    x16 = torch.tensor(np.random.RandomState(SEED + 31).randn(TIME_BATCH, IMG, IMG, 3),
+                       dtype=torch.bfloat16, device=dev)
+    DeformableAttention._composite = counted
+    try:
+        torch.cuda.synchronize()
+        da.deform_attn.launches = composite_calls[0] = 0
+        out = servers["mixed"].forward_batch(x16)
+        torch.cuda.synchronize()
+        serve = {"deform_attn_fwd": da.deform_attn.launches, "composite": composite_calls[0]}
+    finally:
+        DeformableAttention._composite = real_composite
+    check(serve == {"deform_attn_fwd": k1_blocks, "composite": composite_blocks},
+          f"pe_modes mixed serve: {serve}, want {k1_blocks} K1 and {composite_blocks} composite")
+    check(bool(torch.isfinite(out).all()), "pe_modes mixed serve: non-finite logits")
+    ms = {"flagship": [], "mixed": []}
+    for name in ("flagship", "mixed", "mixed", "flagship"):
+        ms[name].append(timed(lambda: servers[name].forward_batch(x16), 5))
+    peak = {name: peak_of(lambda: srv.forward_batch(x16)) for name, srv in servers.items()}
+    emit({"phase": "pe_modes", "part": "serve", "card": card, "preset": PRESET,
+          "modes_by_stage": PE_MIXED, "dtype": "bfloat16", "batch": TIME_BATCH,
+          "launches_per_forward": serve, "order": "flagship mixed mixed flagship",
+          "ms_per_batch": ms, "img_per_s": {k: [TIME_BATCH / v * 1e3 for v in vs]
+                                            for k, vs in ms.items()},
+          "peak_mem_gib": peak})
+    del servers, out
+    torch.cuda.empty_cache()
+
+    # -- train steps of the UperNet preset with the mixed backbone, bf16 -------
+    tcfg = get_config(TRAIN_PRESET)
+    mc = tcfg.model
+    rng = np.random.RandomState(SEED + 32)
+    label = rng.randint(0, mc.num_classes, (TRAIN_BATCH, IMG, IMG))
+    label[rng.rand(TRAIN_BATCH, IMG, IMG) < 0.05] = 255
+    b16 = {"image": torch.tensor(rng.randn(TRAIN_BATCH, IMG, IMG, 3), dtype=torch.float32,
+                                 device=dev),
+           "label": torch.tensor(label, dtype=torch.long, device=dev)}
+
+    def trainer(model_cfg):
+        torch.manual_seed(SEED)
+        model = build_model(model_cfg, device=dev)
+        state = create_train_state(model, replace(
+            tcfg, model=model_cfg, schedule=replace(tcfg.schedule, warmup_iters=0)))
+        step = make_train_step(model, aux_weight=mc.aux_loss_weight,
+                               num_classes=mc.num_classes, compute_dtype=torch.bfloat16)
+        return model, state, step
+
+    runs = {}
+    for name, drop, ckpt in (("attn_drop 0", 0.0, False), ("attn_drop 0.1", PE_ATTN_DROP, False),
+                             ("attn_drop 0.1, use_checkpoint", PE_ATTN_DROP, True)):
+        model, state, step = trainer(with_modes(mc, PE_MIXED, attn_drop_rate=drop,
+                                                use_checkpoint=ckpt))
+        torch.cuda.synchronize()
+        da.deform_attn.launches = da.deform_attn_bwd.launches = 0
+        first = step(state, b16)[1]
+        torch.cuda.synchronize()
+        launches = {"deform_attn_fwd": da.deform_attn.launches,
+                    "deform_attn_bwd": da.deform_attn_bwd.launches}
+        second = step(state, b16)[1]
+        runs[name] = {"losses": [first["loss"].item(), second["loss"].item()],
+                      "grad_norms": [first["grad_norm"].item(), second["grad_norm"].item()],
+                      "launches_step1": launches}
+        del model, state, step, first, second
+        torch.cuda.empty_cache()
+    want_k1 = {"attn_drop 0": k1_blocks, "attn_drop 0.1": 0,
+               "attn_drop 0.1, use_checkpoint": 0}
+    plain, ck = runs["attn_drop 0.1"], runs["attn_drop 0.1, use_checkpoint"]
+    loss_rel = abs(ck["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+    gn_rel = abs(ck["grad_norms"][0] - plain["grad_norms"][0]) / plain["grad_norms"][0]
+    emit({"phase": "pe_modes", "part": "train", "card": card, "preset": TRAIN_PRESET,
+          "modes_by_stage": PE_MIXED, "dtype": "bfloat16", "batch": TRAIN_BATCH, "runs": runs,
+          "use_checkpoint_vs_plain": {"loss_step1_rel": loss_rel, "grad_norm_step1_rel": gn_rel,
+                                      "loss_step2_rel": abs(ck["losses"][1] - plain["losses"][1])
+                                      / abs(plain["losses"][1])},
+          "tol": {"loss": TOL_TRAIN_LOSS, "grad_norm": TOL_GRAD}})
+    for name, run in runs.items():
+        want = {"deform_attn_fwd": want_k1[name], "deform_attn_bwd": want_k1[name]}
+        check(run["launches_step1"] == want,
+              f"pe_modes train {name}: launches {run['launches_step1']}, want {want}")
+        check(all(np.isfinite(run["losses"] + run["grad_norms"])),
+              f"pe_modes train {name}: non-finite {run}")
+    check(loss_rel <= TOL_TRAIN_LOSS and gn_rel <= TOL_GRAD,
+          f"pe_modes train: use_checkpoint with attention dropout vs plain: loss {loss_rel}, "
+          f"grad norm {gn_rel}")
+
+    # -- times: each mode on every stage, bf16, the forward and the step -------
+    times = {}
+    for mode in ("continuous",) + PE_MODES:
+        model, state, step = trainer(with_modes(mc, (mode,) * 4))
+        row = {}
+        for batch in PE_BATCHES:
+            b = {k: v[:batch] for k, v in b16.items()}
+            try:
+                step(state, b)
+                row["step_ms"] = timed(lambda: step(state, b), PE_TIME_ITERS, warmup=1)
+                row["step_peak_gib"] = peak_of(lambda: step(state, b))
+                row["step_batch"] = batch
+                break
+            except torch.cuda.OutOfMemoryError:
+                row.setdefault("step_out_of_memory_at", []).append(batch)
+                torch.cuda.empty_cache()
+        check("step_ms" in row, f"pe_modes times {mode}: no step fits at batches {PE_BATCHES}")
+        del state, step
+        server = SegInferencer(model, num_classes=mc.num_classes, device=dev)
+        del model
+        torch.cuda.empty_cache()
+        row["forward_ms"] = timed(lambda: server.forward_batch(x16), PE_TIME_ITERS, warmup=1)
+        row["forward_peak_gib"] = peak_of(lambda: server.forward_batch(x16))
+        row["forward_batch"] = TIME_BATCH
+        if mode == "dwc_pe":  # where the composite's time goes
+            row["forward_profile"] = profile_device(torch, lambda: server.forward_batch(x16), card,
+                                                    row["forward_ms"], "forward", iters=2)
+        times[mode] = row
+        del server
+        torch.cuda.empty_cache()
+    emit({"phase": "pe_modes", "part": "times", "card": card, "preset": TRAIN_PRESET,
+          "dtype": "bfloat16", "stages": "all four in the mode", "note":
+          "continuous: K1 (K2 in the step); the others: the plain composite", "by_mode": times})
+    emit({"phase": "pe_modes", "card": card, "seconds": time.perf_counter() - t_phase})
+    return {"serve": serve["deform_attn_fwd"], "train": runs["attn_drop 0"]["launches_step1"]}
+
+
 def grad_compare(gmodel, cmodel):
     """The card's gradients against the CPU's after one step of the same
     model: ||g_card - g_cpu|| / ||g_cpu|| over all parameters, the worst
     parameter whose gradient is not float32 noise (d, ||g||, name), the
     names beyond TOL_GRAD_PARAM, every (d, ||g||, name) and ||g||². A
-    parameter the loss does not reach (the classifier's out_norm_0-2) has no
-    gradient on either side; one side without it is a difference."""
+    parameter the loss does not reach (the classifier's out_norm_0-2) has a
+    zero gradient on both sides (the train step gives it one); one side
+    without a gradient is a difference."""
     dsq = gsq = 0.0
     per_param = []
     for (name, pg), (_, pc) in zip(gmodel.named_parameters(), cmodel.named_parameters()):

@@ -3,7 +3,7 @@
 The port of ``dat_segmentation_tpu`` (the JAX/TPU package, which stays in
 the repository as the reference). Module names mirror the JAX package;
 public functions keep its NHWC layout. Entry points (``build_model``,
-``SegInferencer``) run on ``cuda`` unless the caller passes
+``build_model_from_config``, ``SegInferencer``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel is replaced by its plain
 PyTorch version, which is how the tests hold the port to the JAX package.
 ``create_train_state`` and ``make_train_step`` train a segmentor or the
@@ -23,6 +23,8 @@ _LAZY = {
     "list_configs": ".configs",
     "SegInferencer": ".eval.inference",
     "build_model": ".models.builder",
+    "build_model_from_config": ".models.builder",
+    "register_head": ".models.builder",
     "TrainState": ".train.train_step",
     "create_train_state": ".train.train_step",
     "make_train_step": ".train.train_step",

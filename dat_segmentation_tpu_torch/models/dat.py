@@ -28,12 +28,16 @@ included, so the separate LPU is skipped) and a 'D' block's second half
 on every backend but the TPU. The JAX package's TPU switch
 ``DAT_TPU_XBLOCK`` and its exact-extent clause have no counterpart: eager
 PyTorch runs every input at its true shape. K1 (the deformable attention)
-runs on the card whatever ``kernel_impl`` says.
+runs on the card whatever ``kernel_impl`` says, in each 'D' block whose
+position-bias mode the JAX gate gives it (``DeformableAttention.
+runs_kernel``: the continuous bias, offsets on, attention dropout 0 or
+eval); the other blocks run the plain composite.
 
 ``use_checkpoint`` recomputes each stage's activations in the backward
 during training (``torch.utils.checkpoint``), one stage at a time as the
 JAX package's ``nn.remat`` over ``TransformerStage`` (``models/dat.py:
-288-293`` there): the numbers do not change, the activations held do.
+288-293`` there), also under FSDP2: the numbers do not change, the
+activations held do.
 
 Submodules carry the JAX package's names (``lpu_0``, ``attn_1``, ...), so
 its variables map onto this state_dict by name (``utils/convert.py``).
@@ -50,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.x_block import (CHANNEL_MULTIPLE, HIDDEN_MULTIPLE, MAX_CHANNELS, WINDOWS,
                            fused_conv_mlp, fused_x_block)
+from ..parallel.mesh import is_sharded
 from .deformable_attention import DeformableAttention
 from .layers import (CmtConvMlp, Conv2d, ConvMlp, DropPath, Dropout, LayerNorm2d, LayerScale,
                      Mlp, gelu)
@@ -225,7 +230,12 @@ def checkpointed(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
     The recompute sees what the forward saw. Its parameters and buffers
     are the tensors the stage holds at the forward (under the train
     step's ``functional_call`` these are the bf16 casts, gone by the time
-    of the backward), passed in as arguments. Drop path and dropout draw
+    of the backward), passed in as arguments. A stage that FSDP2 shards
+    (``parallel/mesh.py:shard_model``) holds its shards outside its
+    forward, so its recompute calls the stage as it is: FSDP2's
+    pre-backward hook, which fires on the stage's output before the
+    recompute, has gathered the parameters again, and its forward hooks
+    leave a call made in the backward alone. Drop path and dropout draw
     from a generator the caller owns, which ``torch.utils.checkpoint``
     does not restore (it restores the global RNG only): its state at the
     forward is replayed for the recompute. The BatchNorms' running
@@ -238,9 +248,14 @@ def checkpointed(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
     states = [g.get_state() for g in generators]
     stats = [tensors[f"{name}.{b}"] for name, m in stage.named_modules()
              if isinstance(m, nn.BatchNorm2d) for b, _ in m.named_buffers(recurse=False)]
+    if is_sharded(stage):
+        def run(inp, _):
+            return stage(inp)
+    else:
+        def run(inp, t):
+            return torch.func.functional_call(stage, t, (inp,))
     return checkpoint(
-        lambda inp, t: torch.func.functional_call(stage, t, (inp,)), x, tensors,
-        use_reentrant=False,
+        run, x, tensors, use_reentrant=False,
         context_fn=lambda: (contextlib.nullcontext(), _replay(generators, states, stats)),
     )
 

@@ -195,14 +195,14 @@ def shard_model(model: nn.Module, compute_dtype: torch.dtype) -> nn.Module:
     for each backbone stage, each head and the root, the parameters gathered
     in ``compute_dtype`` for the forward and the gradients reduce-scattered
     in float32 and summed (not averaged: the losses divide by global
-    counts). Buffers (BatchNorm statistics) stay whole on every process."""
+    counts). Buffers (BatchNorm statistics) stay whole on every process.
+    With ``use_checkpoint`` a stage's recompute runs on the parameters
+    FSDP2 gathers again before the stage's backward
+    (``models/dat.py:checkpointed``)."""
     from torch.distributed.fsdp import FSDPModule, MixedPrecisionPolicy, fully_shard
 
-    from ..models.dat import DAT, TransformerStage
+    from ..models.dat import TransformerStage
 
-    if any(isinstance(m, DAT) and m.use_checkpoint for m in model.modules()):
-        raise NotImplementedError("fsdp with use_checkpoint: the recompute would see the "
-                                  "sharded parameters (ROADMAP.md, Queue 1 item 10)")
     policy = MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32)
     for m in model.modules():
         if isinstance(m, TransformerStage):

@@ -162,8 +162,8 @@ def make_train_step(
         raise ValueError(f"task {task!r}: 'seg' or 'cls'")
     if iou_impl not in ("bincount", "none"):
         raise ValueError(f"iou_impl {iou_impl!r}: 'bincount' or 'none'")
-    params = dict(model.named_parameters())
-    device = next(iter(params.values())).device
+    plist = list(model.parameters())
+    device = plist[0].device
     forward = _forward_in(model, compute_dtype)
     distributed, sharded = mesh.is_distributed(), mesh.is_sharded(model)
 
@@ -198,13 +198,17 @@ def make_train_step(
         loss.backward()
 
         with torch.no_grad():
-            live = [p for p in params.values() if p.grad is not None]
+            # a parameter the loss does not reach (a no_off block's offset
+            # net) takes a zero gradient, as jax.grad gives it: AdamW decays it
+            for p in plist:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             if distributed and not sharded:
-                mesh.reduce_gradients([p.grad for p in live])
-            grads = [mesh.local(p.grad) for p in live]
+                mesh.reduce_gradients([p.grad for p in plist])
+            grads = [mesh.local(p.grad) for p in plist]
             grad_norm = global_norm(grads, sharded)
-            param_norm = global_norm([mesh.local(p) for p in params.values()], sharded)
-            before = [mesh.local(p).detach().clone() for p in live]
+            param_norm = global_norm([mesh.local(p) for p in plist], sharded)
+            before = [mesh.local(p).detach().clone() for p in plist]
             if state.grad_clip is not None:
                 # optax.clip_by_global_norm: g * clip / norm where norm > clip
                 factor = torch.clamp(state.grad_clip / grad_norm, max=1.0)
@@ -213,7 +217,7 @@ def make_train_step(
                 group["lr"] = state.schedule(state.step)
             state.optimizer.step()
             update_norm = global_norm(
-                torch._foreach_sub([mesh.local(p).detach() for p in live], before), sharded)
+                torch._foreach_sub([mesh.local(p).detach() for p in plist], before), sharded)
             metrics = {
                 "loss": loss.detach(),
                 "grad_norm": grad_norm,

@@ -11,7 +11,10 @@ dots and only the leaves change:
   (out, in, 1, 1), depthwise (k, k, 1, C) -> (C, 1, k, k)); dense
   ``kernel`` (in, out) -> ``nn.Linear`` ``weight`` (out, in);
 * LayerNorm / BatchNorm ``scale`` -> ``weight``; ``bias``, ``gamma`` and
-  ``rpe_table`` (heads, 2*q_h-1, 2*q_w-1) unchanged;
+  ``rpe_table`` (continuous: (heads, 2*q_h-1, 2*q_w-1); ``fixed_pe``:
+  (heads, q_h*q_w, kv_h*kv_w)) unchanged; the other position-bias modes'
+  ``rpe_dwc`` (a depthwise conv) and ``cpb_fc1``/``cpb_fc2`` (dense) by
+  the rules above;
 * BatchNorm ``batch_stats`` ``mean``/``var`` -> ``running_mean`` /
   ``running_var``, with ``num_batches_tracked`` 0.
 

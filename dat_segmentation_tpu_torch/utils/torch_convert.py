@@ -136,9 +136,14 @@ def backbone_table(cfg, ref: str = "", port: str = "") -> List[Entry]:
                 t += _conv(f"{ar}conv_offset.0", f"{ap}offset_dwc")
                 t += _ln(f"{ar}conv_offset.1.norm", f"{ap}offset_ln")
                 t += _conv(f"{ar}conv_offset.3", f"{ap}offset_proj", bias=False, layout=CONV1X1)
-                if (cfg.use_pes[i] and not cfg.no_offs[i] and not cfg.dwc_pes[i]
-                        and not cfg.log_cpb[i]):
-                    t.append((f"{ar}rpe_table", f"{ap}rpe_table", SAME))
+                if cfg.use_pes[i] and not cfg.no_offs[i]:  # the reference's rpe_table
+                    if cfg.dwc_pes[i]:  # a 3x3 depthwise conv
+                        t += _conv(f"{ar}rpe_table", f"{ap}rpe_dwc")
+                    elif cfg.log_cpb[i]:  # Linear(2, 32), ReLU, Linear(32, h_g) without bias
+                        t += _conv(f"{ar}rpe_table.0", f"{ap}cpb_fc1")
+                        t += _conv(f"{ar}rpe_table.2", f"{ap}cpb_fc2", bias=False)
+                    else:  # the continuous or the fixed_pe table
+                        t.append((f"{ar}rpe_table", f"{ap}rpe_table", SAME))
                 if cfg.layer_scale_values[i] > 0:
                     t.append((f"{sr}layer_scales.{2 * d}.gamma", f"{sp}ls1_{d}.gamma", SAME))
                     t.append((f"{sr}layer_scales.{2 * d + 1}.gamma", f"{sp}ls2_{d}.gamma", SAME))

@@ -13,7 +13,8 @@ decoder against the fixture's stored cv2 decodes, ``evaluate_dataset``
 card against CPU, and a reference ``.pth`` loaded on the card;
 ``test_exported_small_model_on_the_card`` the serving export (an artifact
 exported and served on the card against the live model, with K1's and
-K3's launches).
+K3's launches); ``test_small_mixed_mode_model_matches_cpu`` a model whose
+position-bias modes send two 'D' blocks to K1 and two to the composite.
 
 Tolerances, as in chip_smoke.py: float32 1e-4 (the kernel sums in another
 order and uses the fast exp), bf16 1e-2 (outputs rounded to bf16, and the
@@ -47,7 +48,7 @@ from dat_segmentation_tpu_torch.ops.deform_attn import (
     deform_attn_bwd_reference,
     deform_attn_reference,
 )
-from torch_port_helpers import small_classifier, small_fpn, small_upernet
+from torch_port_helpers import small_classifier, small_fpn, small_upernet, with_modes
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K2, relative to the largest |gradient| of each of the five: the kernel
@@ -281,12 +282,13 @@ def test_small_model_kernel_path_matches_plain_path(cuda):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
-def _small_upernet_step_card_vs_cpu(cuda, use_checkpoint):
-    """One float32 train step of the small UperNet (head width 32) on the
-    card and on the CPU; returns the card's (K1, K2) launches."""
+def _small_upernet_step_card_vs_cpu(cuda, use_checkpoint, modes=("continuous",) * 4):
+    """One float32 train step of the small UperNet (head width 32, its 'D'
+    blocks in ``modes``) on the card and on the CPU; returns the card's
+    (K1, K2) launches."""
     torch.manual_seed(0)
     cfg = get_config("upn_tiny_160k_dp03_lr6")
-    model_cfg = small_upernet(get_config, head_width=32)
+    model_cfg = with_modes(small_upernet(get_config, head_width=32), modes)
     model_cfg = dataclasses.replace(model_cfg, backbone=dataclasses.replace(
         model_cfg.backbone, use_checkpoint=use_checkpoint))
     cfg = dataclasses.replace(cfg, model=model_cfg,
@@ -322,6 +324,30 @@ def test_small_upernet_train_step_matches_cpu(cuda):
     BN running statistics to 1e-5; one K1 and one K2 launch per 'D'
     block."""
     assert _small_upernet_step_card_vs_cpu(cuda, use_checkpoint=False) == (4, 4)
+
+
+MIXED_MODES = ("dwc_pe", "continuous", "log_cpb", "continuous")
+
+
+@pytest.mark.cuda
+def test_small_mixed_mode_model_matches_cpu(cuda):
+    """The small UperNet (head width 32) with dwc_pe, the continuous bias,
+    log_cpb and the continuous bias on its four stages: K1 runs on the two
+    continuous 'D' blocks only (the JAX gate), the composite on the other
+    two. The eval forward's logits card vs CPU to 1e-4 (2 K1 launches),
+    then one float32 train step under the gates above (2 K1 and 2 K2)."""
+    torch.manual_seed(0)
+    model = build_model(with_modes(small_upernet(get_config, head_width=32), MIXED_MODES),
+                        device=cuda)
+    x = torch.tensor(np.random.RandomState(1).randn(2, 64, 96, 3), dtype=torch.float32)
+    before = deform_attn.launches
+    with torch.inference_mode():
+        got = model(x.to(cuda)).cpu()
+        launches = deform_attn.launches - before
+        ref = copy.deepcopy(model).cpu()(x)
+    assert launches == 2
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert _small_upernet_step_card_vs_cpu(cuda, False, MIXED_MODES) == (2, 2)
 
 
 @pytest.mark.cuda

@@ -265,8 +265,18 @@ def test_deformable_attention_matches_jax(orf, impl):
 
 @pytest.mark.parametrize("mode", ["dwc_pe", "fixed_pe", "log_cpb", "no_off"])
 def test_deformable_attention_later_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="position-bias modes slice"):
-        DeformableAttention(32, 2, 2, 2, 3, (8, 8), **{mode: True})
+    """The position-bias modes besides the continuous one build and equal
+    the JAX module in the forward (the geometry above; a config-time 6x6
+    table against 8x12 queries), in the composite, not the kernel
+    (``tests/test_torch_pe_modes.py`` holds their gradients)."""
+    kw = dict(dim=32, n_heads=2, n_groups=2, stride=2, ksize=3, q_size=(6, 6), **{mode: True})
+    jmod = JaxDeformableAttention(**kw)
+    x = _x((2, 8, 12, 32), seed=6)
+    variables = random_variables(jmod, x, seed=2)
+    port = carry(DeformableAttention(**kw), variables)
+    assert not port.runs_kernel()
+    np.testing.assert_allclose(port_apply(port, x).numpy(), np.asarray(jax_apply(jmod, variables, x)),
+                               rtol=0, atol=LAYER_ATOL)
 
 
 # ----------------------------------------------------- backbone, segmentor --
@@ -309,6 +319,48 @@ def test_flagship_preset_has_14_deformable_blocks():
     spec = get_config("fpn_tiny_80k_dp04_lr2").model.backbone.stage_spec
     assert sum(s.count("D") for s in spec) == 14
     assert sum(len(s) for s in spec) == 26
+
+
+def test_head_registry_and_build_model_from_config():
+    """``register_head`` adds a head type that ``build_model`` then builds;
+    ``build_model_from_config`` takes a preset name, its TrainConfig or its
+    ModelConfig and builds what ``build_model`` builds (the same modules
+    and, from one seed, the same weights)."""
+    import dataclasses
+
+    from dat_segmentation_tpu_torch import build_model_from_config, register_head
+    from dat_segmentation_tpu_torch.models import builder
+
+    name = "upn_tiny_160k_dp03_lr6"
+    want = build_model(get_config(name).model, device="cpu")
+    for arg in (name, get_config(name), get_config(name).model):
+        torch.manual_seed(0)
+        got = build_model_from_config(arg, device="cpu")
+        torch.manual_seed(0)
+        ref = build_model(get_config(name).model, device="cpu")
+        assert [n for n, _ in got.named_modules()] == [n for n, _ in want.named_modules()]
+        assert all(torch.equal(a, b) for a, b in zip(got.state_dict().values(),
+                                                      ref.state_dict().values()))
+    seen = []
+
+    class LastLevelFCN(th.FCNHead):
+        def forward(self, feats):
+            return super().forward(feats[-1])
+
+    @register_head("LastLevelFCN")
+    def _fcn(cfg, in_channels, align_corners=False):
+        seen.append(in_channels)
+        return LastLevelFCN(in_channels[-1], cfg.num_classes, 8, dropout_ratio=0.0)
+
+    try:
+        cfg = small_upernet(get_config)
+        cfg = dataclasses.replace(cfg, decode_head=dataclasses.replace(
+            cfg.decode_head, type="LastLevelFCN"), auxiliary_head=None)
+        model = build_model(cfg, device="cpu")
+        assert isinstance(model.decode_head, LastLevelFCN) and seen == [[32, 32, 64, 64]]
+        assert port_apply(model, _x((1, 64, 64, 3))).shape == (1, 64, 64, 8)
+    finally:
+        builder._HEAD_REGISTRY.pop("LastLevelFCN")
 
 
 def test_build_model_refuses_other_heads():

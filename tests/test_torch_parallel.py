@@ -115,6 +115,8 @@ def runs(tmp_path_factory):
         ("seg", "seg_steps", seg),
         ("seg_pallas", "seg_steps", dict(seg, kernel_impl="pallas")),
         ("fsdp_pallas", "seg_steps", dict(seg, kernel_impl="pallas", fsdp=True)),
+        ("ckpt", "seg_steps", dict(seg, use_checkpoint=True)),
+        ("fsdp_ckpt", "seg_steps", dict(seg, use_checkpoint=True, fsdp=True)),
         ("seg_jax", "seg_steps", dict(weights=jax_w, batches=batches[:1], drop=0.0)),
         ("cls", "cls_steps", dict(weights=cls_w, batch=cls_batch, draws=DRAWS, valid=VALID)),
         ("eval", "evaluate", dict(weights=seg_w, root=data, max_images=4)),
@@ -263,6 +265,21 @@ def test_fsdp_equals_replicated_and_shards(runs):
         sh = fsdp["sharded"]
         assert sh["local"][0] * 2 == sh["shape"][0] and sh["local"][1:] == sh["shape"][1:], sh
         assert sh["moment_local"] == sh["local"], sh
+
+
+def test_fsdp_with_use_checkpoint_equals_replicated_and_one_process(runs):
+    """Two steps with ``use_checkpoint`` (each stage recomputed in the
+    backward, drop path on) over two ranks, replicated and with fsdp=True
+    (the recompute on the parameters FSDP2 gathers again): the replicated
+    steps equal the one-process steps without it, and the fsdp steps the
+    replicated ones, under the module's tolerances."""
+    one = runs["one"]["seg"]["steps"]
+    for rank in runs["ranks"]:
+        rep, fsdp = rank["ckpt"]["steps"], rank["fsdp_ckpt"]["steps"]
+        for i, (a, b, want) in enumerate(zip(rep, fsdp, one)):
+            _assert_step_equal(a, want, f"replicated step {i}", first_step=i == 0)
+            _assert_step_equal(b, dict(a, grads={}), f"fsdp step {i}", grads=rep[0]["grads"])
+            assert a["launches"] == b["launches"] == (0, 0)  # the CPU: plain versions
 
 
 def test_evaluate_distributed_equals_one_process(runs):

@@ -7,7 +7,8 @@
   caller-owned generator, which ``torch.utils.checkpoint`` does not
   restore, so the port replays it, and the BatchNorms inside a stage move
   their statistics in the forward only: the checkpointed step equals the
-  plain one (1e-6 relative; on the CPU they agree bit for bit).
+  plain one (1e-6 relative; on the CPU they agree bit for bit), also with
+  attention dropout.
 * The TTA resize of a uint8 image is cv2's fixed-point ``INTER_LINEAR``,
   bit for bit (its JAX-package counterpart is in ``test_torch_eval.py``).
 * K1's plain version gives each query's log-sum-exp of its scores (K2
@@ -53,15 +54,16 @@ def test_inferencer_leaves_callers_model_alone():
     assert torch.equal(got, ref)
 
 
-def _train(use_checkpoint, dtype, cmt=False, steps=2):
+def _train(use_checkpoint, dtype, cmt=False, attn_drop=0.0, steps=2):
     """``steps`` steps of the small UperNet with drop path and dropout 0.2
     from one seed: the metrics, the gradients, the BN buffers and how
     often each backbone stage ran forward. ``cmt``: stages 2 and 3 take
-    the CMT MLP, whose BatchNorms move their statistics in the stage."""
+    the CMT MLP, whose BatchNorms move their statistics in the stage;
+    ``attn_drop``: attention dropout, whose blocks run the composite."""
     cfg = get_config("upn_tiny_160k_dp03_lr6")
     mc = small_upernet(get_config, drop=0.2)
     mc = dataclasses.replace(mc, backbone=dataclasses.replace(
-        mc.backbone, use_checkpoint=use_checkpoint,
+        mc.backbone, use_checkpoint=use_checkpoint, attn_drop_rate=attn_drop,
         use_cmt_mlps=(False, False, True, True) if cmt else mc.backbone.use_cmt_mlps))
     cfg = dataclasses.replace(cfg, model=mc,
                               schedule=dataclasses.replace(cfg.schedule, warmup_iters=0))
@@ -87,15 +89,17 @@ def _train(use_checkpoint, dtype, cmt=False, steps=2):
     return out, buffers, runs[0]
 
 
-@pytest.mark.parametrize("dtype,cmt", [(torch.float32, False), (torch.bfloat16, False),
-                                       (torch.float32, True)], ids=["f32", "bf16", "f32-cmt"])
-def test_checkpointed_step_equals_plain_step(dtype, cmt):
+@pytest.mark.parametrize("dtype,cmt,attn_drop", [
+    (torch.float32, False, 0.0), (torch.bfloat16, False, 0.0), (torch.float32, True, 0.0),
+    (torch.float32, False, 0.2)], ids=["f32", "bf16", "f32-cmt", "f32-attn-drop"])
+def test_checkpointed_step_equals_plain_step(dtype, cmt, attn_drop):
     """Loss, every gradient and the BN statistics of two steps with drop
     path and dropout on; in bf16 the recompute must see the step's bf16
     casts of the weights, not the float32 masters; with BatchNorms inside
-    the stages the recompute must not move their statistics again."""
-    plain, plain_bn, plain_runs = _train(False, dtype, cmt)
-    ckpt, ckpt_bn, ckpt_runs = _train(True, dtype, cmt)
+    the stages the recompute must not move their statistics again; with
+    attention dropout the recompute must draw the forward's masks."""
+    plain, plain_bn, plain_runs = _train(False, dtype, cmt, attn_drop)
+    ckpt, ckpt_bn, ckpt_runs = _train(True, dtype, cmt, attn_drop)
     assert ckpt_runs == 2 * plain_runs == 2 * 4 * 2  # each stage again in the backward
     for (pm, pg), (cm, cg) in zip(plain, ckpt):
         for key in ("loss", "grad_norm"):

@@ -23,7 +23,7 @@ from dat_segmentation_tpu.models import build_model as jax_build_model
 from dat_segmentation_tpu.parallel import TrainState as JaxTrainState
 from dat_segmentation_tpu.parallel import make_mesh
 from dat_segmentation_tpu.parallel import make_train_step as jax_make_train_step
-from dat_segmentation_tpu.parallel.mesh import shard_batch
+from dat_segmentation_tpu.parallel.mesh import shard_batch, shard_state
 from dat_segmentation_tpu.train import losses as jlosses
 from dat_segmentation_tpu.train import metrics as jmetrics
 from dat_segmentation_tpu.train import make_optimizer as jax_make_optimizer
@@ -209,10 +209,11 @@ def trajectories():
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     tx = jax_make_optimizer(sched, params, weight_decay=0.01,
                             no_decay_keys=JaxOptimizerConfig().no_decay_keys)
-    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
-                           batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
-                           tx=tx)
     mesh = make_mesh({"data": 1}, devices=jax.devices("cpu")[:1])
+    # placed as the step's outputs are: the second step does not compile again
+    jstate = shard_state(mesh, JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]), tx=tx))
     jstep = jax_make_train_step(jmodel, mesh, aux_weight=0.4, num_classes=N_CLASSES,
                                 compute_dtype=jnp.float32)
     ref = []

@@ -150,9 +150,10 @@ def _model(cfg, weights, device="cpu"):
 
 
 def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kernel_impl="auto",
-              model_cfg=None, device="cpu"):
+              use_checkpoint=False, model_cfg=None, device="cpu"):
     """Steps of the tiny UperNet (or ``model_cfg``) from ``weights`` on this
-    rank's rows of each global batch, on ``device``: per step the metrics,
+    rank's rows of each global batch, on ``device``, with ``use_checkpoint``
+    as given: per step the metrics,
     the K1/K2 launches, the whole state (parameters and BN buffers,
     gathered when sharded) and, unsharded, the gradients; with ``fsdp``
     also the local shape of the largest parameter and of its AdamW moment,
@@ -166,7 +167,8 @@ def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kerne
     cfg = tiny_seg(get_config, drop=drop)
     if model_cfg is not None:
         cfg = dataclasses.replace(cfg, model=model_cfg)
-    cfg = replace(cfg, fsdp=fsdp, **{"model.backbone.kernel_impl": kernel_impl})
+    cfg = replace(cfg, fsdp=fsdp, **{"model.backbone.kernel_impl": kernel_impl,
+                                     "model.backbone.use_checkpoint": use_checkpoint})
     model = _model(cfg, weights, device)
     state = create_train_state(model, cfg)
     step = make_train_step(model, num_classes=NUM_CLASSES, compute_dtype=torch.float32)

@@ -1,7 +1,8 @@
 """Shared by the PyTorch port's tests (tests/test_torch_*.py).
 
 A small SemanticFPN, a small UperNet and a small classifier configuration
-built the same way in both packages,
+built the same way in both packages, their 'D' blocks in any position-bias
+mode (``with_modes``),
 random variables for a JAX module made from a numpy seed, and the same
 weights carried into a port module through ``utils/convert.py``. JAX is
 imported only where it is used: ``tests/test_torch_cuda.py`` runs on a
@@ -96,6 +97,20 @@ def small_classifier(get_config, head_width=16, num_classes=10):
         cfg, backbone=bb, num_classes=num_classes,
         decode_head=dataclasses.replace(cfg.decode_head, num_classes=num_classes),
     )
+
+
+_MODE_FLAGS = {"dwc_pe": "dwc_pes", "fixed_pe": "fixed_pes", "log_cpb": "log_cpb",
+               "no_off": "no_offs"}
+
+
+def with_modes(model_cfg, modes):
+    """``model_cfg`` with stage i's 'D' blocks in the position-bias mode
+    ``modes[i]``: ``'continuous'`` (the presets'), ``'dwc_pe'``,
+    ``'fixed_pe'``, ``'log_cpb'``, ``'no_off'`` or ``'no_pe'``; either
+    package's config."""
+    kw = {field: tuple(m == mode for m in modes) for mode, field in _MODE_FLAGS.items()}
+    kw["use_pes"] = tuple(m != "no_pe" for m in modes)
+    return dataclasses.replace(model_cfg, backbone=dataclasses.replace(model_cfg.backbone, **kw))
 
 
 def random_variables(module, *args, seed=0, **kwargs):
