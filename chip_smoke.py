@@ -94,17 +94,23 @@ line each:
    phase's ``.pth`` through ``tools/export.py --check`` (bf16, batch 16,
    entries 512x512 and 512x704, the artifact within 1e-3 relative of
    ``SegInferencer.forward_batch``), and with ``--no-portable`` on a
-   ``'pallas'`` config (batch 1); both served in a fresh process (beside
-   the classifier's exports) that imports only
-   ``dat_segmentation_tpu_torch.serving`` (no ``models`` module may be
-   loaded there): 14 K1 launches a forward, and 26 K3 with 'pallas'
-   (counts set to 0 just before), the logits against
+   ``'pallas'`` config (batch 1), each carrying its kernels' ``sm_90a``
+   libraries; both served in two fresh processes (beside the classifier's
+   exports) that import only ``dat_segmentation_tpu_torch.serving`` (no
+   ``models`` module may be loaded there), each from a copy of the package
+   without ``_build/``: once stripped of the libraries, so that the loader
+   builds them with nvcc, and once as exported where nvcc cannot be found
+   (``nvcc_path()`` must raise and nothing may be built; logits and class
+   maps bit for bit the first run's): 14 K1 launches a forward, and 26 K3
+   with 'pallas' (counts set to 0 just before), the logits against
    ``SegInferencer.forward_batch`` on the same input (equal bit for bit or
    not, reported), ``predict_semseg`` on the raw 512x683 image against the
    live model on the same padded input (gated) and the live whole mode
    (reported); the classifier (cls_tiny_imagenet, 224², batch 1 and 128)
    against the live ``DatClassifier``; the artifact's and the live model's
-   ms a batch of 16 in turns, each artifact's bytes and export seconds.
+   ms a batch of 16 in turns, each artifact's bytes (with and without
+   ``kernels/``), export seconds, and the seconds of its kernels'
+   libraries and first call in each fresh process.
 11. train_loop: the seg trainer end to end through the train CLI
    (``tools/train.py:main``), the recipe as it is (upn_tiny_160k_dp03_lr6:
    full width and depth, drop path 0.3, dropout 0.1, bf16 on float32
@@ -159,7 +165,7 @@ line each:
    the machinery's cost in turns with the plain step, peak memory
    replicated, fsdp and fsdp with ``use_checkpoint`` (28 K1 and 14 K2
    launches a step, its first loss the fsdp step's); the train CLI under
-   torchrun.
+   torchrun, started by ``tools/launch_multihost.sh`` (one node, one card).
 18. pe_modes: the position-bias modes the JAX package runs in its
    composite. Each of dwc_pe, fixed_pe, log_cpb, no_off and no position
    bias on all four stages of the full flagship, float32, TF32 off: card
@@ -1525,58 +1531,93 @@ def eval_phase(torch, np, card, dev, full_cfg, n_d, work):
 
 
 def export_worker(spec_path: str) -> None:
-    """Run by ``export_phase`` in a fresh process: serve each artifact of
-    the spec through ``ServingModel``, importing only
+    """Run by ``export_phase`` in a fresh process whose working directory
+    holds a copy of the package without ``_build/``: serve each artifact
+    of the spec through ``ServingModel``, importing only
     ``dat_segmentation_tpu_torch.serving`` of the port (its op modules come
     with it), one forward an entry with the kernels' counts set to 0 just
     before and read just after, and ``predict_semseg`` on the raw image;
     arrays to the spec's files, one JSON line to stdout with the modules
-    the process imported."""
+    the process imported, where the package came from, whether ``nvcc``
+    was found and what ``_build/`` holds afterwards."""
     import numpy as np
     import torch
 
     from dat_segmentation_tpu_torch.serving import ServingModel
 
+    spec = json.loads(Path(spec_path).read_text())
+    cb = sys.modules["dat_segmentation_tpu_torch.ops.cuda_build"]
     da = sys.modules["dat_segmentation_tpu_torch.ops.deform_attn"]
     xb = sys.modules["dat_segmentation_tpu_torch.ops.x_block"]
-    out = {}
-    for key, job in json.loads(Path(spec_path).read_text()).items():
+    try:
+        nvcc = cb.nvcc_path()
+    except RuntimeError:
+        nvcc = None
+    out = {"package": str(cb.CSRC.parent), "nvcc": nvcc}
+    for key, job in spec["jobs"].items():
         srv = ServingModel.load(job["dir"])
         x = np.load(job["input"])
         t0 = time.perf_counter()
-        srv(job["entry"], x)  # loads the entry (and its kernels' libraries)
+        srv._load_kernels(job["entry"])  # the kernels' libraries: loaded, or built and loaded
+        kernels_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv(job["entry"], x)  # loads the entry's graph and runs it
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         da.deform_attn.launches = xb.x_block_fwd.launches = 0
         y = srv(job["entry"], x)
         torch.cuda.synchronize()
-        res = {"first_call_s": first_s, "launches": {"deform_attn_fwd": da.deform_attn.launches,
-                                                     "x_block_fwd": xb.x_block_fwd.launches}}
+        res = {"kernels_s": kernels_s, "first_call_s": first_s,
+               "launches": {"deform_attn_fwd": da.deform_attn.launches,
+                            "x_block_fwd": xb.x_block_fwd.launches}}
         np.save(job["logits"], y.cpu().numpy())
         if "raw" in job:
             raw = np.load(job["raw"])
             res["map_entry"] = srv._pick_entry(*raw.shape[:2])
             np.save(job["map"], srv.predict_semseg(raw))
         out[key] = res
+    out["build_files"] = sorted(p.name for p in cb.BUILD_DIR.glob("*"))  # none if it is absent
     out["modules"] = sorted(m for m in sys.modules if m.startswith("dat_segmentation_tpu"))
     print(json.dumps(out), flush=True)
+
+
+def fresh_serve(root: Path, spec: dict, env: dict):
+    """``export_worker`` on ``spec`` in a fresh process run from ``root``
+    (a copy of the package and this script); its stdout's last line, or
+    None, and the process."""
+    (root / "spec.json").write_text(json.dumps(spec))
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.export_worker("
+                           f"{str(root / 'spec.json')!r})"], capture_output=True, text=True,
+                          cwd=root, env=dict(env, PYTHONPATH=str(root)), timeout=600)
+    served = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else None
+    return served, proc
 
 
 def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
     """10b. export: the flagship through ``tools/export.py --check`` from the
     eval phase's ``.pth`` (bf16, batch 16, entries 512x512 and 512x704, the
     second holding the 512x683 raw image), and with ``--no-portable`` on a
-    ``'pallas'`` config (512x512, batch 1); both artifacts served in a fresh
-    process that imports only ``serving`` (``export_worker``, run while this
-    process exports the classifier: K1's and K3's launches a forward), their
-    logits against ``SegInferencer.forward_batch`` and ``predict_semseg``
-    against the live class maps; the classifier exported at 224² (batches 1
-    and 128) against the live ``DatClassifier``; the artifact's and the live
-    model's ms a batch of 16, in turns. Returns the launches of the fresh
-    process's forwards (portable: K1; 'pallas': K3)."""
+    ``'pallas'`` config (512x512, batch 1, ``--platforms cuda``), each
+    carrying its kernels' libraries; both artifacts served in two fresh
+    processes that import only ``serving`` (``export_worker``, run one after
+    the other while this process exports the classifier: K1's and K3's
+    launches a forward), each from a copy of the package without ``_build/``:
+    once without the libraries, built at load by nvcc, and once as exported,
+    where nvcc cannot be found and nothing may be built (logits and class
+    maps bit for bit the first's; the seconds of the kernels' libraries
+    (built or loaded) and of the first call, and the artifact's bytes with
+    and without ``kernels/``, beside); the logits against
+    ``SegInferencer.forward_batch`` and ``predict_semseg`` against the live
+    class maps; the classifier exported at 224² (batches 1 and 128) against
+    the live ``DatClassifier``; the artifact's and the live model's ms a
+    batch of 16, in turns. Returns the launches of the forwards served
+    without nvcc (portable: K1; 'pallas': K3)."""
     import dataclasses
+    import os
+    import shutil
 
     from dat_segmentation_tpu_torch import SegInferencer, build_model, get_config
+    from dat_segmentation_tpu_torch.ops import cuda_build
     from dat_segmentation_tpu_torch.ops import deform_attn as da
     from dat_segmentation_tpu_torch.ops.interpolate import resize_bilinear
     from dat_segmentation_tpu_torch.serving import ServingModel, export_classifier, save_artifact
@@ -1589,14 +1630,15 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
                                                                  kernel_impl="pallas"))
     arts = {"portable": work / "art", "pallas": work / "art_pallas"}
     runs = {"portable": ([f"{h}x{w}" for h, w in EXPORT_SHAPES], TIME_BATCH, []),
-            "pallas": ([f"{IMG}x{IMG}"], 1, ["--no-portable", "--set",
+            "pallas": ([f"{IMG}x{IMG}"], 1, ["--no-portable", "--platforms", "cuda", "--set",
                                              "model.backbone.kernel_impl=pallas"])}
     entry = {key: f"seg_{IMG}x{IMG}_b{b}" for key, (_, b, _) in runs.items()}
     for key, (shapes, batch, extra) in runs.items():
         t0 = time.perf_counter()
+        device = [] if "--platforms" in extra else ["--device", str(dev)]
         summary = export_cli.main([PRESET, str(ckpt), "--output", str(arts[key]), "--shapes",
                                    ",".join(shapes), "--batch", str(batch), "--check",
-                                   "--device", str(dev), *extra])
+                                   *device, *extra])
         want_k = ["dat::deform_attn_fwd"] + (["dat::x_block_fwd"] if key == "pallas" else [])
         emit({"phase": "export", "card": card, "part": f"cli {key}", "preset": PRESET,
               "dtype": "bfloat16", "batch": batch, "args": extra, "entries": summary["entries"],
@@ -1604,24 +1646,54 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
         for name, e in summary["entries"].items():
             check(e["kernels"] == want_k, f"export {key} {name}: kernels {e['kernels']}, want {want_k}")
 
-    # the fresh process: the artifacts without the model code, in the background
+    # the fresh processes: the artifacts without the model code, each from a
+    # copy of the package without _build/, one after the other in the
+    # background. "built": each artifact without its kernel libraries, whose
+    # kernels the loader builds at load (nvcc); "carried": the artifacts as
+    # exported, where nvcc cannot be found (no directory of PATH holds it,
+    # CUDA_HOME an empty directory)
     rng = np.random.RandomState(SEED + 11)
     x16 = rng.randn(TIME_BATCH, IMG, IMG, 3).astype(np.float32)
     inputs = {"portable": x16, "pallas": x16[:1]}
     raw = rng.randint(0, 256, (*PREDICT_HW, 3)).astype(np.uint8)
     np.save(work / "raw.npy", raw)
-    spec = {}
-    for key in arts:
+    art_bytes, bare = {}, {}
+    for key, d in arts.items():
         np.save(work / f"x_{key}.npy", inputs[key])
-        spec[key] = {"dir": str(arts[key]), "entry": entry[key], "input": str(work / f"x_{key}.npy"),
-                     "logits": str(work / f"y_{key}.npy")}
-    spec["portable"].update(raw=str(work / "raw.npy"), map=str(work / "map.npy"))
-    (work / "spec.json").write_text(json.dumps(spec))
+        meta = json.loads((d / "meta.json").read_text())
+        libs = meta.pop("kernel_libraries", [])
+        want_k = ["dat::deform_attn_fwd"] + (["dat::x_block_fwd"] if key == "pallas" else [])
+        check([lib["op"] for lib in libs] == want_k
+              and all(lib["digest"] == cuda_build.digest(lib["source"])
+                      and lib["arch"] == cuda_build.ARCH for lib in libs),
+              f"export {key}: kernel libraries {libs}, want {want_k} at the installed digests")
+        total = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        kernels = sum(f.stat().st_size for f in (d / "kernels").glob("*"))
+        art_bytes[key] = {"with_kernels": total, "without_kernels": total - kernels,
+                          "kernels": {lib["op"]: lib["bytes"] for lib in libs}}
+        bare[key] = work / f"{d.name}_bare"
+        shutil.copytree(d, bare[key], ignore=shutil.ignore_patterns("kernels", "meta.json"),
+                        copy_function=os.link)
+        (bare[key] / "meta.json").write_text(json.dumps(meta))
+    pkg = Path(cuda_build.CSRC).parent
+    empty = work / "empty_cuda_home"
+    empty.mkdir()
+    path = [d for d in os.environ.get("PATH", "").split(":") if d and not (Path(d) / "nvcc").exists()]
+    envs = {"built": dict(os.environ),
+            "carried": dict(os.environ, CUDA_HOME=str(empty), PATH=":".join(path))}
+    roots, specs = {}, {}
+    for mode in envs:
+        roots[mode] = root = work / f"fresh_{mode}"
+        shutil.copytree(pkg, root / pkg.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        shutil.copy(Path(__file__).resolve(), root / "chip_smoke.py")
+        jobs = {key: {"dir": str(arts[key] if mode == "carried" else bare[key]),
+                      "entry": entry[key], "input": str(work / f"x_{key}.npy"),
+                      "logits": str(root / f"y_{key}.npy")} for key in arts}
+        jobs["portable"].update(raw=str(work / "raw.npy"), map=str(root / "map.npy"))
+        specs[mode] = {"jobs": jobs}
+    pool = concurrent.futures.ThreadPoolExecutor(1)
     t_fresh = time.perf_counter()
-    worker = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.export_worker("
-                               f"{str(work / 'spec.json')!r})"], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True,
-                              cwd=Path(__file__).resolve().parent)
+    fresh = {mode: pool.submit(fresh_serve, roots[mode], specs[mode], envs[mode]) for mode in envs}
 
     # meanwhile, the classifier: batch 1 and the cls phase's batch, 224²
     ccfg = get_config(CLS_PRESET).model
@@ -1662,33 +1734,52 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
         merge_pretrained(m, state, verbose=False)
         lives[key] = SegInferencer(m, num_classes=cfg.num_classes, device=dev)
         del m
-    try:
-        out, err = worker.communicate(timeout=600)
-    finally:
-        worker.kill()
+    results = {mode: f.result() for mode, f in fresh.items()}
+    pool.shutdown()
     fresh_s = time.perf_counter() - t_fresh
-    check(worker.returncode == 0, f"export fresh process: rc {worker.returncode}: {err[-2000:]}")
-    served = json.loads(out.strip().splitlines()[-1]) if worker.returncode == 0 else {}
-    modules = served.get("modules", [])
-    model_code = [m for m in modules if m.startswith("dat_segmentation_tpu_torch.models")
-                  or m.split(".")[0] == "dat_segmentation_tpu"]
+    served = {}
+    for mode, (out, proc) in results.items():
+        check(proc.returncode == 0,
+              f"export fresh process ({mode}): rc {proc.returncode}: {proc.stderr[-2000:]}")
+        served[mode] = out or {}
+        modules = served[mode].get("modules", [])
+        model_code = [m for m in modules if m.startswith("dat_segmentation_tpu_torch.models")
+                      or m.split(".")[0] == "dat_segmentation_tpu"]
+        check(bool(modules) and not model_code, f"export fresh process ({mode}) imported {model_code}")
+        check(served[mode].get("package", "").startswith(str(roots[mode].resolve())),
+              f"export fresh process ({mode}): the package from {served[mode].get('package')}")
+    built, carried = served["built"], served["carried"]
+    check(built.get("nvcc") is not None and bool(built.get("build_files")),
+          f"export built: nvcc {built.get('nvcc')}, built {built.get('build_files')}")
+    check(carried.get("nvcc") is None and carried.get("build_files") == [],
+          f"export carried: nvcc {carried.get('nvcc')}, _build/ holds {carried.get('build_files')}")
     launches = {}
     for key in arts:
         want = lives[key].forward_batch(inputs[key])
-        got = torch.from_numpy(np.load(spec[key]["logits"])).to(dev) if served else want + 1
+        y = {mode: np.load(specs[mode]["jobs"][key]["logits"]) if served[mode] else None
+             for mode in served}
+        got = torch.from_numpy(y["built"]).to(dev) if served["built"] else want + 1
         rel = float((got - want).abs().max() / want.abs().max())
-        n = served.get(key, {}).get("launches", {})
-        launches[key] = n
+        n = {mode: served[mode].get(key, {}).get("launches", {}) for mode in served}
+        launches[key] = n["carried"]
         want_n = {"deform_attn_fwd": n_d, "x_block_fwd": n_x if key == "pallas" else 0}
+        same = y["built"] is not None and y["carried"] is not None and np.array_equal(
+            y["built"], y["carried"])
         emit({"phase": "export", "card": card, "part": f"served {key}", "entry": entry[key],
-              "fresh_process_s_beside_the_classifier": fresh_s,
-              "first_call_s": served.get(key, {}).get("first_call_s"),
+              "fresh_processes_s_beside_the_classifier": fresh_s,
+              "kernel_libraries_s": {mode: served[mode].get(key, {}).get("kernels_s")
+                                     for mode in served},
+              "first_call_s": {mode: served[mode].get(key, {}).get("first_call_s")
+                               for mode in served},
               "launches_per_forward": n, "want": want_n, "rel_vs_forward_batch": rel,
               "bit_equal_forward_batch": bool(torch.equal(got, want)),
+              "bit_equal_built_carried": bool(same), "artifact_bytes": art_bytes[key],
+              "carried_nvcc": carried.get("nvcc"), "carried_build_files": carried.get("build_files"),
               "tol_rel": EXPORT_TOL_REL})
-        check(n == want_n, f"export served {key}: launches {n}, want {want_n}")
+        for mode in served:
+            check(n[mode] == want_n, f"export served {key} ({mode}): launches {n[mode]}, want {want_n}")
         check(rel <= EXPORT_TOL_REL, f"export served {key}: rel {rel} vs forward_batch")
-    check(bool(modules) and not model_code, f"export fresh process imported {model_code}")
+        check(same, f"export served {key}: the carried libraries' logits differ from the built ones'")
 
     # predict_semseg on the raw image: against the live model on the same
     # zero-padded batch (the same computation; a batch of another size runs
@@ -1705,16 +1796,22 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
         same = resize_bilinear(live.forward_batch(padded)[:1], (eh, ew))[0, :h, :w]
         same = same.argmax(-1).to(torch.int32).cpu().numpy()
     whole = live.predict(raw)
-    got_map = np.load(work / "map.npy") if served else np.full((h, w), -1, np.int32)
+    maps = {mode: np.load(roots[mode] / "map.npy") if served[mode]
+            else np.full((h, w), -1, np.int32) for mode in served}
+    got_map = maps["built"]
     share_padded = float((got_map != same).mean())
     share_whole = float((got_map != whole).mean())
-    map_entry = served.get("portable", {}).get("map_entry")
+    map_entry = built.get("portable", {}).get("map_entry")
     emit({"phase": "export", "card": card, "part": "predict_semseg", "raw_hw": list(PREDICT_HW),
           "entry": map_entry, "share_differing_live_padded": share_padded,
           "equal_live_padded": share_padded == 0.0,
           "share_differing_live_whole_true_shape": share_whole,
-          "tol_share_padded": EVAL_BATCH_SHARE, "modules_of_the_fresh_process": modules})
+          "tol_share_padded": EVAL_BATCH_SHARE, "equal_carried_built": bool(
+              np.array_equal(maps["carried"], got_map)),
+          "modules_of_the_fresh_processes": {m: served[m].get("modules") for m in served}})
     check(map_entry == f"seg_{eh}x{ew}_b{TIME_BATCH}", f"export predict_semseg: entry {map_entry}")
+    check(np.array_equal(maps["carried"], got_map),
+          "export predict_semseg: the carried libraries' class map differs from the built one's")
     check(share_padded <= EVAL_BATCH_SHARE,
           f"export predict_semseg: {share_padded} of pixels differ from the live padded forward")
 
@@ -2612,6 +2709,7 @@ def imagenet_like_jpegs(np, train_dir, n, seed=0):
 SCALE_BATCH = 4  # the global batch of the two-rank float32 step, 2 a rank
 SCALE_IGNORED = 0.9  # the share of rank 1's pixels labelled 255 (rank 0's: 5%)
 SCALE_TORCHRUN_ITERS = 4
+LAUNCHER = "dat_segmentation_tpu_torch/tools/launch_multihost.sh"  # torchrun on one node
 SCALE_SETS = ("schedule.warmup_iters=0", "checkpoint_interval=2", "eval_interval=4",
               "log_interval=1")
 
@@ -2809,6 +2907,10 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
     from dat_segmentation_tpu_torch.parallel import destroy_distributed, init_distributed
     from dat_segmentation_tpu_torch.parallel import mesh
 
+    # float32 parity against the gloo ranks (which turn TF32 off too): set here,
+    # so that the phase holds when it runs alone
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="scale_out_"))
     try:
@@ -3038,15 +3140,16 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
                                       "loss_step1_fsdp": fsdp_loss, "loss_rel": ck_rel},
               "note": "world 1: NCCL reduces over one card; NCCL across cards is unmeasured"})
 
-        # -- the train CLI under torchrun, one NCCL rank ----------------------
+        # -- the train CLI under torchrun, one NCCL rank, by the launcher ------
         work = tmp / "torchrun"
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
-               f"--master_port={free_port()}", "-m", "dat_segmentation_tpu_torch.tools.train",
-               TRAIN_PRESET, "--multihost", "--data-root", str(tmp / "data"), "--work-dir",
-               str(work), "--max-iters", str(SCALE_TORCHRUN_ITERS), "--set", *SCALE_SETS]
+        cmd = ["bash", LAUNCHER, TRAIN_PRESET, str(tmp / "data"), "--work-dir", str(work),
+               "--max-iters", str(SCALE_TORCHRUN_ITERS), "--set", *SCALE_SETS]
         env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
-        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "NODE_RANK", "MASTER_ADDR"):
             env.pop(k, None)
+        # the launcher runs python3 from PATH: this interpreter's
+        env.update(NNODES="1", GPUS_PER_NODE="1", MASTER_PORT=str(free_port()),
+                   PATH=f"{Path(sys.executable).parent}:{env.get('PATH', '')}")
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=400, env=env,
                               cwd=Path(__file__).resolve().parent)
@@ -3056,7 +3159,8 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
         losses = [float(x) for x in re.findall(r"loss=([-0-9.naif]+)", log)]
         names = sorted(p.name for p in run_dir.glob("ckpt_*")) if run_dir.exists() else []
         emit({"phase": "scale_out", "card": card, "part": "torchrun train CLI, one NCCL rank",
-              "command": " ".join(cmd[1:4] + cmd[5:10]) + " ...", "rc": proc.returncode,
+              "command": "NNODES=1 GPUS_PER_NODE=1 " + " ".join(cmd[:3]) + " ...",
+              "rc": proc.returncode,
               "seconds": cli_s, "losses": losses, "checkpoints": names,
               "val_lines": [ln for ln in log.splitlines() if "val mIoU" in ln],
               "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})

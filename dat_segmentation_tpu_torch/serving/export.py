@@ -21,16 +21,25 @@ never the model code (``models/``).
   devices into the graph (the model makes tensors on its input's device), so
   an entry is exported on the device it will run on, which ``meta.json``
   records; the JAX ``platforms`` argument becomes ``device``.
-* On the card an entry's kernels are built at first use from the package's
-  ``csrc/`` (``ops/cuda_build.py``): ``ServingModel`` builds them when it
-  loads a CUDA entry, and on a host without ``nvcc`` it raises, naming the
-  kernel. It never runs a kernel's plain version on the card.
+* An artifact with a CUDA entry carries its kernels' ``sm_90a`` libraries
+  in ``kernels/``, one for each ``dat::`` op its CUDA entries call, and
+  ``meta.json`` records each under ``kernel_libraries`` (op, file, source,
+  defines, the digest ``ops/cuda_build.py`` keys a build by, sha256, arch).
+  ``ServingModel`` loads a carried library, checking its sha256, when its
+  digest is the one the installed ``csrc/`` gives, and then never calls
+  ``nvcc``. A library of another digest is never loaded (its C interface
+  may differ): the kernel is built from ``csrc/`` as for an artifact
+  without the key, and on a host without ``nvcc`` that raises, naming the
+  kernel and both digests. A card that is not compute capability 9.0 is
+  refused before any load. The loader never runs a kernel's plain version
+  on the card. CPU entries carry no library.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
@@ -38,13 +47,15 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops import cuda_build
 from ..ops import deform_attn as _k1  # registers dat::deform_attn_fwd
 from ..ops import x_block as _k3  # registers dat::x_block_fwd
 from ..ops.interpolate import resize_bilinear
 
 _FORMAT_VERSION = 1
-# what building each op's library takes on the card (nvcc, at first use)
-_KERNEL_LIBRARIES = {"dat::deform_attn_fwd": _k1._library, "dat::x_block_fwd": _k3._library}
+# each op's CUDA source (built without defines) and the loader of its library
+_KERNELS = {"dat::deform_attn_fwd": (_k1.SOURCE, _k1._library),
+            "dat::x_block_fwd": (_k3.SOURCE, _k3._library)}
 
 
 def _portable_cfg(model_cfg, portable: bool):
@@ -143,6 +154,23 @@ def _entry_info(program: torch.export.ExportedProgram) -> Dict[str, Any]:
     }
 
 
+def _carry_kernels(directory: Path, ops) -> list:
+    """Build each op's library (or take the one ``_build/`` holds), copy it
+    into ``<directory>/kernels/`` and return the manifest's records."""
+    (directory / "kernels").mkdir(exist_ok=True)
+    records = []
+    for op in ops:
+        source = _KERNELS[op][0]
+        built = cuda_build.build(source)
+        dst = directory / "kernels" / built.name
+        shutil.copyfile(built, dst)
+        records.append({"op": op, "file": f"kernels/{dst.name}", "source": source,
+                        "defines": [], "digest": cuda_build.digest(source),
+                        "sha256": cuda_build.file_sha256(dst), "arch": cuda_build.ARCH,
+                        "bytes": dst.stat().st_size})
+    return records
+
+
 def save_artifact(
     directory,
     entries: Dict[str, torch.export.ExportedProgram],
@@ -156,7 +184,9 @@ def save_artifact(
 ) -> Path:
     """Write ``{name: ExportedProgram}`` as ``<dir>/<name>.pt2`` plus a
     ``meta.json`` manifest (the JAX manifest's keys; ``device`` for
-    ``platforms``, ``torch_version`` for ``jax_version``)."""
+    ``platforms``, ``torch_version`` for ``jax_version``), and the kernel
+    libraries of the CUDA entries under ``kernels/`` (built with ``nvcc``
+    where ``_build/`` lacks them)."""
     from ..data.ade20k import IMG_NORM_MEAN, IMG_NORM_STD
 
     directory = Path(directory)
@@ -176,6 +206,10 @@ def save_artifact(
         "norm_mean": [float(v) for v in IMG_NORM_MEAN],
         "norm_std": [float(v) for v in IMG_NORM_STD],
     }
+    cuda_ops = sorted({op for info in manifest_entries.values()
+                       if torch.device(info["device"]).type == "cuda" for op in info["kernels"]})
+    if cuda_ops:
+        meta["kernel_libraries"] = _carry_kernels(directory, cuda_ops)
     if num_classes is not None:
         meta["num_classes"] = int(num_classes)
     if classes is not None:
@@ -195,7 +229,8 @@ class ServingModel:
 
     Needs torch, numpy and the port's op modules, not the model code.
     Entries load on first call and are cached by name; each runs on the
-    device it was exported for.
+    device it was exported for. A CUDA entry loads its kernels' libraries
+    first (``_load_kernels``).
     """
 
     def __init__(self, directory):
@@ -219,19 +254,39 @@ class ServingModel:
     def _device(self, name: str) -> torch.device:
         return torch.device(self.entries[name]["device"])
 
+    def _load_kernels(self, name: str) -> None:
+        """Load the libraries of a CUDA entry's kernels: the artifact's own
+        where its digest is the installed ``csrc/``'s, else built from
+        ``csrc/`` by nvcc. Raises on a card other than compute capability
+        9.0 and on any library that does not load."""
+        if torch.cuda.is_available():
+            cuda_build.check_card(self._device(name))
+        carried = {lib["op"]: lib for lib in self.meta.get("kernel_libraries", [])}
+        for op in self.entries[name]["kernels"]:
+            source, loader = _KERNELS[op]
+            how = "built from the package's csrc/ by nvcc at first use"
+            lib = carried.get(op)
+            if lib is not None:
+                installed = cuda_build.digest(source)
+                if lib["digest"] == installed:
+                    cuda_build.use_prebuilt(source, (), self.directory / lib["file"],
+                                            lib["sha256"])
+                    how = f"the artifact's {lib['file']}"
+                else:
+                    how = (f"built from the package's csrc/ by nvcc: the artifact's library has "
+                           f"digest {lib['digest']}, the installed csrc/ gives {installed}")
+            try:
+                loader()
+            except (OSError, RuntimeError) as e:
+                raise RuntimeError(f"entry {name} runs the kernel {op} on the card; its "
+                                   f"library is {how}: {e}") from e
+
     def _fn(self, name: str):
         if name not in self._fns:
-            info = self.entries[name]
             if self._device(name).type == "cuda":
-                for op in info["kernels"]:
-                    try:
-                        _KERNEL_LIBRARIES[op]()
-                    except (OSError, RuntimeError) as e:
-                        raise RuntimeError(
-                            f"entry {name} runs the kernel {op} on the card; its library is "
-                            f"built from the package's csrc/ by nvcc at first use: {e}"
-                        ) from e
-            self._fns[name] = torch.export.load(self.directory / info["file"]).module()
+                self._load_kernels(name)
+            file = self.directory / self.entries[name]["file"]
+            self._fns[name] = torch.export.load(file).module()
         return self._fns[name]
 
     def __call__(self, name: str, image) -> torch.Tensor:

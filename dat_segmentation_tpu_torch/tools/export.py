@@ -9,17 +9,21 @@ The port's ``tools/export.py`` (the JAX package's, with its arguments).
 ``CKPT`` is a reference ``.pth`` (converted on load), a ``ckpt_*``
 directory of the port's trainer or of ``tools/convert.py``, or ``random``
 for a smoke export with the weights a seed-0 build gives. The artifact
-directory (one ``torch.export`` entry a shape, and ``meta.json``) loads
-with ``dat_segmentation_tpu_torch.serving.ServingModel``, without the
-model code; on the card its kernels build from the package's ``csrc/``
-at first use (``nvcc``). ``--check`` reloads the artifact and holds each
-entry to the live model on the same seeded input (relative error under
+directory (one ``torch.export`` entry a shape, ``meta.json`` and, for the
+card, the kernels' ``sm_90a`` libraries in ``kernels/``) loads with
+``dat_segmentation_tpu_torch.serving.ServingModel``, without the model
+code and without ``nvcc`` (``serving/export.py``). ``--check`` reloads
+the artifact and holds each entry to the live model on the same seeded input (relative error under
 1e-3; the segmentor's live model is ``SegInferencer.forward_batch``).
 ``--no-portable`` keeps the config's ``kernel_impl`` (``'pallas'``: K3 in
 the graph); the default exports the unfused chain, as the JAX package
 does. ``--device`` is the card unless named: an entry runs on the device
-it was exported on. ``main(argv)`` returns a summary (entries, bytes,
-export seconds, check errors).
+it was exported on. The JAX CLI's ``--platforms`` names that device too,
+as one platform: ``cpu``, or ``cuda`` (``gpu`` an alias), agreeing with
+``--device`` where both are given. ``torch.export`` bakes the device into
+the graph, so an artifact has one device, as each entry has one static
+shape; ``tpu`` and a list of platforms are refused. ``main(argv)``
+returns a summary (entries, bytes, export seconds, check errors).
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ import argparse
 import copy
 import time
 from typing import Optional, Sequence
+
+
+_PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}  # --platforms -> the torch device
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -46,7 +53,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="reload the artifact and compare with the live model")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
-    return p.parse_args(argv)
+    p.add_argument("--platforms", default=None,
+                   help="the JAX CLI's flag, as one platform: cpu, or cuda (gpu); "
+                        "sets --device, and must agree with it")
+    args = p.parse_args(argv)
+    if args.platforms is not None:
+        names = [n.strip().lower() for n in args.platforms.split(",") if n.strip()]
+        if len(names) != 1 or names[0] not in _PLATFORMS:
+            p.error(f"--platforms {args.platforms}: one of {', '.join(_PLATFORMS)}; "
+                    "torch.export bakes one device into each artifact's graphs")
+        device = _PLATFORMS[names[0]]
+        if args.device is not None and args.device.split(":")[0] != device:
+            p.error(f"--platforms {args.platforms} and --device {args.device} disagree")
+        args.device = args.device or device
+    return args
 
 
 def _shapes(text: str):
@@ -96,7 +116,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         model_cfg=cfg.model, num_classes=cfg.model.num_classes, **meta_kwargs)
     srv = ServingModel.load(out)
     total = sum(e["bytes"] for e in srv.entries.values())
-    print(f"wrote {out} ({len(entries)} entries, {total / 1e6:.1f} MB)")
+    libs = srv.meta.get("kernel_libraries", [])
+    print(f"wrote {out} ({len(entries)} entries, {total / 1e6:.1f} MB; "
+          f"{len(libs)} kernel libraries, {sum(lib['bytes'] for lib in libs) / 1e6:.1f} MB)")
     summary = {"output": str(out), "entries": {
         name: {"bytes": srv.entries[name]["bytes"], "export_s": export_s[name],
                "kernels": srv.entries[name]["kernels"], "device": srv.entries[name]["device"]}

@@ -27,9 +27,14 @@ at 150 classes, else a palette drawn from seed 42, as the JAX CLI's),
 ``--format-dir`` as the submission's greyscale PNG (label + 1, the ADE20K
 convention); both from ``evaluate_dataset``'s ``on_pred``, in the one
 inference pass, named after the image, by ``data/image_io.py:write_png``
-(no cv2). The JAX package's ``--pad-bucket``, ``--no-exact`` and
-``--postproc-workers`` have no counterpart (the port runs true shapes and
-resizes on the device).
+(no cv2).
+
+The JAX CLI's command lines run here too. ``--eval mIoU`` names the one
+metric there is. ``--pad-bucket`` and ``--postproc-workers`` are taken and
+change nothing: with the JAX package's default exact path they do not
+change its result either, and the port runs each image at its true shape
+and resizes on the device. ``--no-exact`` (the JAX package's plain
+zero-pad path) is refused: the port has no such path.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("config", help="preset name or python config file")
     p.add_argument("checkpoint", help="reference torch .pth or a ckpt_* directory")
     p.add_argument("--data-root", required=True)
+    p.add_argument("--eval", default="mIoU", choices=["mIoU"], help="the metric (mIoU only)")
     p.add_argument("--aug-test", action="store_true", help="multi-scale + flip TTA")
     p.add_argument("--mode", default=None, choices=[None, "whole", "slide"])
     p.add_argument("--max-images", type=int, default=None)
@@ -74,7 +80,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--distributed", action="store_true",
                    help="join torchrun's process group: shard the images, sum the counts")
-    return p.parse_args(argv)
+    no_op = ("the JAX CLI's flag; changes nothing: the port runs each image at its true "
+             "shape, the result the JAX package's default exact path gives")
+    p.add_argument("--pad-bucket", type=int, default=None, help=no_op)
+    p.add_argument("--postproc-workers", type=int, default=None, help=no_op)
+    p.add_argument("--no-exact", action="store_true",
+                   help="refused: the port has no plain zero-pad path")
+    args = p.parse_args(argv)
+    if args.no_exact:
+        p.error("--no-exact: the port has no plain zero-pad path; it runs each image at its "
+                "true shape, which the JAX package's default exact path equals")
+    return args
 
 
 def _png_writers(args, ds, num_classes: int):

@@ -24,9 +24,8 @@ describes (``parallel.init_distributed``: NCCL on the cards, one process a
 card, gloo with ``--device cpu``); the config's ``data.batch_size`` is then
 the global batch, and ``fsdp=True`` (``--set fsdp=True``) shards the
 parameters and AdamW's moments. ``main(argv)`` returns the trainer's
-(state, history).
-
-Not here: ``--diff-seed``, a no-op in the JAX package.
+(state, history). ``--diff-seed`` is taken, as the JAX CLI takes it, and
+changes nothing (see its help).
 """
 
 from __future__ import annotations
@@ -47,6 +46,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in the work dir")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--diff-seed", action="store_true",
+                   help="the reference's per-rank seed offset; a no-op here, as in the JAX "
+                        "CLI: dropout and drop-path masks are drawn over the global batch "
+                        "(parallel/mesh.py) and each item's augmentation is keyed by (seed, "
+                        "epoch, global index), so every sample already draws its own")
     p.add_argument("--max-iters", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None, help="classifier only")
     p.add_argument("--no-mixup", action="store_true", help="classifier only")
@@ -98,6 +102,9 @@ def main(argv: Optional[Sequence[str]] = None):
     device = init_distributed(device=args.device) if args.multihost else resolve_device(args.device)
     cfg = load_config(args.config)
     cfg = replace(cfg, **{"data.data_root": args.data_root, "seed": args.seed})
+    if args.diff_seed:
+        print("--diff-seed: a no-op here (see --help): dropout masks and augmentations are "
+              "drawn over the global batch, already distinct for every sample")
     if args.work_dir:
         cfg = replace(cfg, work_dir=args.work_dir)
     cfg = apply_overrides(cfg, args.set)

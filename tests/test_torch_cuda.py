@@ -13,8 +13,10 @@ decoder against the fixture's stored cv2 decodes, ``evaluate_dataset``
 card against CPU, and a reference ``.pth`` loaded on the card;
 ``test_exported_small_model_on_the_card`` the serving export (an artifact
 exported and served on the card against the live model, with K1's and
-K3's launches); ``test_small_mixed_mode_model_matches_cpu`` a model whose
-position-bias modes send two 'D' blocks to K1 and two to the composite.
+K3's launches); ``test_an_artifact_serves_where_nvcc_is_not`` the
+artifact's own kernel library, served by a process that cannot compile;
+``test_small_mixed_mode_model_matches_cpu`` a model whose position-bias
+modes send two 'D' blocks to K1 and two to the composite.
 
 Tolerances, as in chip_smoke.py: float32 1e-4 (the kernel sums in another
 order and uses the fast exp), bf16 1e-2 (outputs rounded to bf16, and the
@@ -814,3 +816,58 @@ def test_exported_small_model_on_the_card(cuda, tmp_path, kind, launches):
         want = (model(x.to(cuda)) if kind == "classifier" else model(x.to(cuda), upsample=False))
     assert got.device.type == "cuda" and got.shape == want.shape
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_an_artifact_serves_where_nvcc_is_not(cuda, tmp_path):
+    """The small SemanticFPN exported on the card carries K1's library.
+    A fresh process whose PATH and CUDA_HOME hide nvcc, importing a copy of
+    the package without ``_build/``, serves it: the logits bit for bit the
+    in-process ones (the same binary on the same input, TF32 off in both),
+    nothing built."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from dat_segmentation_tpu_torch.ops import cuda_build
+    from dat_segmentation_tpu_torch.serving import ServingModel, export_segmentor, save_artifact
+
+    torch.manual_seed(0)
+    cfg = small_fpn(get_config, head_width=32)
+    model = build_model(cfg, device=cuda)
+    program = export_segmentor(cfg, model.state_dict(), batch=2, input_size=(64, 64),
+                               compute_dtype=torch.float32, device=cuda)
+    art = save_artifact(tmp_path / "art", {"e": program}, model_cfg=cfg)
+    srv = ServingModel.load(art)
+    assert [lib["op"] for lib in srv.meta["kernel_libraries"]] == ["dat::deform_attn_fwd"]
+    x = np.random.RandomState(1).randn(2, 64, 64, 3).astype(np.float32)
+    np.save(tmp_path / "x.npy", x)
+    want = srv("e", x).cpu().numpy()
+
+    pkg = cuda_build.CSRC.parent
+    root = tmp_path / "copy"
+    shutil.copytree(pkg, root / pkg.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    (tmp_path / "empty").mkdir()
+    path = [d for d in os.environ.get("PATH", "").split(":") if d and not (Path(d) / "nvcc").exists()]
+    env = dict(os.environ, PYTHONPATH=str(root), CUDA_HOME=str(tmp_path / "empty"),
+               PATH=":".join(path))
+    code = (
+        "import sys, numpy as np, torch\n"
+        "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False\n"
+        "from dat_segmentation_tpu_torch.ops import cuda_build\n"
+        "from dat_segmentation_tpu_torch.serving import ServingModel\n"
+        "try:\n"
+        "    sys.exit(f'nvcc found: {cuda_build.nvcc_path()}')\n"
+        "except RuntimeError:\n"
+        "    pass\n"
+        f"y = ServingModel.load({str(art)!r})('e', np.load({str(tmp_path / 'x.npy')!r}))\n"
+        f"np.save({str(tmp_path / 'y.npy')!r}, y.cpu().numpy())\n"
+        "print(cuda_build.CSRC, cuda_build.BUILD_DIR.exists())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    csrc, built = proc.stdout.split()[-2:]
+    assert csrc.startswith(str(root.resolve())) and built == "False"
+    np.testing.assert_array_equal(np.load(tmp_path / "y.npy"), want)
