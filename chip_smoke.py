@@ -166,6 +166,21 @@ line each:
    replicated, fsdp and fsdp with ``use_checkpoint`` (28 K1 and 14 K2
    launches a step, its first loss the fsdp step's); the train CLI under
    torchrun, started by ``tools/launch_multihost.sh`` (one node, one card).
+17b. model_axis: fsdp='model' (tensor parallelism, ``parallel/
+   model_axis.py``) over gloo ranks on the one card, the flagship at full
+   width (the recipe's drop path and dropout), float32, TF32 off, a global
+   batch of two (scale_out's rows 0 and 3): two ranks on {data: 1, model:
+   2} with 'auto', 'pallas' and in float64, four on {data: 2, model: 2}
+   with 'auto'; each step against the one-process step: the loss, the
+   parameters and the IoU counts at scale_out's gates, the gradients
+   (gathered whole) reported in float32 and held in float64 (1e-9
+   globally, 1e-6 a leaf; ``AXIS_MESHES``' note says why), the ranks'
+   gathered states equal, 14 K1 + 14 K2 a step on each rank (+ 26 K3 with
+   'pallas'; the float64 leg runs the attention's plain version), each
+   attention call on the rank's rows and half the groups of a split stage
+   (1-3), each rank's parameter + AdamW bytes at most 0.60 of the whole,
+   peak memory beside the one-process step's. Parity and memory only:
+   gloo carries the collectives through the host.
 18. pe_modes: the position-bias modes the JAX package runs in its
    composite. Each of dwc_pe, fixed_pe, log_cpb, no_off and no position
    bias on all four stages of the full flagship, float32, TF32 off: card
@@ -1240,6 +1255,9 @@ def main() -> int:
     # ---- 17. scale_out: the step over processes --------------------------------
     scale_launches = scale_out_phase(torch, np, card, dev, n_d, timed)
 
+    # ---- 17b. model_axis: tensor parallelism over processes -----------------
+    axis_launches = model_axis_phase(torch, np, card, dev, n_d, n_x)
+
     # ---- 18. pe_modes: the other position-bias modes --------------------------
     pe_launches = pe_modes_phase(torch, np, card, dev, timed)
 
@@ -1256,6 +1274,7 @@ def main() -> int:
                               "train_loop": loop_launches["deform_attn_fwd"],
                               **cls_launches["deform_attn_fwd"],
                               "scale_out_rank0": scale_launches["deform_attn_fwd"],
+                              "model_axis_rank0": axis_launches["deform_attn_fwd"],
                               "pe_modes_mixed_serve": pe_launches["serve"],
                               "pe_modes_mixed_train": pe_launches["train"]["deform_attn_fwd"]}
     k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
@@ -1269,6 +1288,7 @@ def main() -> int:
                                 "train_loop": loop_launches["deform_attn_bwd"],
                                 **cls_launches["deform_attn_bwd"],
                                 "scale_out_rank0": scale_launches["deform_attn_bwd"],
+                                "model_axis_rank0": axis_launches["deform_attn_bwd"],
                                 "pe_modes_mixed_train": pe_launches["train"]["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
     k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"], mma_instructions=k3_mma,
@@ -1280,6 +1300,7 @@ def main() -> int:
                                 "export": export_launches["x_block_fwd"],
                                 "train": ptrain_launches["x_block_fwd"],
                                 "train_loop": loop_launches["x_block_fwd"],
+                                "model_axis_rank0": axis_launches["x_block_fwd"],
                                 **cls_launches["x_block_fwd"]})
     # K1-v1 (the JAX package's fused_deform_attention_fwd) is K1's function
     # without padded queries: the port runs it as K1's launch with hn = wn = 0,
@@ -2746,6 +2767,17 @@ def dict_grad_compare(got, want):
     return (dsq / gsq) ** 0.5, off
 
 
+def leaves_beyond(got, want, rel, floor):
+    """In float64: ||g - g_ref|| / ||g_ref|| over all leaves, and the names
+    whose gradient differs by more than ``rel`` of its own norm plus
+    ``floor`` of the whole gradient's."""
+    per = [((got[n].double() - w.double()).norm().item(), w.double().norm().item(), n)
+           for n, w in want.items()]
+    total = sum(g * g for _, g, _ in per) ** 0.5
+    diff = sum(d * d for d, _, _ in per) ** 0.5
+    return diff / total, [n for d, g, n in per if d > rel * g + floor * total]
+
+
 def params_rel(got, want):
     num = sum((got[n].float() - w.float()).norm().item() ** 2 for n, w in want.items())
     den = sum(w.float().norm().item() ** 2 for w in want.values())
@@ -3174,6 +3206,304 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "scale_out", "card": card, "seconds": time.perf_counter() - t_phase})
     return r0["step"]["launches"]
+
+
+# ---- 17b. model_axis: tensor parallelism over the mesh's model axis ----------
+AXIS_ROWS = (0, SCALE_BATCH - 1)  # scale_batch's rows: data coordinate 1's 90% ignored
+AXIS_MESHES = (({"data": 1, "model": 2}, ("auto", "pallas", "float64")),
+               ({"data": 2, "model": 2}, ("auto",)))
+AXIS_MAX_SHARE = 0.60  # a rank's parameter + AdamW bytes over the whole model's
+# The split step's float32 gradients are not comparable leaf by leaf with the
+# one-process step's at full size: the split products sum in another order,
+# which moves a sample position by about 4e-7 relative, and a bilinear sample
+# that close to a cell edge takes the other cell's slope; one such sample
+# moves every gradient upstream of its block by percents
+# (dat_segmentation_tpu_torch/tools/axis_probe.py finds them on this batch).
+# So the float32 legs hold the loss, the parameters and the counts at
+# scale_out's gates and report the gradients; the float64 leg (the attention
+# by its plain version: K1 and K2 take float32 and bf16) holds every
+# gradient, where rounding moves a position by 1e-16: globally and per leaf,
+# as grad_compare's rule.
+TOL_AXIS_F64_GRAD = 1e-9
+TOL_AXIS_F64_LEAF = 1e-6
+
+
+def axis_batch(np, mc):
+    """The split steps' global batch of two: one row of each of scale_batch's
+    halves."""
+    return {k: v[list(AXIS_ROWS)] for k, v in scale_batch(np, mc).items()}
+
+
+def axis_rank(rank, world, tmp, tag, mesh_shape, impls):
+    """One gloo rank on the card on ``mesh_shape`` with fsdp='model': per
+    kernel_impl one float32 step of the flagship on this data coordinate's
+    rows against the one-process step (``tmp/ref_<impl>.pt``), the K1, K2
+    and K3 launches, each K1 call's (B·g, H), this rank's parameter and AdamW
+    bytes and peak memory; the result to ``tmp/<tag>rank<r>.pt``. Spawned by
+    ``model_axis_phase``."""
+    import hashlib
+    import os
+    from dataclasses import replace
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dat_segmentation_tpu_torch import build_model, create_train_state, make_train_step
+    from dat_segmentation_tpu_torch.models import deformable_attention as dattn
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.ops import x_block as xb
+    from dat_segmentation_tpu_torch.parallel import destroy_distributed, init_distributed, mesh
+
+    tmp = Path(tmp)
+    dev = init_distributed("gloo", init_method=f"file://{tmp}/rendezvous_{tag}")
+    out = {"device": str(dev)}
+    calls = []
+    real_attn = dattn.deform_attn
+    route = dattn.deform_attn
+
+    def attn(q, *a, **k):
+        calls.append((q.shape[0], q.shape[1]))
+        return real_attn(q, *a, **k)
+
+    dattn.deform_attn = attn
+    try:
+        for impl in impls:
+            cfg = scale_cfg()
+            f64 = impl == "float64"
+            mc = replace(cfg.model, backbone=replace(cfg.model.backbone,
+                                                     kernel_impl="auto" if f64 else impl))
+            cfg = replace(cfg, model=mc, fsdp="model", mesh_shape=mesh_shape)
+            real_attn = da.deform_attn_reference if f64 else da.deform_attn
+            torch.manual_seed(SEED)
+            model = build_model(mc, device=dev)
+            if f64:
+                model.double()
+            state = create_train_state(model, cfg)
+            d, X = mesh.process_shard_info()
+            n = len(AXIS_ROWS) // X
+            local = {k: torch.as_tensor(v[d * n:(d + 1) * n]).to(dev)
+                     for k, v in axis_batch(np, mc).items()}
+            step = make_train_step(model, aux_weight=mc.aux_loss_weight,
+                                   num_classes=mc.num_classes,
+                                   compute_dtype=torch.float64 if f64 else torch.float32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
+            calls.clear()
+            t0 = time.perf_counter()
+            _, met = step(state, local)
+            torch.cuda.synchronize()
+            res = {"seconds": time.perf_counter() - t0,
+                   "launches": {"deform_attn_fwd": da.deform_attn.launches,
+                                "deform_attn_bwd": da.deform_attn_bwd.launches,
+                                "x_block_fwd": xb.x_block_fwd.launches},
+                   "k1_calls": list(calls),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+                   "adamw_bytes": sum(t.numel() * t.element_size()
+                                      for s in state.optimizer.state.values()
+                                      for t in s.values() if torch.is_tensor(t) and t.ndim)}
+            axis = mesh.model_axis_of(model)
+            dims = model.model_axis_dims
+            grads = {n_: (mesh.gather_tensor(p.grad, dims[n_], axis) if n_ in dims else p.grad)
+                     for n_, p in model.named_parameters() if p.grad is not None}
+            whole = mesh.full_state(model, everywhere=True)[0]
+            params = {n_: whole[n_] for n_, _ in model.named_parameters()}
+            digest = hashlib.sha256()
+            for t in whole.values():
+                digest.update(t.detach().cpu().numpy().tobytes())
+            res["state_sha256"] = digest.hexdigest()
+            end = time.time() + 300
+            while not (tmp / f"ref_{impl}.done").exists():
+                if time.time() > end:
+                    raise TimeoutError("no one-process reference")
+                time.sleep(0.2)
+            ref = torch.load(tmp / f"ref_{impl}.pt", map_location=dev, weights_only=True)
+            res["vs_one_process"] = {
+                "loss": met["loss"].item(),
+                "loss_rel_err": abs(met["loss"].item() - ref["loss"].item()) / abs(
+                    ref["loss"].item()),
+                "grad": dict_grad_compare(grads, ref["grads"]),
+                "grad_f64": leaves_beyond(grads, ref["grads"], TOL_AXIS_F64_LEAF,
+                                          TOL_AXIS_F64_GRAD),
+                "params_rel_err": params_rel(params, ref["params"]),
+                "iou_count_abs_diff": int((met["inter"] - ref["inter"]).abs().sum()
+                                          + (met["union"] - ref["union"]).abs().sum()),
+            }
+            out[impl] = res
+            del model, state, step, grads, whole, params, ref
+            torch.cuda.empty_cache()
+    finally:
+        dattn.deform_attn = route
+        destroy_distributed()
+    torch.save(out, tmp / f"{tag}rank{rank}.pt")
+
+
+def model_axis_phase(torch, np, card, dev, n_d, n_x):
+    """17b. model_axis (see the module docstring). Returns rank 0's K1, K2
+    and K3 launches in the {data: 1, model: 2} steps ('pallas' for K3)."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    import torch.multiprocessing as mp
+
+    from dat_segmentation_tpu_torch import build_model, create_train_state, make_train_step
+    from dat_segmentation_tpu_torch.models import deformable_attention as dattn
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.parallel.model_axis import model_axis_plan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="model_axis_"))
+    cfg = scale_cfg()
+    mc = cfg.model
+    geo = {s["H"]: s for s in stage_geometry(mc.backbone, IMG)}
+    route = dattn.deform_attn
+    whole = {}
+    results = {}
+    try:
+        torch.cuda.empty_cache()
+        first = True
+        for shape, impls in AXIS_MESHES:
+            world = shape["data"] * shape["model"]
+            tag = "x".join(str(v) for v in shape.values())
+            ctx = mp.start_processes(axis_rank, args=(world, str(tmp), tag, shape, impls),
+                                     nprocs=world, start_method="spawn", join=False)
+            try:
+                if first:  # the one-process steps on the global batch, meanwhile
+                    batch = {k: torch.as_tensor(v).to(dev) for k, v in axis_batch(np, mc).items()}
+                    for impl in ("auto", "pallas", "float64"):
+                        f64 = impl == "float64"
+                        pmc = replace(mc, backbone=replace(mc.backbone,
+                                                           kernel_impl="auto" if f64 else impl))
+                        torch.manual_seed(SEED)
+                        model = build_model(pmc, device=dev)
+                        if f64:
+                            model.double()
+                        state = create_train_state(model, replace(cfg, model=pmc))
+                        step = make_train_step(model, aux_weight=mc.aux_loss_weight,
+                                               num_classes=mc.num_classes,
+                                               compute_dtype=torch.float64 if f64
+                                               else torch.float32)
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        dattn.deform_attn = da.deform_attn_reference if f64 else route
+                        try:
+                            _, met = step(state, batch)
+                        finally:
+                            dattn.deform_attn = route
+                        torch.cuda.synchronize()
+                        whole[impl] = {
+                            "loss": met["loss"].item(),
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                            "param_bytes": sum(p.numel() * p.element_size()
+                                               for p in model.parameters()),
+                            "adamw_bytes": sum(t.numel() * t.element_size()
+                                               for s in state.optimizer.state.values()
+                                               for t in s.values() if torch.is_tensor(t) and t.ndim)}
+                        torch.save({"loss": met["loss"], "inter": met["inter"],
+                                    "union": met["union"],
+                                    "grads": {n: p.grad for n, p in model.named_parameters()
+                                              if p.grad is not None},
+                                    "params": dict(model.named_parameters())},
+                                   tmp / f"ref_{impl}.pt")
+                        (tmp / f"ref_{impl}.done").touch()
+                        plan = model_axis_plan(model, 2)
+                        whole[impl]["plan_param_share"] = sum(
+                            p.numel() * p.element_size() / (2 if plan[n].dim is not None else 1)
+                            for n, p in model.named_parameters()) / whole[impl]["param_bytes"]
+                        del model, state, step, met
+                        torch.cuda.empty_cache()
+                    first = False
+                end = time.time() + 400
+                while not ctx.join(timeout=5):
+                    if time.time() > end:
+                        raise TimeoutError(f"model_axis: the {world} ranks still run after 400 s")
+            except BaseException:
+                for p in ctx.processes:
+                    p.kill()
+                raise
+            results[tag] = [torch.load(tmp / f"{tag}rank{r}.pt", weights_only=False)
+                            for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    pixels = len(AXIS_ROWS) * IMG * IMG
+    for (shape, impls), (tag, ranks) in zip(AXIS_MESHES, results.items()):
+        for impl in impls:
+            rows = [r[impl] for r in ranks]
+            v = [r["vs_one_process"] for r in rows]
+            w = whole[impl]
+            local_bytes = [r["param_bytes"] + r["adamw_bytes"] for r in rows]
+            emit({"phase": "model_axis", "card": card, "mesh": shape, "fsdp": "model",
+                  "kernel_impl": impl, "preset": TRAIN_PRESET,
+                  "dtype": "float64" if impl == "float64" else "float32", "tf32": False,
+                  "backend": "gloo (ranks on one card)", "global_batch": len(AXIS_ROWS),
+                  "devices": [r["device"] for r in ranks],
+                  "loss": [x["loss"] for x in v], "loss_one_process": w["loss"],
+                  "loss_rel_err": [x["loss_rel_err"] for x in v],
+                  "grad_rel_err": [x["grad_f64"][0] if impl == "float64" else x["grad"][0]
+                                   for x in v],
+                  "grads_beyond_tol": [x["grad"][1] for x in v],
+                  "params_rel_err": [x["params_rel_err"] for x in v],
+                  "iou_count_abs_diff": [x["iou_count_abs_diff"] for x in v], "pixels": pixels,
+                  "launches_per_rank": [r["launches"] for r in rows],
+                  "k1_calls_rank0": rows[0]["k1_calls"],
+                  "bytes_per_rank": {"param": [r["param_bytes"] for r in rows],
+                                     "adamw": [r["adamw_bytes"] for r in rows],
+                                     "share_of_whole": [b / (w["param_bytes"] + w["adamw_bytes"])
+                                                        for b in local_bytes],
+                                     "whole": {"param": w["param_bytes"],
+                                               "adamw": w["adamw_bytes"]},
+                                     "plan_param_share": w["plan_param_share"]},
+                  "peak_gib_per_rank": [r["peak_gib"] for r in rows],
+                  "peak_gib_one_process": w["peak_gib"],
+                  "step_s": [r["seconds"] for r in rows],
+                  "states_equal": len({r["state_sha256"] for r in rows}) == 1,
+                  "tol": {"loss": TOL_TRAIN_LOSS, "params": TOL_GRAD,
+                          "grad": (f"{TOL_AXIS_F64_GRAD} global, {TOL_AXIS_F64_LEAF} a leaf"
+                                   if impl == "float64" else
+                                   f"reported against {TOL_GRAD} / {TOL_GRAD_PARAM}, not gated "
+                                   "in float32 (AXIS_MESHES' note)")},
+                  "note": "gloo through the host on one card: parity and memory, not speed"})
+            X = shape["data"]
+            for r, (row, x) in enumerate(zip(rows, v)):
+                what = f"model_axis {tag} {impl} rank {r}"
+                check(x["loss_rel_err"] <= TOL_TRAIN_LOSS,
+                      f"{what}: loss rel err {x['loss_rel_err']} > {TOL_TRAIN_LOSS}")
+                if impl == "float64":  # every gradient, globally and per leaf
+                    rel, off = x["grad_f64"]
+                    check(rel <= TOL_AXIS_F64_GRAD and not off,
+                          f"{what}: float64 grad rel err {rel}, leaves beyond "
+                          f"{TOL_AXIS_F64_LEAF}: {off}")
+                check(x["params_rel_err"] <= TOL_GRAD,
+                      f"{what}: params rel err {x['params_rel_err']} > {TOL_GRAD}")
+                check(x["iou_count_abs_diff"] <= 1e-4 * pixels,
+                      f"{what}: IoU counts differ by {x['iou_count_abs_diff']}")
+                k1 = 0 if impl == "float64" else n_d  # the plain version in float64
+                want = {"deform_attn_fwd": k1, "deform_attn_bwd": k1,
+                        "x_block_fwd": n_x if impl == "pallas" else 0}
+                check(row["launches"] == want, f"{what}: launches {row['launches']}, want {want}")
+                # each K1 call on this rank's rows and, where the stage splits, half its groups
+                groups = [(len(AXIS_ROWS) // X * geo[h]["g"] // (2 if geo[h]["g"] % 2 == 0 else 1),
+                           h) for _, h in row["k1_calls"]]
+                check(row["k1_calls"] == groups and len(groups) == n_d,
+                      f"{what}: K1 calls (B·g, H) {row['k1_calls']}, want {groups}")
+                share = (row["param_bytes"] + row["adamw_bytes"]) / (
+                    w["param_bytes"] + w["adamw_bytes"])
+                check(share <= AXIS_MAX_SHARE, f"{what}: bytes share {share} > {AXIS_MAX_SHARE}")
+            check(len({r["state_sha256"] for r in rows}) == 1,
+                  f"model_axis {tag} {impl}: the ranks' gathered states differ")
+    emit({"phase": "model_axis", "card": card, "seconds": time.perf_counter() - t_phase})
+    r0 = results[next(iter(results))][0]
+    return {"deform_attn_fwd": r0["auto"]["launches"]["deform_attn_fwd"],
+            "deform_attn_bwd": r0["auto"]["launches"]["deform_attn_bwd"],
+            "x_block_fwd": r0["pallas"]["launches"]["x_block_fwd"]}
 
 
 # ---- 18. pe_modes: the other position-bias modes (models/deformable_attention.py)

@@ -88,8 +88,8 @@ def mixup_cutmix(images: torch.Tensor, labels: torch.Tensor, draws: MixupDraws, 
     """(mixed images in ``images``' dtype, float32 soft targets
     (B, num_classes)) for NHWC ``images`` and integer ``labels`` (B,).
     Inside a process group the pairs are the global batch's: this
-    process's rows with their mirrors on rank W-1-r (an all-gather of the
-    images and labels)."""
+    process's rows with their mirrors on data coordinate X-1-d (an
+    all-gather of the images and labels over the data group)."""
     _, h, w, _ = images.shape
     flipped = mirror_rows(images)
     if draws.use_cutmix:

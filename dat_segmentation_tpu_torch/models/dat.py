@@ -23,7 +23,10 @@ H and W multiples of 8; and within the CUDA kernel's own limits
 'X' block's window in ``WINDOWS``), so that a config the JAX package runs
 never makes the kernel refuse it. Then an 'X' block is one kernel (its LPU
 included, so the separate LPU is skipped) and a 'D' block's second half
-(LN + ConvMLP) is another, in MLP-only mode. Any other ``kernel_impl``
+(LN + ConvMLP) is another, in MLP-only mode. Over the mesh's model axis
+(``parallel/model_axis.py``) K3 takes the MLP's weights gathered from the
+peers' slices (``ConvMlp.whole_weights``), replicated compute whose
+backward gives each peer its slice of the weights' gradient. Any other ``kernel_impl``
 ('xla', 'auto', 'gather') is the unfused chain, as the JAX package runs
 on every backend but the TPU. The JAX package's TPU switch
 ``DAT_TPU_XBLOCK`` and its exact-extent clause have no counterpart: eager
@@ -161,15 +164,13 @@ class TransformerStage(nn.Module):
         conv, ln, mlp = (self._block(n, d) for n in ("conv_attn", "ln_cnvnxt", "mlp"))
         return fused_x_block(
             x, None if lpu is None else lpu.weight, None if lpu is None else lpu.bias,
-            conv.weight, conv.bias, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias,
-            mlp.dwc.weight, mlp.dwc.bias, mlp.fc2.weight, mlp.fc2.bias,
+            conv.weight, conv.bias, ln.weight, ln.bias, *mlp.whole_weights(),
             self.window_size, self.use_lpu,
         )
 
     def _fused_mlp(self, x: torch.Tensor, d: int) -> torch.Tensor:
         ln, mlp = self._block("norm2", d), self._block("mlp", d)
-        return fused_conv_mlp(x, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias,
-                              mlp.dwc.weight, mlp.dwc.bias, mlp.fc2.weight, mlp.fc2.bias)
+        return fused_conv_mlp(x, ln.weight, ln.bias, *mlp.whole_weights())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if hasattr(self, "proj"):

@@ -35,6 +35,12 @@ the softmax in float32, attention dropout on the caller's generator, ·v,
 then ``dwc_pe``'s term. That split is the JAX design: a failing K1 build
 or launch raises, and never drops to the composite.
 
+Over the mesh's model axis (``parallel/model_axis.py``) a block that runs
+K1 splits by offset group: this rank's groups' queries, offsets, samples
+and K1 launch (on B·g/Y groups), the sampled features of every group
+gathered for ``proj_k``/``proj_v`` (this rank's heads), ``proj_out``'s
+partial sums all-reduced; the composite's blocks stay whole.
+
 Exact padded inference (``ops/valid_extent.py``: per-sample true extents
 inside a padded batch) is not ported; the port runs every input at its
 true shape.
@@ -52,7 +58,8 @@ import torch.nn.functional as F
 from ..ops.deform_attn import deform_attn, query_coords, rpe_bias
 from ..ops.grid_sample import grid_sample
 from ..ops.interpolate import avg_pool, resize_bilinear
-from .layers import Conv2d, Dropout, LayerNorm2d, gelu
+from ..parallel import mesh
+from .layers import Conv2d, Dropout, LayerNorm2d, entering, gelu, row_parallel
 
 
 def reference_points(Hk: int, Wk: int, device=None) -> torch.Tensor:
@@ -80,6 +87,8 @@ class DeformableAttention(nn.Module):
     ``q_size`` is the config-time feature size; it only shapes the
     position-bias tables (``rpe_table``, continuous or ``fixed_pe``).
     """
+
+    model_axis: Optional[mesh.ModelAxis] = None  # set where the model axis splits it
 
     def __init__(
         self,
@@ -132,6 +141,12 @@ class DeformableAttention(nn.Module):
             if hasattr(self, "rpe_table"):
                 nn.init.trunc_normal_(self.rpe_table, std=0.01, a=-0.02, b=0.02)
 
+    def splits_by_group(self) -> bool:
+        """The kernel's modes in training (``runs_kernel`` with the module in
+        training): the blocks the model axis splits by offset group."""
+        return (self.use_pe and not (self.dwc_pe or self.fixed_pe or self.log_cpb)
+                and not self.no_off and self.attn_drop == 0.0)
+
     def runs_kernel(self) -> bool:
         """The JAX package's gate (``deformable_attention.py:243-252`` there,
         less its exact-padding clause): the continuous bias, offsets on, and
@@ -142,15 +157,19 @@ class DeformableAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
-        g, heads = self.n_groups, self.n_heads
-        cg, h_g = C // g, heads // g
+        ax = self.model_axis
+        parts = 1 if ax is None else ax.size
+        cg, h_g = C // self.n_groups, self.n_heads // self.n_groups
+        g = self.n_groups // parts  # this rank's groups: all, or 1/Y of them
+        cl = g * cg  # their channels
         if self.no_off and (H % self.stride or W % self.stride):
             raise ValueError(f"no_off pools the features {self.stride}x{self.stride}: H and W "
                              f"must be multiples of {self.stride}, got {H}x{W}")
 
-        def grouped(t):  # (B, H, W, C) -> (B*g, H, W, Cg)
+        def grouped(t):  # (B, H, W, cl) -> (B*g, H, W, Cg)
             return t.reshape(B, H, W, g, cg).permute(0, 3, 1, 2, 4).reshape(B * g, H, W, cg)
 
+        x = entering(x, ax)
         q = self.proj_q(x)
         q_g = grouped(q)
         offset = self.offset_proj(gelu(self.offset_ln(self.offset_dwc(q_g)))).float()
@@ -169,8 +188,11 @@ class DeformableAttention(nn.Module):
         if self.no_off:
             sampled = avg_pool(x, self.stride, self.stride).reshape(B, Ns, C)
         else:
-            samp = grid_sample(grouped(x), pos.flip(-1))  # grid in (x, y) order
-            sampled = samp.reshape(B, g, Ns, cg).permute(0, 2, 1, 3).reshape(B, Ns, C)
+            xl = x if ax is None else mesh.slice_of(x, 3, ax)
+            samp = grid_sample(grouped(xl), pos.flip(-1))  # grid in (x, y) order
+            sampled = samp.reshape(B, g, Ns, cg).permute(0, 2, 1, 3).reshape(B, Ns, cl)
+            if ax is not None:  # every group's samples, for this rank's heads
+                sampled = mesh.gather_model(sampled.contiguous(), ax, -1, split_consumer=True)
         # contiguous: for a strided 3-d input, nn.Linear's matmul takes one
         # path or another by the weight's requires_grad, which rounds
         # differently on the card (a frozen, exported copy against the server)
@@ -182,7 +204,7 @@ class DeformableAttention(nn.Module):
         if not self.runs_kernel():
             return self.proj_drop(self.proj_out(self._composite(q, k, v, pos, H, W)))
 
-        def by_group(t):  # (B, Ns, C) -> (B*g, Ns, Cg)
+        def by_group(t):  # (B, Ns, cl) -> (B*g, Ns, Cg)
             return t.reshape(B, Ns, g, cg).permute(0, 2, 1, 3).reshape(B * g, Ns, cg)
 
         th, tw = self.rpe_table.shape[1:]
@@ -193,10 +215,10 @@ class DeformableAttention(nn.Module):
             pos.contiguous(),
             self.rpe_table.reshape(g, h_g, th, tw),
             n_groups=g,
-            scale=(C // heads) ** -0.5,
+            scale=(C // self.n_heads) ** -0.5,
         )
-        out = out.reshape(B, g, H, W, cg).permute(0, 2, 3, 1, 4).reshape(B, H, W, C)
-        return self.proj_drop(self.proj_out(out))
+        out = out.reshape(B, g, H, W, cg).permute(0, 2, 3, 1, 4).reshape(B, H, W, cl)
+        return self.proj_drop(row_parallel(self.proj_out, out, ax))
 
     def _composite(self, q, k, v, pos, H: int, W: int) -> torch.Tensor:
         """The JAX package's composite (``deformable_attention.py:299-524``

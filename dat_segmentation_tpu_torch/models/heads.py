@@ -7,23 +7,42 @@ SemanticFPN ones, and the classifier's ``ClsHead``. Exact padded inference (the 
 ``valid_extent`` paths) is not ported: eager PyTorch takes each image at
 its true shape. Dropout is elementwise and draws from the generator that
 ``layers.use_generator`` hands it.
+
+Over the mesh's model axis (``parallel/model_axis.py``) each
+``ConvBNReLU``, ``FPNNeck``'s laterals and output convs and ``ClsHead.fc``
+hold this rank's output channels (a BatchNorm its channels' statistics
+over the data group) and gather the peers' outputs (``column``): no conv
+of a head stays whole, and what follows each runs whole on every peer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.interpolate import adaptive_avg_pool, resize_bilinear, resize_nearest
-from .layers import BatchNorm2d, Conv2d, Dropout, LayerNorm2d
+from ..parallel import mesh
+from .layers import BatchNorm2d, Conv2d, Dropout, LayerNorm2d, entering
+
+
+def column(fn, x: torch.Tensor, axis) -> torch.Tensor:
+    """``fn(x)`` for ``fn`` holding this rank's output channels of a layer
+    split over ``axis``: ``x`` (whole) entering split compute, the peers'
+    outputs gathered for the replicated compute after it. ``fn(x)`` alone
+    without an axis."""
+    if axis is None:
+        return fn(x)
+    return mesh.gather_model(fn(entering(x, axis)), axis, -1)
 
 
 class ConvBNReLU(nn.Module):
     """conv (no bias) + BN + ReLU, the mmseg ConvModule default."""
+
+    model_axis: Optional[mesh.ModelAxis] = None
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3):
         super().__init__()
@@ -31,7 +50,7 @@ class ConvBNReLU(nn.Module):
         self.bn = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        return column(lambda t: F.relu(self.bn(self.conv(t))), x, self.model_axis)
 
 
 class UPerHead(nn.Module):
@@ -131,6 +150,8 @@ class FPNNeck(nn.Module):
     """mmseg-style FPN neck: 1x1 laterals (bias, no norm), nearest top-down
     adds, 3x3 output convs."""
 
+    model_axis: Optional[mesh.ModelAxis] = None
+
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256):
         super().__init__()
         self.n = len(in_channels)
@@ -139,11 +160,12 @@ class FPNNeck(nn.Module):
             self.add_module(f"fpn_{i}", Conv2d(out_channels, out_channels, 3, padding=1))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        laterals = [getattr(self, f"lateral_{i}")(f) for i, f in enumerate(feats)]
+        ax = self.model_axis
+        laterals = [column(getattr(self, f"lateral_{i}"), f, ax) for i, f in enumerate(feats)]
         for i in range(self.n - 1, 0, -1):
             up = resize_nearest(laterals[i], laterals[i - 1].shape[1:3])
             laterals[i - 1] = laterals[i - 1] + up
-        return [getattr(self, f"fpn_{i}")(lat) for i, lat in enumerate(laterals)]
+        return [column(getattr(self, f"fpn_{i}"), lat, ax) for i, lat in enumerate(laterals)]
 
 
 class FPNHead(nn.Module):
@@ -197,6 +219,8 @@ class ClsHead(nn.Module):
     """Classification head (reference models/heads/cls_head.py:10-38): LN on
     the last feature, the mean over H and W, dropout, ``fc``."""
 
+    model_axis: Optional[mesh.ModelAxis] = None
+
     def __init__(self, in_channels: int, num_classes: int, dropout_ratio: float = 0.0):
         super().__init__()
         self.norm = LayerNorm2d(in_channels)
@@ -205,4 +229,4 @@ class ClsHead(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         x = self.norm(feats[-1]).mean(dim=(1, 2))
-        return self.fc(self.drop(x))
+        return column(self.fc, self.drop(x), self.model_axis)

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from ..parallel.mesh import all_reduce, is_distributed, process_shard_info
 
 
@@ -67,10 +68,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``nn.BatchNorm2d``.
 
     Inside a process group the statistics are the global batch's, as the
-    JAX package's under GSPMD (``_GlobalBatchNorm``): two all-reduces, the
-    sum with the count and then the sum of squared deviations from the
-    global mean (no E[x²] - E[x]² either), and one in the backward; the
-    running statistics come out the same on every process.
+    JAX package's under GSPMD (``_GlobalBatchNorm``): two all-reduces over
+    the data group, the sum with the count and then the sum of squared
+    deviations from the global mean (no E[x²] - E[x]² either), and one in
+    the backward; the running statistics come out the same on every
+    process. A BatchNorm of channels split over the model axis holds this
+    rank's channels and takes their statistics the same way.
     (``nn.SyncBatchNorm`` refuses CPU tensors.)
     """
 
@@ -110,11 +113,12 @@ class _GlobalBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         c = x.shape[1]
-        n = torch.tensor([x.numel() // c], dtype=torch.float32, device=x.device)
-        s = all_reduce(torch.cat([x.sum((0, 2, 3), dtype=torch.float32), n]))
+        acc = torch.promote_types(x.dtype, torch.float32)  # float32, or float64
+        n = torch.tensor([x.numel() // c], dtype=acc, device=x.device)
+        s = all_reduce(torch.cat([x.sum((0, 2, 3), dtype=acc), n]))
         count = s[c]
         mean = s[:c] / count
-        m2 = all_reduce((x.float() - mean[:, None, None]).square().sum((0, 2, 3)))
+        m2 = all_reduce((x.to(acc) - mean[:, None, None]).square().sum((0, 2, 3)))
         var = m2 / count
         rstd = torch.rsqrt(var + eps)
         # eval-mode batch norm with the global statistics: one pass, x's dtype
@@ -128,8 +132,8 @@ class _GlobalBatchNorm(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, rstd = ctx.saved_tensors
         c = x.shape[1]
-        g = dy.float()
-        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+        g = dy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean[:, None, None]) * rstd[:, None, None]
         local = torch.cat([g.sum((0, 2, 3)), (g * xhat).sum((0, 2, 3))])
         dbias, dweight = local[:c].clone(), local[c:].clone()
         s = all_reduce(local) / ctx.count
@@ -141,9 +145,12 @@ class Dropout(nn.Module):
     """Elementwise dropout (flax ``nn.Dropout``, which the JAX package's
     heads use, not mmseg's channel-wise ``Dropout2d``): x / keep where a
     Bernoulli(keep) mask drawn from ``self.generator`` keeps it, else 0.
-    Identity in eval or at rate 0. Over W processes each draws the mask of
-    the global batch (W times its own rows, the leading axis) and keeps its
-    rows, so the masks are the one-process step's at the global batch."""
+    Identity in eval or at rate 0. Over a data axis of X processes each
+    draws the mask of the global batch (X times its own rows, the leading
+    axis) and keeps its rows, so the masks are the one-process step's at
+    the global batch; on a tensor whose last axis is this rank's slice of
+    the channels (``channels``: the model axis) it keeps that slice of the
+    whole width's mask too."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -153,7 +160,8 @@ class Dropout(nn.Module):
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return tuple(x.shape)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                channels: Optional[mesh.ModelAxis] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.generator is None:
@@ -164,12 +172,17 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         shape = self.mask_shape(x)
         rank, world = process_shard_info()
+        parts = 1 if channels is None or shape[-1] == 1 else channels.size
         # inside a process group: the global batch's mask (the generator is
-        # seeded alike on every process), this process's rows of it
-        mask = torch.empty((shape[0] * world,) + shape[1:], device=x.device)
+        # seeded alike on every process), this process's rows of it (and
+        # its channels)
+        mask = torch.empty((shape[0] * world,) + shape[1:-1] + (shape[-1] * parts,),
+                           device=x.device)
         mask.bernoulli_(keep, generator=self.generator)
         if world > 1:
             mask = mask[rank * shape[0]:(rank + 1) * shape[0]]
+        if parts > 1:
+            mask = mesh.slice_of(mask, -1 % mask.ndim, channels)
         return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
 
 
@@ -200,8 +213,28 @@ class LayerScale(nn.Module):
         return x * self.gamma
 
 
+def row_parallel(linear: nn.Linear, x: torch.Tensor,
+                 axis: Optional[mesh.ModelAxis]) -> torch.Tensor:
+    """``linear(x)``; over a model axis, with this rank's slice of the input
+    features: the partial products summed over the peers, then the bias
+    (whole) added once."""
+    if axis is None:
+        return linear(x)
+    y = mesh.reduce_from_model(F.linear(x, linear.weight), axis)
+    return y if linear.bias is None else y + linear.bias
+
+
+def entering(x: torch.Tensor, axis: Optional[mesh.ModelAxis]) -> torch.Tensor:
+    """``x`` as it enters a module split over ``axis`` (``copy_to_model``)."""
+    return x if axis is None else mesh.copy_to_model(x, axis)
+
+
 class Mlp(nn.Module):
-    """Token MLP (reference ``TransformerMLP``)."""
+    """Token MLP (reference ``TransformerMLP``). Over the model axis
+    (``parallel/model_axis.py``) ``fc1`` holds this rank's hidden units and
+    ``fc2`` their columns."""
+
+    model_axis: Optional[mesh.ModelAxis] = None
 
     def __init__(self, dim: int, expansion: int = 4, drop: float = 0.0):
         super().__init__()
@@ -210,13 +243,17 @@ class Mlp(nn.Module):
         self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(gelu(self.fc1(x)))
-        return self.drop(self.fc2(x))
+        ax = self.model_axis
+        x = self.drop(gelu(self.fc1(entering(x, ax))), ax)
+        return self.drop(row_parallel(self.fc2, x, ax))
 
 
 class ConvMlp(nn.Module):
     """DAT++'s depthwise-conv MLP (``use_dwc_mlps``): 1x1 up, residual 3x3
-    depthwise, GELU, 1x1 down (reference ``TransformerMLPWithConv``)."""
+    depthwise, GELU, 1x1 down (reference ``TransformerMLPWithConv``); split
+    as ``Mlp``, ``dwc`` by channel."""
+
+    model_axis: Optional[mesh.ModelAxis] = None
 
     def __init__(self, dim: int, expansion: int = 4, drop: float = 0.0):
         super().__init__()
@@ -227,14 +264,27 @@ class ConvMlp(nn.Module):
         self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(self.fc1(x))
+        ax = self.model_axis
+        x = self.drop(self.fc1(entering(x, ax)), ax)
         x = gelu(x + self.dwc(x))
-        return self.drop(self.fc2(x))
+        return self.drop(row_parallel(self.fc2, x, ax))
+
+    def whole_weights(self):
+        """(fc1 w, b, dwc w, b, fc2 w, b) whole: over the model axis the
+        slices gathered for replicated compute (K3)."""
+        ax = self.model_axis
+        ws = (self.fc1.weight, self.fc1.bias, self.dwc.weight, self.dwc.bias, self.fc2.weight)
+        if ax is not None:
+            ws = tuple(mesh.gather_model(w, ax, d) for w, d in zip(ws, (0, 0, 0, 0, 1)))
+        return ws + (self.fc2.bias,)
 
 
 class CmtConvMlp(nn.Module):
     """CMT-style conv MLP with BatchNorms (reference
-    ``TransformerMLPWithConv_CMT``)."""
+    ``TransformerMLPWithConv_CMT``); split as ``ConvMlp``, ``bn1``/``bn2`` by
+    channel."""
+
+    model_axis: Optional[mesh.ModelAxis] = None
 
     def __init__(self, dim: int, expansion: int = 4, drop: float = 0.0):
         super().__init__()
@@ -248,6 +298,7 @@ class CmtConvMlp(nn.Module):
         self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(self.bn1(gelu(self.fc1(x))))
+        ax = self.model_axis
+        x = self.drop(self.bn1(gelu(self.fc1(entering(x, ax)))), ax)
         x = self.bn2(gelu(x + self.dwc(x)))
-        return self.drop(self.bn3(self.fc2(x)))
+        return self.drop(self.bn3(row_parallel(self.fc2, x, ax)))

@@ -1,34 +1,53 @@
-"""Processes, the data axis and the collectives of the port's scale-out.
+"""Processes, the mesh's axes and the collectives of the port's scale-out.
 
 Counterpart of ``dat_segmentation_tpu/parallel/mesh.py``. There GSPMD
 compiles one program over the global batch on a ``jax.sharding.Mesh``; here
 each process of ``torch.distributed`` runs the step on its share of the
 global batch, and the places where the JAX program reads the whole batch
-reduce across processes explicitly:
+reduce across processes explicitly.
 
-* BatchNorm takes global statistics (``models/layers.py:BatchNorm2d``),
-  dropout and drop path draw their masks over the global shape
-  (``models/layers.py:Dropout``), mixup pairs sample i with sample B-1-i of
-  the global batch (``data/mixup.py``), the losses divide by global counts
-  (``train/losses.py``), and the step sums the gradients and returns global
-  metrics (``train/train_step.py``).
-* ``fsdp=True`` shards the parameters and AdamW's moments over the data
-  axis (ZeRO) with FSDP2 (``shard_model``).
+The mesh is ``{"data": X, "model": Y}`` over the X·Y processes (``-1``: all
+the processes the other axes leave), laid out data-major as the JAX
+package reshapes its devices: rank ``d·Y + m`` is data coordinate d and
+model coordinate m, so model peers are adjacent ranks (one node).
+``resolve_mesh`` makes the ``Layout``: a process group for each data group
+(the X ranks of one model coordinate) and each model group (the Y ranks of
+one data coordinate); every rank creates every group, in one order. The
+batch is sharded over ``data`` only: the Y ranks of a model group hold the
+same rows (``process_shard_info`` gives the data coordinate).
 
-The data axis is the only one: ``resolve_mesh`` refuses a ``spatial`` or
-``model`` axis and ``fsdp=<axis name>`` (ROADMAP.md, Queue 1 item 10).
-With no process group initialised nothing here issues a collective, and
-every caller runs its one-process code.
+* Every reduction over the global batch goes over this rank's data group:
+  BatchNorm's statistics (``models/layers.py:BatchNorm2d``), dropout and
+  drop path's masks (``models/layers.py:Dropout``), mixup's pairs
+  (``mirror_rows``), the losses' counts (``train/losses.py``), the
+  gradient sum and the metrics (``train/train_step.py``), the eval's counts
+  (``all_reduce_host(..., data_axis=True)``). Over the world, each row
+  would count Y times.
+* ``fsdp=True`` (or ``'data'``) shards the parameters and AdamW's moments
+  over the data groups (ZeRO) with FSDP2 (``shard_model``); model peers
+  compute the same thing.
+* ``fsdp='model'`` is tensor parallelism over the model groups
+  (``parallel/model_axis.py``): parameters held as this rank's slices,
+  Megatron's column- and row-parallel layers through the autograd
+  collectives below (``copy_to_model``, ``reduce_from_model``,
+  ``gather_model``), ``full_state`` and ``load_full_state`` gathering and
+  slicing them in the one-process format.
 
-Collectives on the step's tensors go over the default group: NCCL on the
-card, gloo on the CPU. Host-side control values (the preemption flag, the
-eval's int64 counts) go over a gloo group (``control_group``) even under
-NCCL, so reading them does not wait on the CUDA stream.
+A ``spatial`` axis is not ported (ROADMAP.md, Queue 1 item 10: the spatial
+axis). With no process group initialised nothing here issues a
+collective, and every caller runs its one-process code.
+
+Collectives on the step's tensors go over NCCL on the card, gloo on the
+CPU. Host-side control values (the preemption flag, the eval's int64
+counts) go over gloo groups (``control_group`` for the world, the layout's
+``data_control`` for a data group) even under NCCL, so reading them does
+not wait on the CUDA stream.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -39,7 +58,10 @@ import torch.nn as nn
 from ..utils.device import resolve_device
 
 BUCKET_BYTES = 64 << 20  # the gradient all-reduce's bucket
+SPATIAL_LATER = "ROADMAP.md, Queue 1 item 10: the spatial axis"
 _control: Dict[str, object] = {}  # the gloo group beside an NCCL default group
+_layouts: Dict[Tuple[int, int], "Layout"] = {}  # by (data, model), made once a group
+_current: Dict[str, "Layout"] = {}  # the layout the last resolve_mesh chose
 
 
 def is_distributed() -> bool:
@@ -47,12 +69,62 @@ def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def process_shard_info() -> Tuple[int, int]:
-    """(rank, world) for ``DataLoader(shard_info=...)``: each process loads
-    a disjoint 1/world slice of every global batch; (0, 1) alone."""
+def is_main() -> bool:
+    """True for the process that logs and writes: rank 0 of the group (the
+    only process without one)."""
+    return not is_distributed() or dist.get_rank() == 0
+
+
+@dataclass(frozen=True)
+class ModelAxis:
+    """This process's place on the model axis: its coordinate, the axis's
+    size and the process group of its model peers. A model split by
+    ``parallel/model_axis.py:shard_model_axis`` holds it on every split
+    module."""
+
+    rank: int
+    size: int
+    group: object
+
+
+@dataclass(frozen=True)
+class Layout:
+    """The process mesh ``{data: X, model: Y}``: this rank's coordinates
+    and groups. ``data_group`` None is the default group (Y = 1);
+    ``data_control`` None is ``control_group()``."""
+
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: object = None
+    model_group: object = None
+    data_control: object = None
+
+    @property
+    def model_axis(self) -> Optional[ModelAxis]:
+        """The model axis when it is larger than 1."""
+        if self.model == 1:
+            return None
+        return ModelAxis(self.model_rank, self.model, self.model_group)
+
+
+def layout() -> Layout:
+    """The layout ``resolve_mesh`` chose last; before it (or without a
+    process group) the data axis over every process."""
+    if "layout" in _current:
+        return _current["layout"]
     if not is_distributed():
-        return 0, 1
-    return dist.get_rank(), dist.get_world_size()
+        return Layout(1, 1, 0, 0)
+    return Layout(dist.get_world_size(), 1, dist.get_rank(), 0)
+
+
+def process_shard_info() -> Tuple[int, int]:
+    """(data coordinate, data axis size) for ``DataLoader(shard_info=...)``:
+    each data coordinate loads a disjoint 1/X slice of every global batch,
+    the model peers of one coordinate the same slice; (0, 1) alone."""
+    lay = layout()
+    return lay.data_rank, lay.data
 
 
 def local_batch_size(global_batch_size: int) -> int:
@@ -60,7 +132,7 @@ def local_batch_size(global_batch_size: int) -> int:
     world = process_shard_info()[1]
     if global_batch_size % world:
         raise ValueError(f"global batch {global_batch_size} is not a multiple of the "
-                         f"{world} processes")
+                         f"{world} data-parallel processes")
     return global_batch_size // world
 
 
@@ -78,14 +150,18 @@ def init_distributed(backend: Optional[str] = None, *, init_method: str = "env:/
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    _layouts.clear()  # a layout resolved before the group is not this group's
+    _current.clear()
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
     control_group()  # a collective: every rank creates it here, together
     return dev
 
 
 def destroy_distributed() -> None:
-    """Leave the process group (and its gloo control group)."""
+    """Leave the process group (and its gloo control and mesh groups)."""
     _control.clear()
+    _layouts.clear()
+    _current.clear()
     if is_distributed():
         dist.destroy_process_group()
 
@@ -101,40 +177,101 @@ def control_group():
     return _control["group"]
 
 
+def _axis_sizes(shape: Dict[str, int], world: int) -> Dict[str, int]:
+    """The JAX ``make_mesh`` rule: -1 takes what the other axes leave."""
+    known = int(np.prod([v for v in shape.values() if v > 0])) or 1
+    return {k: (world // known if v == -1 else v) for k, v in shape.items()}
+
+
+def _check_fsdp_axis(sizes: Dict[str, int], axis: str) -> None:
+    """The JAX package's refusal (``mesh.py:_check_fsdp_axis`` there): fsdp
+    over a missing or size-1 axis would silently replicate."""
+    if axis not in sizes:
+        raise ValueError(f"fsdp axis {axis!r} is not a mesh axis (mesh has {tuple(sizes)}); "
+                         "refusing to silently replicate")
+    if sizes[axis] <= 1:
+        raise ValueError(f"fsdp axis {axis!r} has size {sizes[axis]}; sharding over it is a "
+                         "no-op — drop fsdp or grow the axis")
+
+
 def resolve_mesh(mesh_shape: Optional[Dict[str, int]] = None,
-                 fsdp: Union[bool, str] = False) -> int:
-    """The data axis's size for ``mesh_shape`` (``{"data": -1}``: every
-    process) in this process group (1 without one). Only a data axis is
-    ported: another axis larger than 1, or ``fsdp`` naming an axis other
-    than ``'data'`` (tensor parallelism), raises ``NotImplementedError``."""
+                 fsdp: Union[bool, str] = False) -> Layout:
+    """The ``Layout`` of ``mesh_shape`` (default ``{"data": -1}``: every
+    process) in this process group (one process without one), made the
+    current one; its groups are made at the first call for a shape (every
+    rank calls this at the same points). The axes are ``data`` and
+    ``model``: a ``spatial`` axis (or another name) larger than 1 raises
+    ``NotImplementedError``. The axes' product must be the group's size.
+    ``fsdp`` True or ``'data'`` shards over the data axis of a process
+    group (of any size); ``fsdp='model'`` splits over the model axis, which
+    must exist with a size above 1 (``ValueError``, as the JAX package)."""
     shape = dict(mesh_shape or {"data": -1})
-    later = "ROADMAP.md, Queue 1 item 10: spatial and model axes and fsdp over another axis"
     for axis, size in shape.items():
-        if axis != "data" and size != 1:
+        if axis not in ("data", "model") and size != 1:
             raise NotImplementedError(
-                f"mesh axis {axis!r} of size {size}: the port shards the batch only ({later})")
-    if isinstance(fsdp, str) and fsdp != "data":
-        raise NotImplementedError(f"fsdp={fsdp!r}: the port shards over 'data' only ({later})")
-    world = process_shard_info()[1]
-    data = shape.get("data", -1)
-    if data not in (-1, world):
-        raise ValueError(f"mesh data axis {data} in a group of {world} processes")
-    return world
+                f"mesh axis {axis!r} of size {size}: the port shards the batch over 'data' and "
+                f"the parameters over 'model' ({SPATIAL_LATER})")
+    world = dist.get_world_size() if is_distributed() else 1
+    sizes = _axis_sizes({k: v for k, v in shape.items() if k in ("data", "model")}, world)
+    sizes.setdefault("data", world // max(sizes.get("model", 1), 1))
+    axis = fsdp if isinstance(fsdp, str) else "data"
+    if fsdp and axis != "data":
+        _check_fsdp_axis(sizes, axis)
+    elif fsdp and not is_distributed():  # FSDP2 over a data group of one runs (the card's probe)
+        raise ValueError("fsdp axis 'data' shards over the processes of a group: call "
+                         "parallel.init_distributed() first")
+    data, model = sizes["data"], sizes.get("model", 1)
+    if data * model != world or data < 1 or model < 1:
+        raise ValueError(f"mesh {shape} ({data} x {model}) in a group of {world} processes")
+    if (data, model) not in _layouts:
+        _layouts[(data, model)] = _make_layout(data, model)
+    _current["layout"] = _layouts[(data, model)]
+    return _current["layout"]
+
+
+def _make_layout(data: int, model: int) -> Layout:
+    """This rank's ``Layout`` on ``data`` x ``model``, its groups made."""
+    if not is_distributed() or model == 1:
+        rank = dist.get_rank() if is_distributed() else 0
+        return Layout(data, 1, rank, 0)
+    rank = dist.get_rank()
+    mine = {}
+    host_groups = dist.get_backend() != "gloo"  # host values need gloo data groups too
+    # every rank creates every group, in this order
+    for d in range(data):
+        ranks = [d * model + m for m in range(model)]
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine["model_group"] = g
+    for m in range(model):
+        ranks = [d * model + m for d in range(data)]
+        g = dist.new_group(ranks)
+        c = dist.new_group(ranks, backend="gloo") if host_groups else g
+        if rank in ranks:
+            mine.update(data_group=g, data_control=c)
+    return Layout(data, model, rank // model, rank % model, **mine)
 
 
 # ---------------------------------------------------------------- collectives --
 
 
 def all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the default group, in place (not differentiable)."""
-    dist.all_reduce(t)
+    """``t`` summed over this rank's data group, in place (not
+    differentiable): the global batch's sum."""
+    dist.all_reduce(t, group=layout().data_group)
     return t
 
 
-def all_reduce_host(values, op=dist.ReduceOp.SUM) -> np.ndarray:
-    """A host array (int64 counts, flags) reduced over the control group."""
+def all_reduce_host(values, op=dist.ReduceOp.SUM, *, data_axis: bool = False) -> np.ndarray:
+    """A host array (int64 counts, flags) reduced over the gloo control
+    group: over every process, or with ``data_axis`` over this rank's data
+    group (counts of the global batch, which model peers hold alike)."""
     t = torch.from_numpy(np.array(values, dtype=np.int64, ndmin=1))
-    dist.all_reduce(t, op=op, group=control_group())
+    lay = layout()
+    group = control_group()
+    if data_axis and lay.model > 1:
+        group = lay.data_control
+    dist.all_reduce(t, op=op, group=group)
     return t.numpy()
 
 
@@ -145,13 +282,13 @@ def barrier() -> None:
 
 def mirror_rows(t: torch.Tensor) -> torch.Tensor:
     """The rows that pair with this process's rows when the GLOBAL batch
-    (the processes' batches in rank order) is flipped: rank r's partners
-    are rank W-1-r's rows, reversed. ``t.flip(0)`` alone."""
+    (the data coordinates' batches in order) is flipped: coordinate d's
+    partners are coordinate X-1-d's rows, reversed. ``t.flip(0)`` alone."""
     if not is_distributed():
         return t.flip(0)
     rank, world = process_shard_info()
     parts = [torch.empty_like(t) for _ in range(world)]
-    dist.all_gather(parts, t.contiguous())
+    dist.all_gather(parts, t.contiguous(), group=layout().data_group)
     return parts[world - 1 - rank].flip(0)
 
 
@@ -162,17 +299,23 @@ def broadcast_module(model: nn.Module) -> None:
             dist.broadcast(t.data, src=0)
 
 
-def reduce_gradients(grads: Sequence[torch.Tensor]) -> None:
-    """Sum ``grads`` over the default group, in place, in buckets of about
-    ``BUCKET_BYTES`` (one all-reduce a bucket)."""
+def reduce_gradients(grads: Sequence[torch.Tensor], group=None, *,
+                     src: Optional[int] = None) -> None:
+    """Sum ``grads`` over this rank's data group (or ``group``), in place,
+    in buckets of about ``BUCKET_BYTES`` (one collective a bucket); with
+    ``src`` (a global rank in ``group``) set them to that rank's instead."""
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+    group = layout().data_group if group is None else group
     bucket: List[torch.Tensor] = []
     size = 0
 
     def flush():
         flat = _flatten_dense_tensors(bucket)
-        dist.all_reduce(flat)
+        if src is None:
+            dist.all_reduce(flat, group=group)
+        else:
+            dist.broadcast(flat, src=src, group=group)
         for g, r in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
             g.copy_(r)
         bucket.clear()
@@ -187,30 +330,121 @@ def reduce_gradients(grads: Sequence[torch.Tensor]) -> None:
         flush()
 
 
+def gather_tensor(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+    """The whole tensor whose slices along ``dim`` the model peers hold, in
+    their order (not differentiable)."""
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t.contiguous(), group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
+def slice_of(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+    """This rank's slice of a whole tensor along ``dim`` (equal slices in
+    model coordinate order)."""
+    n = t.shape[dim] // axis.size
+    return t.narrow(dim, axis.rank * n, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the gradient over the model peers (a
+    replicated tensor entering split compute: each peer's gradient is a
+    part of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.axis.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model peers (a row-parallel product's partial
+    sums); the backward passes the (replicated) gradient on."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=axis.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """The model peers' slices along ``dim`` joined. The backward takes this
+    rank's slice of the gradient when what reads the whole is replicated
+    (every peer holds the same gradient), or first sums it over the peers
+    (a reduce-scatter) when split compute reads it (each peer holds a
+    part)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, summed):
+        ctx.axis, ctx.dim, ctx.summed = axis, dim, summed
+        return gather_tensor(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=ctx.axis.group)
+        return slice_of(g, ctx.dim, ctx.axis).contiguous(), None, None, None
+
+
+def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """``x`` as it enters split compute (Megatron's f)."""
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """``x`` summed over the model peers (Megatron's g)."""
+    return _ReduceFromModel.apply(x, axis)
+
+
+def gather_model(x: torch.Tensor, axis: ModelAxis, dim: int = -1, *,
+                 split_consumer: bool = False) -> torch.Tensor:
+    """The model peers' slices of ``x`` along ``dim`` joined, with the
+    backward ``split_consumer`` says (``_GatherModel``)."""
+    return _GatherModel.apply(x, axis, dim % x.ndim, split_consumer)
+
+
 # ----------------------------------------------------------------------- fsdp --
 
 
 def shard_model(model: nn.Module, compute_dtype: torch.dtype) -> nn.Module:
-    """ZeRO over the data axis (FSDP2's ``fully_shard``, in place): a unit
-    for each backbone stage, each head and the root, the parameters gathered
-    in ``compute_dtype`` for the forward and the gradients reduce-scattered
-    in float32 and summed (not averaged: the losses divide by global
-    counts). Buffers (BatchNorm statistics) stay whole on every process.
-    With ``use_checkpoint`` a stage's recompute runs on the parameters
-    FSDP2 gathers again before the stage's backward
-    (``models/dat.py:checkpointed``)."""
+    """ZeRO over the data axis (FSDP2's ``fully_shard``, in place, over
+    this rank's data group): a unit for each backbone stage, each head and
+    the root, the parameters gathered in ``compute_dtype`` for the forward
+    and the gradients reduce-scattered in float32 and summed (not averaged:
+    the losses divide by global counts). Buffers (BatchNorm statistics)
+    stay whole on every process. With ``use_checkpoint`` a stage's
+    recompute runs on the parameters FSDP2 gathers again before the stage's
+    backward (``models/dat.py:checkpointed``)."""
     from torch.distributed.fsdp import FSDPModule, MixedPrecisionPolicy, fully_shard
 
     from ..models.dat import TransformerStage
 
+    lay = layout()
+    kw = {}
+    if lay.model > 1:  # the data group of a 2-D mesh (model peers shard alike)
+        from torch.distributed.device_mesh import DeviceMesh
+
+        device = next(model.parameters()).device.type
+        kw["mesh"] = DeviceMesh.from_group(lay.data_group, device)
     policy = MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32)
     for m in model.modules():
         if isinstance(m, TransformerStage):
-            fully_shard(m, mp_policy=policy)
+            fully_shard(m, mp_policy=policy, **kw)
     for name, child in model.named_children():
         if name != "backbone":
-            fully_shard(child, mp_policy=policy)
-    fully_shard(model, mp_policy=policy)
+            fully_shard(child, mp_policy=policy, **kw)
+    fully_shard(model, mp_policy=policy, **kw)
     for m in model.modules():
         if isinstance(m, FSDPModule):  # a plain SUM (gloo has no AVG or PREMUL_SUM)
             m.set_gradient_divide_factor(1.0)
@@ -219,9 +453,22 @@ def shard_model(model: nn.Module, compute_dtype: torch.dtype) -> nn.Module:
 
 
 def is_sharded(model: nn.Module) -> bool:
+    """True for a model FSDP2 shards (``shard_model``)."""
     from torch.distributed.fsdp import FSDPModule
 
     return isinstance(model, FSDPModule)
+
+
+def model_axis_of(model: nn.Module) -> Optional[ModelAxis]:
+    """The model axis a tensor-parallel model (``parallel/model_axis.py:
+    shard_model_axis``) is split over; None for any other."""
+    return getattr(model, "model_axis", None)
+
+
+def is_split(model: nn.Module) -> bool:
+    """True for a model FSDP2 shards or the model axis splits: its whole
+    state is gathered (``full_state``)."""
+    return is_sharded(model) or model_axis_of(model) is not None
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -230,12 +477,24 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def sharded_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def sharded_norm(tensors: Sequence[torch.Tensor],
+                 split: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element of ``tensors`` (this
-    process's shards) over every process, in float32."""
-    sq = torch.stack([torch.linalg.vector_norm(local(t).float()) ** 2 for t in tensors]).sum()
-    dist.all_reduce(sq)
-    return sq.sqrt()
+    process's shards) in float32: FSDP's shards summed over the data group;
+    with ``split`` (a tensor-parallel model's leaves, True where split), the
+    split leaves summed over the model group and the whole ones counted
+    once."""
+    sq = [torch.linalg.vector_norm(local(t).float()) ** 2 for t in tensors]
+    if split is None:
+        total = torch.stack(sq).sum()
+        dist.all_reduce(total, group=layout().data_group)
+        return total.sqrt()
+    zero = sq[0].new_zeros(())
+    parts = torch.stack([sum((q for q, s in zip(sq, split) if s), zero),
+                         sum((q for q, s in zip(sq, split) if not s), zero)])
+    whole = parts[1].clone()
+    dist.all_reduce(parts, group=layout().model_group)
+    return (parts[0] + whole).sqrt()
 
 
 def _param_names(model: nn.Module, optimizer) -> List[str]:
@@ -243,12 +502,27 @@ def _param_names(model: nn.Module, optimizer) -> List[str]:
     return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
 
 
+def _map_split(model, optimizer, optim_sd, fn):
+    """``optim_sd`` (keyed by ``optimizer``'s parameter index) with each
+    split parameter's moments passed through ``fn(tensor, dim)`` (the
+    scalar ``step`` as it is)."""
+    dims = model.model_axis_dims
+    names = _param_names(model, optimizer)
+    return {"state": {i: {k: (fn(v, dims[names[i]]) if names[i] in dims and torch.is_tensor(v)
+                               and v.ndim else v) for k, v in s.items()}
+                      for i, s in optim_sd["state"].items()},
+            "param_groups": optim_sd["param_groups"]}
+
+
 def full_state(model: nn.Module, optimizer=None, *, everywhere: bool = False):
     """(model state_dict, optimizer state_dict) in the one-process format
     (the optimizer's keyed by parameter index), gathered from the shards
     on every process: held on the CPU by rank 0 (the others get empty
     dicts), or with ``everywhere`` on every process's device. A replicated
-    model gives its own."""
+    model gives its own. Every process calls this (a collective)."""
+    axis = model_axis_of(model)
+    if axis is not None:
+        return _full_split_state(model, optimizer, axis, everywhere)
     if not is_sharded(model):
         return model.state_dict(), None if optimizer is None else optimizer.state_dict()
     from torch.distributed.checkpoint.state_dict import (StateDictOptions, get_model_state_dict,
@@ -267,9 +541,35 @@ def full_state(model: nn.Module, optimizer=None, *, everywhere: bool = False):
                                   for g in osd["param_groups"]]}
 
 
+def _full_split_state(model, optimizer, axis: ModelAxis, everywhere: bool):
+    dims = model.model_axis_dims
+    keep = everywhere or dist.get_rank() == 0
+
+    def whole(t, dim):
+        t = gather_tensor(t.detach(), dim, axis) if dim is not None else t.detach()
+        return t if everywhere else t.cpu()
+
+    msd = {k: whole(v, dims.get(k)) for k, v in model.state_dict().items()}
+    osd = None
+    if optimizer is not None:
+        osd = _map_split(model, optimizer, optimizer.state_dict(), whole)
+    if not keep:
+        return {}, None if optimizer is None else {}
+    return msd, osd
+
+
 def load_full_state(model: nn.Module, model_sd, optimizer=None, optim_sd=None) -> None:
     """Load one-process state dicts (every process passes the whole) into
-    ``model`` and ``optimizer``, sharded or not."""
+    ``model`` and ``optimizer``, sharded, split or not."""
+    axis = model_axis_of(model)
+    if axis is not None:
+        dims = model.model_axis_dims
+        model.load_state_dict({k: slice_of(v, dims[k], axis) if k in dims else v
+                               for k, v in model_sd.items()})
+        if optimizer is not None:
+            optimizer.load_state_dict(_map_split(model, optimizer, optim_sd, lambda t, d: slice_of(
+                t, d, axis).clone()))
+        return
     if not is_sharded(model):
         model.load_state_dict(model_sd)
         if optimizer is not None:

@@ -23,7 +23,9 @@ PyTorch versions). ``--multihost`` joins the process group torchrun
 describes (``parallel.init_distributed``: NCCL on the cards, one process a
 card, gloo with ``--device cpu``); the config's ``data.batch_size`` is then
 the global batch, and ``fsdp=True`` (``--set fsdp=True``) shards the
-parameters and AdamW's moments. ``main(argv)`` returns the trainer's
+parameters and AdamW's moments; ``--set "mesh_shape={'data': X, 'model':
+Y}" fsdp=model`` splits the model over the model axis (tensor
+parallelism, ``parallel/model_axis.py``). ``main(argv)`` returns the trainer's
 (state, history). ``--diff-seed`` is taken, as the JAX CLI takes it, and
 changes nothing (see its help).
 """

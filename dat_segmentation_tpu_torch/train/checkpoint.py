@@ -58,7 +58,7 @@ class CheckpointManager:
         and every rank returns once it has."""
         path = self._step_dir(tag)
         if mesh.is_distributed():
-            if mesh.process_shard_info()[0] == 0:
+            if mesh.is_main():
                 self._write(path, state, metadata, overwrite)
             mesh.barrier()
             return path

@@ -13,7 +13,9 @@ GLOBAL count (of valid pixels, one int64 all-reduce for the main and the
 auxiliary CE; of samples for the classifier's), so the sum of the
 processes' losses, and of their gradients, is the JAX package's mean over
 the global batch. (A mean of per-process means is not, where processes
-hold different numbers of ignored pixels.)
+hold different numbers of ignored pixels.) On a mesh with a model axis the
+counts and the sum are over the data group (``parallel/mesh.py``): model
+peers hold the same rows.
 """
 
 from __future__ import annotations

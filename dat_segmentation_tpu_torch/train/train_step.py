@@ -38,31 +38,44 @@ are taken in float32 either way, and the running statistics stay
 float32 buffers.
 
 Inside a ``torch.distributed`` process group (``parallel/mesh.py``) the
-step is the JAX package's over the GLOBAL batch (the processes' batches
-in rank order): ``create_train_state`` checks ``cfg.mesh_shape``
-(``resolve_mesh``), broadcasts rank 0's parameters and buffers, and with
-``cfg.fsdp`` shards the model (``shard_model``: FSDP2, which gathers the
-parameters in ``compute_dtype`` for the forward in place of the cast
-copies, whose ``functional_call`` would see sharded parameters). The
-model's BatchNorms, dropout and the losses take the global batch (see
+step is the JAX package's over the GLOBAL batch (the data coordinates'
+batches in order) on the mesh ``cfg.mesh_shape`` (``{"data": X, "model":
+Y}``): ``create_train_state`` makes the layout (``resolve_mesh``),
+broadcasts rank 0's parameters and buffers, and with ``cfg.fsdp`` True (or
+``'data'``) shards the model over the data groups (``shard_model``: FSDP2,
+which gathers the parameters in ``compute_dtype`` for the forward in place
+of the cast copies, whose ``functional_call`` would see sharded
+parameters), or with ``cfg.fsdp='model'`` splits it over the model groups
+(``parallel/model_axis.py:shard_model_axis``: tensor parallelism, the cast
+copies of this rank's slices). The model's BatchNorms, dropout and the
+losses take the global batch over the data group (see
 ``parallel/mesh.py``); after the backward the step sums the float32
-gradients over the processes in buckets (FSDP2 reduce-scatters them
-itself), so ``grad_norm``, the clip and ``update_ratio`` read the global
-gradient, and the metrics are global on every process: ``loss`` and
-``acc1`` over the global batch, ``inter``/``union`` summed in int64. Not wrapping the
-model in ``DistributedDataParallel`` is deliberate: the cast forward's
+gradients over the data group in buckets (FSDP2 reduce-scatters them
+itself), and under the model axis the gradients of the whole leaves that
+split compute reads (the offset nets) over the model group too, and on
+any mesh with a model axis the other whole leaves' gradients are set to
+model rank 0's (the peers compute them alike, but K2's float32 atomics
+round them otherwise on each), so that the peers' replicas stay equal bit
+for bit; so
+``grad_norm``, the clip and ``update_ratio`` read the global gradient
+(over the model axis: the split leaves' squares summed over the peers, the
+whole ones once), and the metrics are global on every process: ``loss``
+and ``acc1`` over the global batch, ``inter``/``union`` summed in int64
+over the data group. Not wrapping the model in
+``DistributedDataParallel`` is deliberate: the cast forward's
 ``functional_call`` bypasses DDP's ``forward``, so its reducer would never
 run. The gradient reduction runs after the backward, not beside it
 (ROADMAP.md, Queue 2). The metric step's ``[hits1, hits5, total]`` are
-summed over the processes.
+summed over the data group.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..data.mixup import LABEL_SMOOTHING, MixupSampler, mixup_cutmix
@@ -89,17 +102,20 @@ def create_train_state(model: nn.Module, cfg) -> TrainState:
     """The train state of ``model`` (its weights as they are) under the
     optimizer and schedule of ``cfg`` (a ``TrainConfig``). Inside a
     process group: rank 0's weights on every process, and with
-    ``cfg.fsdp`` the model sharded (in place) before the optimizer sees
-    its parameters."""
+    ``cfg.fsdp`` the model sharded over the data axis or split over the
+    model axis (in place) before the optimizer sees its parameters. fsdp
+    over an axis the mesh lacks, or of size 1 (one process), raises
+    ``ValueError``."""
     device = next(model.parameters()).device
-    mesh.resolve_mesh(cfg.mesh_shape, cfg.fsdp)
+    layout = mesh.resolve_mesh(cfg.mesh_shape, cfg.fsdp)
     if mesh.is_distributed():
         mesh.broadcast_module(model)
-        if cfg.fsdp:
+        if cfg.fsdp == "model":
+            from ..parallel.model_axis import shard_model_axis
+
+            shard_model_axis(model, layout.model_axis)
+        elif cfg.fsdp:
             mesh.shard_model(model, torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
-    elif cfg.fsdp:
-        raise ValueError("fsdp shards over the processes of a group: call "
-                         "parallel.init_distributed() first")
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     use_generator(model, generator)
     opt = cfg.optimizer
@@ -112,11 +128,13 @@ def create_train_state(model: nn.Module, cfg) -> TrainState:
     return TrainState(model, optimizer, build_schedule(cfg), 0, generator, opt.grad_clip, mixup)
 
 
-def global_norm(tensors: Iterable[torch.Tensor], sharded: bool = False) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor], sharded: bool = False,
+                split: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32; over every
-    process's shards when ``sharded`` (FSDP's DTensors)."""
-    if sharded:
-        return mesh.sharded_norm(list(tensors))
+    process's shards when ``sharded`` (FSDP's DTensors) or ``split`` (a
+    model split over the model axis: True for its split leaves)."""
+    if sharded or split is not None:
+        return mesh.sharded_norm(list(tensors), split)
     return torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
     )
@@ -162,10 +180,22 @@ def make_train_step(
         raise ValueError(f"task {task!r}: 'seg' or 'cls'")
     if iou_impl not in ("bincount", "none"):
         raise ValueError(f"iou_impl {iou_impl!r}: 'bincount' or 'none'")
-    plist = list(model.parameters())
+    names, plist = zip(*model.named_parameters())
     device = plist[0].device
     forward = _forward_in(model, compute_dtype)
     distributed, sharded = mesh.is_distributed(), mesh.is_sharded(model)
+    axis = mesh.model_axis_of(model)
+    # over the model axis: the split leaves, and the whole ones split compute reads
+    split = None if axis is None else [n in model.model_axis_dims for n in names]
+    partial = [] if axis is None else [p for n, p in zip(names, plist)
+                                       if n in model.model_axis_partial]
+    # the other whole leaves (every leaf of a model the model axis does not
+    # split): each model peer computed the same gradient, but a kernel's
+    # float32 atomics (K2) may round it otherwise on each
+    peers = mesh.layout().model_group if distributed else None
+    whole = [p for n, p in zip(names, plist) if axis is None or (
+        n not in model.model_axis_dims and n not in model.model_axis_partial)]
+    first_peer = None if peers is None else dist.get_global_rank(peers, 0)
 
     def seg_loss(image, label):
         out = forward(image)
@@ -205,9 +235,14 @@ def make_train_step(
                     p.grad = torch.zeros_like(p)
             if distributed and not sharded:
                 mesh.reduce_gradients([p.grad for p in plist])
+            if partial:
+                mesh.reduce_gradients([p.grad for p in partial], group=axis.group)
+            if peers is not None:  # model rank 0's, so that the peers' replicas stay equal
+                mesh.reduce_gradients([mesh.local(p.grad) for p in whole], group=peers,
+                                      src=first_peer)
             grads = [mesh.local(p.grad) for p in plist]
-            grad_norm = global_norm(grads, sharded)
-            param_norm = global_norm([mesh.local(p) for p in plist], sharded)
+            grad_norm = global_norm(grads, sharded, split)
+            param_norm = global_norm([mesh.local(p) for p in plist], sharded, split)
             before = [mesh.local(p).detach().clone() for p in plist]
             if state.grad_clip is not None:
                 # optax.clip_by_global_norm: g * clip / norm where norm > clip
@@ -217,7 +252,8 @@ def make_train_step(
                 group["lr"] = state.schedule(state.step)
             state.optimizer.step()
             update_norm = global_norm(
-                torch._foreach_sub([mesh.local(p).detach() for p in plist], before), sharded)
+                torch._foreach_sub([mesh.local(p).detach() for p in plist], before), sharded,
+                split)
             metrics = {
                 "loss": loss.detach(),
                 "grad_norm": grad_norm,
@@ -239,9 +275,10 @@ def make_train_step(
 
 
 def _global_metrics(metrics: Dict[str, torch.Tensor], task: str) -> None:
-    """The step's metrics over the global batch, in place: the loss (each
-    process's share of the global mean) summed, acc1 averaged (equal
-    batches), the IoU counts summed in int64."""
+    """The step's metrics over the global batch, in place (over the data
+    group: model peers hold the same rows): the loss (each process's share
+    of the global mean) summed, acc1 averaged (equal batches), the IoU
+    counts summed in int64."""
     world = mesh.process_shard_info()[1]
     sums = [metrics["loss"].float()] + ([metrics["acc1"] / world] if task == "cls" else [])
     sums = mesh.all_reduce(torch.stack(sums))
@@ -259,8 +296,8 @@ def make_cls_metric_step(
     """``fn(image, label, valid) -> int32 [hits1, hits5, total]`` on the
     model's device: the eval forward in ``compute_dtype``, its logits taken
     in float32, the hits counted over the rows where ``valid`` (a padded
-    tail batch counts only its real rows); summed over the processes of a
-    group, so every process gets the global counts."""
+    tail batch counts only its real rows); summed over the data group, so
+    every process gets the global counts."""
     device = next(model.parameters()).device
     forward = _forward_in(model, compute_dtype)
 

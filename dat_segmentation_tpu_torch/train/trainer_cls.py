@@ -18,13 +18,15 @@ lines, scalars, checkpoint names and ``history`` are the JAX package's.
 
 Inside a ``torch.distributed`` group, as ``trainer_seg.py``:
 ``cfg.data.batch_size`` is the global batch, each
-process loads its share of every epoch, the step is the global batch's
-(replicated or, with ``cfg.fsdp``, sharded), the val is sharded with each
-process's items counted once (a process with fewer pads its last batches
-with masked rows) and its counts summed, so "best" is decided alike on
-every rank; rank 0 logs and writes. A ``spatial`` or ``model`` mesh axis
-and ``fsdp`` over another axis are left for later (ROADMAP.md, Queue 1
-item 10). Resume restores the model, AdamW, the step, the dropout generator and
+data coordinate loads its share of every epoch, the step is the global
+batch's on the mesh ``cfg.mesh_shape`` (replicated or, with ``cfg.fsdp``,
+sharded over the data axis or split over the model axis), the val is
+sharded over the data axis with each item counted once (a process with
+fewer pads its last batches with masked rows; model peers run the split
+model's forward together) and its counts summed over the data group, so
+"best" is decided alike on every rank; rank 0 logs and writes. A
+``spatial`` mesh axis is left for later (ROADMAP.md, Queue 1 item 10).
+Resume restores the model, AdamW, the step, the dropout generator and
 the mixup sampler from the latest checkpoint and restarts the epoch
 ``step // steps_per_epoch`` from its beginning.
 """
@@ -42,7 +44,8 @@ import torch
 from ..data.imagenet import ImageNetDataset
 from ..data.loader import DataLoader, device_prefetch
 from ..models.builder import build_model
-from ..parallel.mesh import full_state, is_sharded, local_batch_size, process_shard_info
+from ..parallel.mesh import (full_state, is_main, is_split, local_batch_size,
+                             process_shard_info, resolve_mesh)
 from ..utils.device import resolve_device
 from ..utils.logging import MetricLogger, weight_stats_on_device
 from .checkpoint import (CheckpointManager, load_pretrained, merge_pretrained,
@@ -77,8 +80,9 @@ def evaluate_topk(eval_fn, val_ds, batch_size: int) -> np.ndarray:
 
 
 def _whole_params(model: torch.nn.Module):
-    """``model``, or a sharded model's parameters gathered on every rank."""
-    if not is_sharded(model):
+    """``model``, or a sharded or split model's parameters gathered on
+    every rank."""
+    if not is_split(model):
         return model
     names = {n for n, _ in model.named_parameters()}
     return {n: t for n, t in full_state(model, everywhere=True)[0].items() if n in names}
@@ -100,6 +104,7 @@ def train_classifier(
     ``steps_per_epoch`` caps an epoch (default: the train set's full
     batches). Returns (state, history dict)."""
     device = resolve_device(device)
+    resolve_mesh(cfg.mesh_shape, cfg.fsdp)  # the data axis, before local_batch_size
     with torch.random.fork_rng(devices=[]):  # the init's draws leave the global RNG alone
         torch.manual_seed(cfg.seed)
         model = build_model(cfg.model, device=device)
@@ -192,7 +197,7 @@ def train_classifier(
             best_acc = acc1
             whole = full_state(model)[0]
             ckpt.save("best", {"model": whole}, metadata={"epoch": epoch, "acc1": acc1})
-            if process_shard_info()[0] == 0:
+            if is_main():
                 save_backbone_only(work_dir / "backbone_best", whole)
     guard.close()
     logger.close()

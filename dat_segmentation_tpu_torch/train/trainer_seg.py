@@ -17,13 +17,16 @@ Inside a process group (``parallel.init_distributed``; ``tools/train.py
 --multihost``) ``cfg.data.batch_size`` is the GLOBAL batch: each process
 loads its ``local_batch_size`` share, a disjoint slice of each epoch
 (``process_shard_info``), and the step is the global batch's
-(``train/train_step.py``), replicated or, with ``cfg.fsdp``, sharded. The
-in-run val is sharded and its counts summed (``evaluate_dataset(
-distributed=True)``), so "best" is decided alike on every rank; rank 0
-logs and writes checkpoints, which are the one-process format (a sharded
-state is gathered first). Left for later (ROADMAP.md, Queue 1 item 10): a
-``spatial`` or ``model`` mesh axis and ``fsdp`` over another axis; and
-overlapping the gradient reduction with the backward (Queue 2).
+(``train/train_step.py``) on the mesh ``cfg.mesh_shape``, replicated or,
+with ``cfg.fsdp``, sharded over the data axis or (``'model'``) split over
+the model axis; ``process_shard_info`` is the data coordinate, so model
+peers load the same items. The in-run val runs a whole copy of a sharded
+or split model, sharded over the data axis and its counts summed
+(``evaluate_dataset(distributed=True)``), so "best" is decided alike on
+every rank; rank 0 logs and writes checkpoints, which are the one-process
+format (a sharded or split state is gathered first). Left for later
+(ROADMAP.md, Queue 1 item 10): a ``spatial`` mesh axis; and overlapping the
+gradient reduction with the backward (Queue 2).
 
 Resume restores the model (parameters and BatchNorm statistics), the
 AdamW state, the step and the drop-path/dropout generator (and the
@@ -48,8 +51,8 @@ from ..data.loader import DataLoader, device_prefetch
 from ..eval.evaluate import evaluate_dataset
 from ..eval.inference import SegInferencer
 from ..models.builder import build_model
-from ..parallel.mesh import (full_state, is_distributed, is_sharded, load_full_state,
-                             local_batch_size, process_shard_info)
+from ..parallel.mesh import (full_state, is_distributed, is_split, load_full_state,
+                             local_batch_size, process_shard_info, resolve_mesh)
 from ..utils.device import resolve_device
 from ..utils.logging import MetricLogger
 from .checkpoint import CheckpointManager, load_pretrained, merge_pretrained
@@ -111,9 +114,9 @@ def _restore_state(st: TrainState, saved: dict) -> TrainState:
 
 
 def eval_model(cfg, model: torch.nn.Module, device) -> torch.nn.Module:
-    """``model`` for the in-run val: itself, or a sharded model's whole
-    copy (its state gathered on every rank)."""
-    if not is_sharded(model):
+    """``model`` for the in-run val: itself, or a sharded or split model's
+    whole copy (its state gathered on every rank)."""
+    if not is_split(model):
         return model
     whole = build_model(cfg.model, device=device)
     whole.load_state_dict(full_state(model, everywhere=True)[0])
@@ -133,6 +136,7 @@ def train_segmentation(
 ):
     """Run the 160k-style iteration loop. Returns (state, history dict)."""
     device = resolve_device(device)
+    resolve_mesh(cfg.mesh_shape, cfg.fsdp)
     with torch.random.fork_rng(devices=[]):  # the init's draws leave the global RNG alone
         torch.manual_seed(cfg.seed)
         model = build_model(cfg.model, device=device)

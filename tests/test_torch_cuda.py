@@ -388,6 +388,47 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_model_axis_on_the_card_equals_one_process(cuda, tmp_path):
+    """fsdp='model' on {data: 1, model: 2}: the small UperNet (offset groups
+    1, 1, 2, 2: stages 2 and 3 split by group) over two gloo ranks on the
+    card, one float32 step against the one-process card step on the same
+    batch: loss to 1e-5 relative, all gradients (gathered whole) to 1e-4,
+    the ranks' gathered states bit for bit equal, 4 K1 and 4 K2 launches a
+    rank, the split stages' on half their groups."""
+    import torch_parallel_worker as W
+
+    model_cfg = small_upernet(get_config, head_width=32, drop=0.1)
+    torch.manual_seed(0)
+    weights = tmp_path / "w.pt"
+    torch.save(build_model(model_cfg, device="cpu").state_dict(), weights)
+    kw = dict(weights=weights, batches=W.seg_batches(steps=1), model_cfg=model_cfg,
+              device="cuda")
+    ctx = W.spawn(tmp_path / "ranks", [("tp", "seg_steps", dict(
+        kw, mesh_shape={"data": 1, "model": 2}, fsdp="model", groups=True))], device="cuda")
+    try:
+        one = W.seg_steps(0, 1, groups=True, **kw)
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
+    ranks = [r["tp"] for r in W.collect(ctx, tmp_path / "ranks")]
+    (want,) = one["steps"]
+    for rank in ranks:
+        (got,) = rank["steps"]
+        assert abs(got["metrics"]["loss"] - want["metrics"]["loss"]) <= 1e-5 * abs(
+            want["metrics"]["loss"])
+        dsq = sum(float(np.square(got["grads"][n] - g).sum()) for n, g in want["grads"].items())
+        gsq = sum(float(np.square(g).sum()) for g in want["grads"].values())
+        assert (dsq / gsq) ** 0.5 <= 1e-4
+        assert got["launches"] == (4, 4)
+        # (B·g, H) of each K1 launch: the split stages' (4² and 2² at 64²) halved
+        assert rank["groups"] == [(b // 2 if h <= 4 else b, h) for b, h in one["groups"]]
+        for name in want["state"]:
+            np.testing.assert_array_equal(got["state"][name], ranks[0]["steps"][0]["state"][name],
+                                          err_msg=name)
+
+
+@pytest.mark.cuda
 def test_small_upernet_checkpointed_train_step_matches_cpu(cuda):
     """The same with ``use_checkpoint=True``: the same gates, and each 'D'
     block's K1 twice (the stages run again in the backward)."""

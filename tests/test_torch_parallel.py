@@ -203,15 +203,20 @@ def _assert_counts_close(got, want, pixels=4 * 64 * 64):
 
 
 def test_resolve_mesh_refuses_what_is_not_ported():
-    """Only the data axis is ported: the others and fsdp over another axis
-    raise, naming their ROADMAP item; without a group the data axis is 1."""
-    assert resolve_mesh({"data": -1}) == 1 and resolve_mesh({"data": 1, "spatial": 1}) == 1
-    for shape, fsdp in (({"data": -1, "spatial": 2}, False), ({"data": 1, "model": 2}, False),
-                        ({"data": -1}, "model")):
+    """The data and model axes are ported, the spatial axis is not: it
+    raises ``NotImplementedError`` naming its ROADMAP item; without a group
+    the data axis is 1, and a mesh larger than the group or fsdp over a
+    missing axis raise ``ValueError`` (``tests/test_torch_model_axis.py``
+    holds the model axis)."""
+    assert resolve_mesh({"data": -1}).data == 1 and resolve_mesh({"data": 1, "spatial": 1}).data == 1
+    for shape, fsdp in (({"data": -1, "spatial": 2}, False),
+                        ({"data": 1, "model": 1, "spatial": 2}, "model")):
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             resolve_mesh(shape, fsdp)
-    with pytest.raises(ValueError):
-        resolve_mesh({"data": 2})
+    for shape, fsdp in (({"data": 2}, False), ({"data": 1, "model": 2}, False),
+                        ({"data": -1}, "model")):
+        with pytest.raises(ValueError):
+            resolve_mesh(shape, fsdp)
     assert process_shard_info() == (0, 1) and local_batch_size(16) == 16
 
 

@@ -1,4 +1,5 @@
-"""Rank functions of the port's multi-process tests (tests/test_torch_parallel.py).
+"""Rank functions of the port's multi-process tests (tests/test_torch_parallel.py,
+tests/test_torch_model_axis.py).
 
 Imports no JAX: ``spawn`` starts one process a rank (``torch.multiprocessing``,
 spawn), each joins a gloo group on the CPU through
@@ -25,16 +26,17 @@ LR = 1e-3
 NUM_CLASSES = 8
 
 
-def tiny_seg(get_config, drop=0.1, num_classes=NUM_CLASSES):
+def tiny_seg(get_config, drop=0.1, num_classes=NUM_CLASSES, drop_rate=0.0):
     """upn_tiny_160k_dp03_lr6 cut to the JAX test's tiny UperNet (heads with
     BatchNorm, the FCN aux head), drop path and the heads' dropout at
-    ``drop``, from either package's ``get_config``; the TrainConfig (lr
-    1e-3, no warm-up, float32)."""
+    ``drop``, the backbone's dropout (MLPs, attention output) at
+    ``drop_rate``, from either package's ``get_config``; the TrainConfig
+    (lr 1e-3, no warm-up, float32)."""
     cfg = get_config("upn_tiny_160k_dp03_lr6")
     bb = dataclasses.replace(
         cfg.model.backbone, depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), dim_stem=16,
         heads=(2, 2, 4, 4), groups=(1, 2, 2, 4), stage_spec=(("D",), ("D",), ("X",), ("D",)),
-        drop_path_rate=drop,
+        drop_path_rate=drop, drop_rate=drop_rate,
     )
     model = dataclasses.replace(
         cfg.model, backbone=bb, num_classes=num_classes,
@@ -149,28 +151,55 @@ def _model(cfg, weights, device="cpu"):
     return model
 
 
+def whole_grads(model):
+    """The gradients of ``model`` by name, a split model's gathered whole
+    (``p.grad`` of an unsplit model as it is)."""
+    from dat_segmentation_tpu_torch.parallel import mesh
+
+    axis = mesh.model_axis_of(model)
+    dims = getattr(model, "model_axis_dims", {})
+    return {n: (mesh.gather_tensor(p.grad, dims[n], axis) if n in dims else p.grad)
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def local_shapes(model, state):
+    """Per split leaf (parameters and buffers) its local shape, and per
+    parameter its AdamW moment's."""
+    return {"leaves": {n: tuple(t.shape) for n, t in model.state_dict().items()},
+            "moments": {n: tuple(state.optimizer.state[p]["exp_avg"].shape)
+                        for n, p in model.named_parameters() if p in state.optimizer.state}}
+
+
 def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kernel_impl="auto",
-              use_checkpoint=False, model_cfg=None, device="cpu"):
+              use_checkpoint=False, model_cfg=None, device="cpu", mesh_shape=None, drop_rate=0.0,
+              groups=False):
     """Steps of the tiny UperNet (or ``model_cfg``) from ``weights`` on this
-    rank's rows of each global batch, on ``device``, with ``use_checkpoint``
-    as given: per step the metrics,
+    data coordinate's rows of each global batch on the mesh ``mesh_shape``,
+    on ``device``, with ``use_checkpoint`` as given: per step the metrics,
     the K1/K2 launches, the whole state (parameters and BN buffers,
-    gathered when sharded) and, unsharded, the gradients; with ``fsdp``
-    also the local shape of the largest parameter and of its AdamW moment,
-    and whether K3's weights came whole and contiguous."""
+    gathered when sharded or split) and, unless FSDP shards them, the
+    gradients (gathered when split); with ``fsdp=True`` also the local
+    shape of the largest parameter and of its AdamW moment, with
+    ``fsdp='model'`` every leaf's and moment's local shape; and whether
+    K3's weights came whole and contiguous; with ``groups``, (B·g, H) of
+    each deformable-attention call of the first step."""
     from dat_segmentation_tpu_torch import create_train_state, get_config, make_train_step
     from dat_segmentation_tpu_torch.configs.schema import replace
+    from dat_segmentation_tpu_torch.models import deformable_attention as dattn
     from dat_segmentation_tpu_torch.ops import deform_attn as da
     from dat_segmentation_tpu_torch.ops import x_block
     from dat_segmentation_tpu_torch.parallel import mesh
 
-    cfg = tiny_seg(get_config, drop=drop)
+    cfg = tiny_seg(get_config, drop=drop, drop_rate=drop_rate)
     if model_cfg is not None:
         cfg = dataclasses.replace(cfg, model=model_cfg)
     cfg = replace(cfg, fsdp=fsdp, **{"model.backbone.kernel_impl": kernel_impl,
                                      "model.backbone.use_checkpoint": use_checkpoint})
+    if mesh_shape is not None:
+        cfg = dataclasses.replace(cfg, mesh_shape=mesh_shape)
     model = _model(cfg, weights, device)
     state = create_train_state(model, cfg)
+    rank, world = mesh.process_shard_info()
     step = make_train_step(model, num_classes=NUM_CLASSES, compute_dtype=torch.float32)
     seen = []
     real = x_block.x_block_reference
@@ -181,21 +210,34 @@ def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kerne
         return real(x, *params, **kw)
 
     x_block.x_block_reference = watched
+    calls = []
+    real_attn = dattn.deform_attn
+
+    def attn(q, *a, **k):  # the module's K1 route, seen from outside
+        calls.append((q.shape[0], q.shape[1]))
+        return real_attn(q, *a, **k)
+
+    if groups:
+        dattn.deform_attn = attn
     out = []
     try:
         for b in batches:
             before = (da.deform_attn.launches, da.deform_attn_bwd.launches)
             _, m = step(state, {k: _rows(v, rank, world) for k, v in b.items()})
-            grads = {} if fsdp else {n: p.grad for n, p in model.named_parameters()
-                                     if p.grad is not None}
+            grads = {} if mesh.is_sharded(model) else whole_grads(model)
             out.append({"metrics": _numpy(m), "state": _numpy(mesh.full_state(
                 model, everywhere=True)[0]), "grads": _numpy(grads),
                 "launches": (da.deform_attn.launches - before[0],
                              da.deform_attn_bwd.launches - before[1])})
     finally:
         x_block.x_block_reference = real
+        dattn.deform_attn = real_attn
     res = {"steps": out, "k3_whole_contiguous": seen}
-    if fsdp:
+    if groups:
+        res["groups"] = calls[:len(calls) // len(batches)]
+    if fsdp == "model":
+        res["local"] = local_shapes(model, state)
+    elif fsdp:
         name, p = max(model.named_parameters(), key=lambda kv: kv[1].numel())
         moment = state.optimizer.state[p]["exp_avg"]
         res["sharded"] = {"name": name, "shape": tuple(p.shape),
@@ -214,16 +256,21 @@ class FixedDraws:
         return self.draws.pop(0)
 
 
-def cls_steps(rank, world, *, weights, batch, draws, valid):
+def cls_steps(rank, world, *, weights, batch, draws, valid, mesh_shape=None, fsdp=False):
     """Steps of the tiny classifier with mixup (one step per draw, all on
-    ``batch``) on this rank's rows: per step the metrics and the
-    parameters; then the metric step's counts on the rows and ``valid``."""
+    ``batch``) on this data coordinate's rows, on the mesh ``mesh_shape``:
+    per step the metrics, the whole state and gradients; then the metric
+    step's counts on the rows and ``valid``."""
     from dat_segmentation_tpu_torch import create_train_state, get_config, make_train_step
+    from dat_segmentation_tpu_torch.parallel import mesh
     from dat_segmentation_tpu_torch.train.train_step import make_cls_metric_step
 
-    cfg = tiny_cls(get_config)
+    cfg = dataclasses.replace(tiny_cls(get_config), fsdp=fsdp)
+    if mesh_shape is not None:
+        cfg = dataclasses.replace(cfg, mesh_shape=mesh_shape)
     model = _model(cfg, weights)
     state = create_train_state(model, cfg)
+    rank, world = mesh.process_shard_info()
     state.mixup = FixedDraws(draws)
     step = make_train_step(model, task="cls", num_classes=cfg.model.num_classes,
                            compute_dtype=torch.float32, mixup=True)
@@ -231,9 +278,9 @@ def cls_steps(rank, world, *, weights, batch, draws, valid):
     out = []
     for _ in draws:
         _, m = step(state, local)
-        out.append({"metrics": _numpy(m), "state": _numpy(model.state_dict()),
-                    "grads": _numpy({n: p.grad for n, p in model.named_parameters()
-                                     if p.grad is not None})})
+        out.append({"metrics": _numpy(m),
+                    "state": _numpy(mesh.full_state(model, everywhere=True)[0]),
+                    "grads": _numpy(whole_grads(model))})
     hits = make_cls_metric_step(model, compute_dtype=torch.float32)(
         local["image"], local["label"], _rows(valid, rank, world))
     return {"steps": out, "hits": hits.numpy()}
@@ -300,10 +347,13 @@ def evaluate(rank, world, *, weights, root, max_images=None):
                             distributed=True, verbose=False)
 
 
-def trainer_cfg(get_config, root, work, fsdp=False):
+def trainer_cfg(get_config, root, work, fsdp=False, mesh_shape=None, drop=0.1):
     from dat_segmentation_tpu_torch.configs.schema import replace
 
-    return replace(tiny_seg(get_config, num_classes=150), work_dir=str(work), name="dp", fsdp=fsdp,
+    cfg = tiny_seg(get_config, num_classes=150, drop=drop)
+    if mesh_shape is not None:
+        cfg = dataclasses.replace(cfg, mesh_shape=mesh_shape)
+    return replace(cfg, work_dir=str(work), name="dp", fsdp=fsdp,
                    **{
         "data.data_root": str(root), "data.batch_size": 4, "data.crop_size": (64, 64),
         "data.num_workers": 1, "schedule.max_iters": 4, "log_interval": 1,
@@ -311,13 +361,16 @@ def trainer_cfg(get_config, root, work, fsdp=False):
 
 
 def train(rank, world, *, root, work, max_iters, sigterm_after=None, resume=False, fsdp=False,
-          wait_for=None):
+          wait_for=None, mesh_shape=None, drop=0.1):
     """``train_segmentation`` of the tiny UperNet (150 classes) on the
-    fixture, global batch 4, val on two images; with ``sigterm_after`` rank
-    1 sends itself SIGTERM after that many steps; ``wait_for``: a file to
-    wait for first (a checkpoint another process writes). Returns the step
-    reached, the history, the checkpoint directories present at the end, the
-    model's whole state at the end and, resumed, right after the restore."""
+    fixture, global batch 4, val on two images, on the mesh ``mesh_shape``,
+    drop path and the heads' dropout at ``drop``;
+    with ``sigterm_after`` rank 1 sends itself SIGTERM after that many
+    steps; ``wait_for``: a file to wait for first (a checkpoint another
+    process writes). Returns the step reached, the history, the in-run
+    val's counts, the checkpoint directories present at the end, the
+    model's whole state at the end and, resumed, right after the
+    restore."""
     import time
 
     from dat_segmentation_tpu_torch import get_config
@@ -329,8 +382,15 @@ def train(rank, world, *, root, work, max_iters, sigterm_after=None, resume=Fals
         if time.time() > end:
             raise TimeoutError(wait_for)
         time.sleep(0.2)
-    cfg = trainer_cfg(get_config, root, work, fsdp=fsdp)
+    cfg = trainer_cfg(get_config, root, work, fsdp=fsdp, mesh_shape=mesh_shape, drop=drop)
     real = trainer_seg.make_train_step
+    real_eval = trainer_seg.evaluate_dataset
+    vals = []
+
+    def evaluate(*a, **k):
+        res = real_eval(*a, **k)
+        vals.append({key: res[key] for key in ("inter", "union", "num_images")})
+        return res
 
     def make(*a, **k):
         step = real(*a, **k)
@@ -351,11 +411,13 @@ def train(rank, world, *, root, work, max_iters, sigterm_after=None, resume=Fals
         return out
 
     trainer_seg.make_train_step, trainer_seg._restore_state = make, restore
+    trainer_seg.evaluate_dataset = evaluate
     try:
         state, hist = trainer_seg.train_segmentation(cfg, device="cpu", max_iters=max_iters,
                                                      eval_max_images=2, resume=resume)
     finally:
         trainer_seg.make_train_step, trainer_seg._restore_state = real, real_restore
+        trainer_seg.evaluate_dataset = real_eval
     ckpts = sorted(p.name for p in (Path(work) / "dp").glob("ckpt_*"))
     return {"step": state.step, "history": hist, "ckpts": ckpts, "restored": restored,
-            "state": _numpy(mesh.full_state(state.model, everywhere=True)[0])}
+            "vals": vals, "state": _numpy(mesh.full_state(state.model, everywhere=True)[0])}
