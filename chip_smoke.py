@@ -181,6 +181,17 @@ line each:
    (1-3), each rank's parameter + AdamW bytes at most 0.60 of the whole,
    peak memory beside the one-process step's. Parity and memory only:
    gloo carries the collectives through the host.
+17c. spatial_axis: each image's rows split over the mesh's spatial axis
+   (``parallel/spatial.py``), against model_axis's one-process references:
+   two gloo ranks on {data: 1, spatial: 2} with 'auto', 'pallas', float64
+   and fsdp=True with ``use_checkpoint``, four on {data: 2, spatial: 2}
+   (one image a data coordinate: the attention on gathered rows); loss,
+   parameters and IoU counts at scale_out's gates, float64 gradients at
+   1e-9 globally and 1e-6 a leaf, the ranks' states equal, 14 K1 + 14 K2 a
+   step on each rank (+ 26 K3 with 'pallas', 28 K1 with
+   ``use_checkpoint``), each K1 call on whole maps of one image, the halo
+   rows each fetch adds and the bytes exchanged, peak memory a rank beside
+   the one-process step's at two images and at one.
 18. pe_modes: the position-bias modes the JAX package runs in its
    composite. Each of dwc_pe, fixed_pe, log_cpb, no_off and no position
    bias on all four stages of the full flagship, float32, TF32 off: card
@@ -1256,7 +1267,14 @@ def main() -> int:
     scale_launches = scale_out_phase(torch, np, card, dev, n_d, timed)
 
     # ---- 17b. model_axis: tensor parallelism over processes -----------------
-    axis_launches = model_axis_phase(torch, np, card, dev, n_d, n_x)
+    refs = Path(tempfile.mkdtemp(prefix="axis_refs_"))
+    try:
+        axis_launches, whole = model_axis_phase(torch, np, card, dev, n_d, n_x, refs)
+
+        # ---- 17c. spatial_axis: image rows split over processes ---------------
+        spatial_launches = spatial_axis_phase(torch, np, card, dev, n_d, n_x, refs, whole)
+    finally:
+        shutil.rmtree(refs, ignore_errors=True)
 
     # ---- 18. pe_modes: the other position-bias modes --------------------------
     pe_launches = pe_modes_phase(torch, np, card, dev, timed)
@@ -1275,6 +1293,7 @@ def main() -> int:
                               **cls_launches["deform_attn_fwd"],
                               "scale_out_rank0": scale_launches["deform_attn_fwd"],
                               "model_axis_rank0": axis_launches["deform_attn_fwd"],
+                              "spatial_rank0": spatial_launches["deform_attn_fwd"],
                               "pe_modes_mixed_serve": pe_launches["serve"],
                               "pe_modes_mixed_train": pe_launches["train"]["deform_attn_fwd"]}
     k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
@@ -1289,6 +1308,7 @@ def main() -> int:
                                 **cls_launches["deform_attn_bwd"],
                                 "scale_out_rank0": scale_launches["deform_attn_bwd"],
                                 "model_axis_rank0": axis_launches["deform_attn_bwd"],
+                                "spatial_rank0": spatial_launches["deform_attn_bwd"],
                                 "pe_modes_mixed_train": pe_launches["train"]["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
     k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"], mma_instructions=k3_mma,
@@ -1301,6 +1321,7 @@ def main() -> int:
                                 "train": ptrain_launches["x_block_fwd"],
                                 "train_loop": loop_launches["x_block_fwd"],
                                 "model_axis_rank0": axis_launches["x_block_fwd"],
+                                "spatial_rank0": spatial_launches["x_block_fwd"],
                                 **cls_launches["x_block_fwd"]})
     # K1-v1 (the JAX package's fused_deform_attention_fwd) is K1's function
     # without padded queries: the port runs it as K1's launch with hn = wn = 0,
@@ -3342,96 +3363,122 @@ def axis_rank(rank, world, tmp, tag, mesh_shape, impls):
     torch.save(out, tmp / f"{tag}rank{rank}.pt")
 
 
-def model_axis_phase(torch, np, card, dev, n_d, n_x):
-    """17b. model_axis (see the module docstring). Returns rank 0's K1, K2
-    and K3 launches in the {data: 1, model: 2} steps ('pallas' for K3)."""
-    import shutil
-    import tempfile
+def axis_refs(torch, np, dev, tmp):
+    """The one-process float32 ('auto', 'pallas') and float64 steps of the
+    flagship on ``axis_batch``, each written to ``tmp/ref_<impl>.pt`` (then
+    ``.done``) for the model and spatial axes' ranks; returns per impl the
+    loss, peak memory, parameter and AdamW bytes and the model axis plan's
+    parameter share at Y = 2; and under "auto_one_image" the peak of the
+    'auto' step on the batch's first image alone (the pixels a rank of
+    {data: 1, spatial: 2} holds). A peak leaves out what this process held
+    before (earlier phases' tensors), as a rank's fresh process holds
+    nothing else."""
     from dataclasses import replace
-
-    import torch.multiprocessing as mp
 
     from dat_segmentation_tpu_torch import build_model, create_train_state, make_train_step
     from dat_segmentation_tpu_torch.models import deformable_attention as dattn
     from dat_segmentation_tpu_torch.ops import deform_attn as da
     from dat_segmentation_tpu_torch.parallel.model_axis import model_axis_plan
 
+    cfg = scale_cfg()
+    mc = cfg.model
+    route = dattn.deform_attn
+    whole = {}
+    held = torch.cuda.memory_allocated()
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in axis_batch(np, mc).items()}
+    for impl in ("auto", "pallas", "float64"):
+        f64 = impl == "float64"
+        pmc = replace(mc, backbone=replace(mc.backbone, kernel_impl="auto" if f64 else impl))
+        torch.manual_seed(SEED)
+        model = build_model(pmc, device=dev)
+        if f64:
+            model.double()
+        state = create_train_state(model, replace(cfg, model=pmc))
+        step = make_train_step(model, aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
+                               compute_dtype=torch.float64 if f64 else torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dattn.deform_attn = da.deform_attn_reference if f64 else route
+        try:
+            _, met = step(state, batch)
+        finally:
+            dattn.deform_attn = route
+        torch.cuda.synchronize()
+        whole[impl] = {
+            "loss": met["loss"].item(),
+            "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+            "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "adamw_bytes": sum(t.numel() * t.element_size()
+                               for s in state.optimizer.state.values()
+                               for t in s.values() if torch.is_tensor(t) and t.ndim)}
+        torch.save({"loss": met["loss"], "inter": met["inter"], "union": met["union"],
+                    "grads": {n: p.grad for n, p in model.named_parameters()
+                              if p.grad is not None},
+                    "params": dict(model.named_parameters())}, tmp / f"ref_{impl}.pt")
+        (tmp / f"ref_{impl}.done").touch()
+        plan = model_axis_plan(model, 2)
+        whole[impl]["plan_param_share"] = sum(
+            p.numel() * p.element_size() / (2 if plan[n].dim is not None else 1)
+            for n, p in model.named_parameters()) / whole[impl]["param_bytes"]
+        del model, state, step, met
+        torch.cuda.empty_cache()
+    torch.manual_seed(SEED)
+    model = build_model(mc, device=dev)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
+                           compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, {k: v[:1] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    whole["auto_one_image"] = {"peak_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return whole
+
+
+def run_ranks(torch, tmp, fn, tag, shape, legs, meanwhile=None, limit=400):
+    """Start ``prod(shape)`` gloo ranks of ``fn(rank, world, tmp, tag, shape,
+    legs)`` on the card, run ``meanwhile()`` here while they start, wait for
+    them (a ``TimeoutError`` after ``limit`` s) and load their results; returns
+    (``meanwhile``'s result, the ranks' results)."""
+    import torch.multiprocessing as mp
+
+    world = 1
+    for size in shape.values():
+        world *= size
+    ctx = mp.start_processes(fn, args=(world, str(tmp), tag, shape, legs), nprocs=world,
+                             start_method="spawn", join=False)
+    try:
+        got = meanwhile() if meanwhile is not None else None
+        end = time.time() + limit
+        while not ctx.join(timeout=5):
+            if time.time() > end:
+                raise TimeoutError(f"{tag}: the {world} ranks still run after {limit} s")
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
+    return got, [torch.load(tmp / f"{tag}rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def model_axis_phase(torch, np, card, dev, n_d, n_x, tmp):
+    """17b. model_axis (see the module docstring). The one-process references
+    go to ``tmp`` (``axis_refs``, while the first ranks start). Returns rank
+    0's K1, K2 and K3 launches in the {data: 1, model: 2} steps ('pallas' for
+    K3) and the references' figures."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
-    tmp = Path(tempfile.mkdtemp(prefix="model_axis_"))
-    cfg = scale_cfg()
-    mc = cfg.model
-    geo = {s["H"]: s for s in stage_geometry(mc.backbone, IMG)}
-    route = dattn.deform_attn
+    geo = {s["H"]: s for s in stage_geometry(scale_cfg().model.backbone, IMG)}
     whole = {}
     results = {}
-    try:
-        torch.cuda.empty_cache()
-        first = True
-        for shape, impls in AXIS_MESHES:
-            world = shape["data"] * shape["model"]
-            tag = "x".join(str(v) for v in shape.values())
-            ctx = mp.start_processes(axis_rank, args=(world, str(tmp), tag, shape, impls),
-                                     nprocs=world, start_method="spawn", join=False)
-            try:
-                if first:  # the one-process steps on the global batch, meanwhile
-                    batch = {k: torch.as_tensor(v).to(dev) for k, v in axis_batch(np, mc).items()}
-                    for impl in ("auto", "pallas", "float64"):
-                        f64 = impl == "float64"
-                        pmc = replace(mc, backbone=replace(mc.backbone,
-                                                           kernel_impl="auto" if f64 else impl))
-                        torch.manual_seed(SEED)
-                        model = build_model(pmc, device=dev)
-                        if f64:
-                            model.double()
-                        state = create_train_state(model, replace(cfg, model=pmc))
-                        step = make_train_step(model, aux_weight=mc.aux_loss_weight,
-                                               num_classes=mc.num_classes,
-                                               compute_dtype=torch.float64 if f64
-                                               else torch.float32)
-                        torch.cuda.synchronize()
-                        torch.cuda.reset_peak_memory_stats()
-                        dattn.deform_attn = da.deform_attn_reference if f64 else route
-                        try:
-                            _, met = step(state, batch)
-                        finally:
-                            dattn.deform_attn = route
-                        torch.cuda.synchronize()
-                        whole[impl] = {
-                            "loss": met["loss"].item(),
-                            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                            "param_bytes": sum(p.numel() * p.element_size()
-                                               for p in model.parameters()),
-                            "adamw_bytes": sum(t.numel() * t.element_size()
-                                               for s in state.optimizer.state.values()
-                                               for t in s.values() if torch.is_tensor(t) and t.ndim)}
-                        torch.save({"loss": met["loss"], "inter": met["inter"],
-                                    "union": met["union"],
-                                    "grads": {n: p.grad for n, p in model.named_parameters()
-                                              if p.grad is not None},
-                                    "params": dict(model.named_parameters())},
-                                   tmp / f"ref_{impl}.pt")
-                        (tmp / f"ref_{impl}.done").touch()
-                        plan = model_axis_plan(model, 2)
-                        whole[impl]["plan_param_share"] = sum(
-                            p.numel() * p.element_size() / (2 if plan[n].dim is not None else 1)
-                            for n, p in model.named_parameters()) / whole[impl]["param_bytes"]
-                        del model, state, step, met
-                        torch.cuda.empty_cache()
-                    first = False
-                end = time.time() + 400
-                while not ctx.join(timeout=5):
-                    if time.time() > end:
-                        raise TimeoutError(f"model_axis: the {world} ranks still run after 400 s")
-            except BaseException:
-                for p in ctx.processes:
-                    p.kill()
-                raise
-            results[tag] = [torch.load(tmp / f"{tag}rank{r}.pt", weights_only=False)
-                            for r in range(world)]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for shape, impls in AXIS_MESHES:
+        tag = "x".join(str(v) for v in shape.values())
+        refs, results[tag] = run_ranks(torch, tmp, axis_rank, tag, shape, impls, None if whole
+                                       else lambda: axis_refs(torch, np, dev, tmp))
+        whole = refs or whole
 
     pixels = len(AXIS_ROWS) * IMG * IMG
     for (shape, impls), (tag, ranks) in zip(AXIS_MESHES, results.items()):
@@ -3500,6 +3547,226 @@ def model_axis_phase(torch, np, card, dev, n_d, n_x):
             check(len({r["state_sha256"] for r in rows}) == 1,
                   f"model_axis {tag} {impl}: the ranks' gathered states differ")
     emit({"phase": "model_axis", "card": card, "seconds": time.perf_counter() - t_phase})
+    r0 = results[next(iter(results))][0]
+    return {"deform_attn_fwd": r0["auto"]["launches"]["deform_attn_fwd"],
+            "deform_attn_bwd": r0["auto"]["launches"]["deform_attn_bwd"],
+            "x_block_fwd": r0["pallas"]["launches"]["x_block_fwd"]}, whole
+
+
+# ---- 17c. spatial_axis: each image's rows over the mesh's spatial axis -------
+# The flagship's float32 step on axis_batch (the same one-process references
+# as model_axis, whose note on float32 gradients holds here too: the halo
+# convs and the row-wise resizes sum in other orders) with its rows split
+# over spatial peers. {data: 1, spatial: 2} runs the attention on one whole
+# image a peer (the rows <-> batch all-to-all); {data: 2, spatial: 2} has one
+# image a data coordinate, which S = 2 does not divide, so each peer gathers
+# the image's rows for the attention. "fsdp_ckpt": fsdp=True (FSDP2 over the
+# data group of one) with use_checkpoint, the 'auto' kernels: 28 K1 launches
+# (each stage again in the backward).
+SPATIAL_MESHES = (({"data": 1, "spatial": 2}, ("auto", "pallas", "float64", "fsdp_ckpt")),
+                  ({"data": 2, "spatial": 2}, ("auto",)))
+
+
+def spatial_rank(rank, world, tmp, tag, mesh_shape, legs):
+    """One gloo rank on the card on ``mesh_shape`` ({data, spatial}): per leg
+    one step of the flagship on this data coordinate's rows (each spatial
+    peer keeps its image rows) against the one-process step (``tmp/ref_*.pt``),
+    the K1, K2 and K3 launches, each K1 call's (B·g, H), the rows each fetch
+    added to the peer's own and the bytes each exchange received, and peak
+    memory; the result to ``tmp/<tag>rank<r>.pt``. Spawned by
+    ``spatial_axis_phase``."""
+    import collections
+    import hashlib
+    import os
+    from dataclasses import replace
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dat_segmentation_tpu_torch import build_model, create_train_state, make_train_step
+    from dat_segmentation_tpu_torch.models import deformable_attention as dattn
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.ops import x_block as xb
+    from dat_segmentation_tpu_torch.parallel import destroy_distributed, init_distributed, mesh
+    from dat_segmentation_tpu_torch.parallel import spatial
+
+    tmp = Path(tmp)
+    dev = init_distributed("gloo", init_method=f"file://{tmp}/rendezvous_{tag}")
+    out = {"device": str(dev)}
+    calls, halos, received = [], collections.Counter(), [0, 0]
+    route, fetch, exchange = dattn.deform_attn, spatial.fetch, spatial.exchange
+    real_attn = route
+
+    def attn(q, *a, **k):
+        calls.append((q.shape[0], q.shape[1]))
+        return real_attn(q, *a, **k)
+
+    def counted_fetch(x, rows, want):
+        lo, hi = want(rows.axis.rank)
+        halos[(hi - lo) - rows.n] += 1
+        return fetch(x, rows, want)
+
+    def counted_exchange(pieces, shapes, axis):
+        received[0] += 1
+        received[1] += sum(int(np.prod(sh)) for t, sh in enumerate(shapes)
+                           if t != axis.rank) * pieces[0].element_size()
+        return exchange(pieces, shapes, axis)
+
+    dattn.deform_attn, spatial.fetch, spatial.exchange = attn, counted_fetch, counted_exchange
+    try:
+        for leg in legs:
+            cfg = scale_cfg()
+            f64, fsdp = leg == "float64", leg == "fsdp_ckpt"
+            impl = "pallas" if leg == "pallas" else "auto"
+            mc = replace(cfg.model, backbone=replace(cfg.model.backbone, kernel_impl=impl,
+                                                     use_checkpoint=fsdp))
+            cfg = replace(cfg, model=mc, fsdp=fsdp, mesh_shape=mesh_shape)
+            real_attn = da.deform_attn_reference if f64 else route
+            torch.manual_seed(SEED)
+            model = build_model(mc, device=dev)
+            if f64:
+                model.double()
+            state = create_train_state(model, cfg)
+            d, X = mesh.process_shard_info()
+            n = len(AXIS_ROWS) // X
+            local = {k: torch.as_tensor(v[d * n:(d + 1) * n]).to(dev)
+                     for k, v in axis_batch(np, mc).items()}
+            step = make_train_step(model, aux_weight=mc.aux_loss_weight,
+                                   num_classes=mc.num_classes,
+                                   compute_dtype=torch.float64 if f64 else torch.float32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
+            calls.clear()
+            halos.clear()
+            received[:] = [0, 0]
+            t0 = time.perf_counter()
+            _, met = step(state, local)
+            torch.cuda.synchronize()
+            res = {"seconds": time.perf_counter() - t0,
+                   "launches": {"deform_attn_fwd": da.deform_attn.launches,
+                                "deform_attn_bwd": da.deform_attn_bwd.launches,
+                                "x_block_fwd": xb.x_block_fwd.launches},
+                   "k1_calls": list(calls),
+                   "halo_rows_per_fetch": dict(sorted(halos.items())),
+                   "exchanges": {"forward_calls": received[0],
+                                 "forward_bytes_from_peers": received[1]},
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            whole = mesh.full_state(model, everywhere=True)[0]
+            params = {n_: whole[n_] for n_, _ in model.named_parameters()}
+            grads = {} if fsdp else {n_: p.grad for n_, p in model.named_parameters()
+                                     if p.grad is not None}
+            digest = hashlib.sha256()
+            for t in whole.values():
+                digest.update(t.detach().cpu().numpy().tobytes())
+            res["state_sha256"] = digest.hexdigest()
+            ref_impl = "float64" if f64 else impl
+            end = time.time() + 300
+            while not (tmp / f"ref_{ref_impl}.done").exists():
+                if time.time() > end:
+                    raise TimeoutError("no one-process reference")
+                time.sleep(0.2)
+            ref = torch.load(tmp / f"ref_{ref_impl}.pt", map_location=dev, weights_only=True)
+            res["vs_one_process"] = {
+                "loss": met["loss"].item(),
+                "loss_rel_err": abs(met["loss"].item() - ref["loss"].item()) / abs(
+                    ref["loss"].item()),
+                "grad": dict_grad_compare(grads, ref["grads"]) if grads else None,
+                "grad_f64": leaves_beyond(grads, ref["grads"], TOL_AXIS_F64_LEAF,
+                                          TOL_AXIS_F64_GRAD) if grads else None,
+                "params_rel_err": params_rel(params, ref["params"]),
+                "iou_count_abs_diff": int((met["inter"] - ref["inter"]).abs().sum()
+                                          + (met["union"] - ref["union"]).abs().sum()),
+            }
+            out[leg] = res
+            del model, state, step, grads, whole, params, ref
+            torch.cuda.empty_cache()
+    finally:
+        dattn.deform_attn, spatial.fetch, spatial.exchange = route, fetch, exchange
+        destroy_distributed()
+    torch.save(out, tmp / f"{tag}rank{rank}.pt")
+
+
+def spatial_axis_phase(torch, np, card, dev, n_d, n_x, tmp, whole):
+    """17c. spatial_axis (see the module docstring), against the one-process
+    references ``model_axis_phase`` left in ``tmp`` (``whole``: their
+    figures). Returns rank 0's K1, K2 and K3 launches in the {data: 1,
+    spatial: 2} steps ('pallas' for K3)."""
+    t_phase = time.perf_counter()
+    geo = {s["H"]: s for s in stage_geometry(scale_cfg().model.backbone, IMG)}
+    torch.cuda.empty_cache()
+    results = {}
+    for shape, legs in SPATIAL_MESHES:
+        tag = "sp" + "x".join(str(v) for v in shape.values())
+        _, results[tag] = run_ranks(torch, tmp, spatial_rank, tag, shape, legs)
+
+    pixels = len(AXIS_ROWS) * IMG * IMG
+    want_k1 = {"auto": n_d, "pallas": n_d, "float64": 0, "fsdp_ckpt": 2 * n_d}
+    for (shape, legs), (tag, ranks) in zip(SPATIAL_MESHES, results.items()):
+        X, S = shape["data"], shape["spatial"]
+        for leg in legs:
+            rows = [r[leg] for r in ranks]
+            v = [r["vs_one_process"] for r in rows]
+            w = whole["float64" if leg == "float64" else "pallas" if leg == "pallas" else "auto"]
+            emit({"phase": "spatial_axis", "card": card, "mesh": shape, "leg": leg,
+                  "fsdp": leg == "fsdp_ckpt", "use_checkpoint": leg == "fsdp_ckpt",
+                  "preset": TRAIN_PRESET, "image": [IMG, IMG],
+                  "dtype": "float64" if leg == "float64" else "float32", "tf32": False,
+                  "backend": "gloo (ranks on one card)", "global_batch": len(AXIS_ROWS),
+                  "attention_route": ("rows <-> batch all-to-all" if len(AXIS_ROWS) // X % S == 0
+                                      else "every row gathered"),
+                  "devices": [r["device"] for r in ranks],
+                  "loss": [x["loss"] for x in v], "loss_one_process": w["loss"],
+                  "loss_rel_err": [x["loss_rel_err"] for x in v],
+                  "grad_rel_err": [None if x["grad"] is None else
+                                   x["grad_f64"][0] if leg == "float64" else x["grad"][0]
+                                   for x in v],
+                  "params_rel_err": [x["params_rel_err"] for x in v],
+                  "iou_count_abs_diff": [x["iou_count_abs_diff"] for x in v], "pixels": pixels,
+                  "launches_per_rank": [r["launches"] for r in rows],
+                  "k1_calls_rank0": rows[0]["k1_calls"],
+                  "halo_rows_per_fetch_rank0": rows[0]["halo_rows_per_fetch"],
+                  "exchanges_rank0": rows[0]["exchanges"],
+                  "peak_gib_per_rank": [r["peak_gib"] for r in rows],
+                  "peak_gib_one_process": w["peak_gib"],
+                  "peak_share_of_one_process": [r["peak_gib"] / w["peak_gib"] for r in rows],
+                  "peak_gib_one_process_one_image": whole["auto_one_image"]["peak_gib"],
+                  "step_s": [r["seconds"] for r in rows],
+                  "states_equal": len({r["state_sha256"] for r in rows}) == 1,
+                  "tol": {"loss": TOL_TRAIN_LOSS, "params": TOL_GRAD,
+                          "grad": (f"{TOL_AXIS_F64_GRAD} global, {TOL_AXIS_F64_LEAF} a leaf"
+                                   if leg == "float64" else "reported, not gated in float32 "
+                                   "(SPATIAL_MESHES' note)")},
+                  "note": "gloo through the host on one card: parity and memory, not speed"})
+            for r, (row, x) in enumerate(zip(rows, v)):
+                what = f"spatial_axis {tag} {leg} rank {r}"
+                check(x["loss_rel_err"] <= TOL_TRAIN_LOSS,
+                      f"{what}: loss rel err {x['loss_rel_err']} > {TOL_TRAIN_LOSS}")
+                if leg == "float64":  # every gradient, globally and per leaf
+                    rel, off = x["grad_f64"]
+                    check(rel <= TOL_AXIS_F64_GRAD and not off,
+                          f"{what}: float64 grad rel err {rel}, leaves beyond "
+                          f"{TOL_AXIS_F64_LEAF}: {off}")
+                check(x["params_rel_err"] <= TOL_GRAD,
+                      f"{what}: params rel err {x['params_rel_err']} > {TOL_GRAD}")
+                check(x["iou_count_abs_diff"] <= 1e-4 * pixels,
+                      f"{what}: IoU counts differ by {x['iou_count_abs_diff']}")
+                want = {"deform_attn_fwd": want_k1[leg],
+                        "deform_attn_bwd": 0 if leg == "float64" else n_d,
+                        "x_block_fwd": n_x if leg == "pallas" else 0}
+                check(row["launches"] == want, f"{what}: launches {row['launches']}, want {want}")
+                # each K1 call on whole maps of one image (its data coordinate's
+                # one image gathered, or one of its two by the all-to-all)
+                whole_maps = [(geo[h]["g"], h) for _, h in row["k1_calls"]]
+                check(row["k1_calls"] == whole_maps
+                      and len(whole_maps) == (2 * n_d if leg == "fsdp_ckpt" else n_d),
+                      f"{what}: K1 calls (B·g, H) {row['k1_calls']}, want {whole_maps}")
+            check(len({r["state_sha256"] for r in rows}) == 1,
+                  f"spatial_axis {tag} {leg}: the ranks' states differ")
+    emit({"phase": "spatial_axis", "card": card, "seconds": time.perf_counter() - t_phase})
     r0 = results[next(iter(results))][0]
     return {"deform_attn_fwd": r0["auto"]["launches"]["deform_attn_fwd"],
             "deform_attn_bwd": r0["auto"]["launches"]["deform_attn_bwd"],

@@ -8,7 +8,8 @@ public functions keep its NHWC layout. Entry points (``build_model``,
 PyTorch version, which is how the tests hold the port to the JAX package.
 ``create_train_state`` and ``make_train_step`` train a segmentor or the
 classifier on one card, or over the processes of a ``torch.distributed``
-group (``parallel/``: data parallel, ``fsdp=True`` for ZeRO). ``serving`` exports a segmentor or the
+group (``parallel/``: data parallel, ``fsdp=True`` for ZeRO, the model
+and the spatial mesh axes). ``serving`` exports a segmentor or the
 classifier with ``torch.export`` and serves the artifact without the
 model code.
 """
@@ -28,6 +29,7 @@ _LAZY = {
     "TrainState": ".train.train_step",
     "create_train_state": ".train.train_step",
     "make_train_step": ".train.train_step",
+    "make_eval_step": ".train.train_step",
 }
 __all__ = sorted(_LAZY)
 

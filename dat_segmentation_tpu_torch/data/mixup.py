@@ -19,12 +19,13 @@ inside the step; a test replays those draws through ``MixupDraws``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..parallel.mesh import mirror_rows
+from ..parallel.spatial import Rows
 
 
 MIXUP_ALPHA, CUTMIX_ALPHA, SWITCH_PROB = 0.8, 1.0, 0.5
@@ -84,19 +85,25 @@ def one_hot_smooth(labels: torch.Tensor, num_classes: int, smoothing: float) -> 
 
 
 def mixup_cutmix(images: torch.Tensor, labels: torch.Tensor, draws: MixupDraws, *,
-                 num_classes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 num_classes: int, rows: Optional[Rows] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mixed images in ``images``' dtype, float32 soft targets
     (B, num_classes)) for NHWC ``images`` and integer ``labels`` (B,).
     Inside a process group the pairs are the global batch's: this
     process's rows with their mirrors on data coordinate X-1-d (an
-    all-gather of the images and labels over the data group)."""
+    all-gather of the images and labels over the data group). On a row
+    shard of the images (``rows``) the box is the whole image's, and
+    this shard takes its rows of it (its mirror is the same spatial peer's
+    shard)."""
     _, h, w, _ = images.shape
+    lo, H = (0, h) if rows is None else (rows.lo, rows.H)
     flipped = mirror_rows(images)
     if draws.use_cutmix:
-        y1, y2, x1, x2 = cutmix_box(h, w, draws.lam_cut, draws.cy, draws.cx)
+        y1, y2, x1, x2 = cutmix_box(H, w, draws.lam_cut, draws.cy, draws.cx)
         out = images.clone()
-        out[:, y1:y2, x1:x2] = flipped[:, y1:y2, x1:x2]
-        lam = np.float32(1) - np.float32((y2 - y1) * (x2 - x1)) / np.float32(h * w)
+        a, b = min(max(y1 - lo, 0), h), min(max(y2 - lo, 0), h)
+        out[:, a:b, x1:x2] = flipped[:, a:b, x1:x2]
+        lam = np.float32(1) - np.float32((y2 - y1) * (x2 - x1)) / np.float32(H * w)
     else:
         lam = np.float32(draws.lam_mix)
         rest = float(np.float32(1) - lam)

@@ -36,6 +36,17 @@ position-bias mode the JAX gate gives it (``DeformableAttention.
 runs_kernel``: the continuous bias, offsets on, attention dropout 0 or
 eval); the other blocks run the plain composite.
 
+Over the mesh's spatial axis (``parallel/spatial.py``) ``DAT.forward``
+takes a row shard of the image (``rows``) and returns each output's row
+shard and layout: the stem's, the down convs' and the depthwise convs'
+halos come from ``Conv2d``; each 'D' block's attention runs batch-parallel
+on whole maps (``TransformerStage._attend``: the rows <-> batch all-to-all,
+or every row gathered where S does not divide the batch), so the offsets
+sample the whole map and K1/K2 see the one-process step's shapes; K3 runs
+on a slab of the peer's rows and the halo it spoils (``spatial.slab``: 1 +
+window // 2 + 1 rows for an 'X' block with its LPU, 1 for an MLP), gated
+at the stage's global size.
+
 ``use_checkpoint`` recomputes each stage's activations in the backward
 during training (``torch.utils.checkpoint``), one stage at a time as the
 JAX package's ``nn.remat`` over ``TransformerStage`` (``models/dat.py:
@@ -49,7 +60,7 @@ its variables map onto this state_dict by name (``utils/convert.py``).
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -57,7 +68,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.x_block import (CHANNEL_MULTIPLE, HIDDEN_MULTIPLE, MAX_CHANNELS, WINDOWS,
                            fused_conv_mlp, fused_x_block)
+from ..parallel import spatial
 from ..parallel.mesh import is_sharded
+from ..parallel.spatial import Rows
 from .deformable_attention import DeformableAttention
 from .layers import (CmtConvMlp, Conv2d, ConvMlp, DropPath, Dropout, LayerNorm2d, LayerScale,
                      Mlp, gelu)
@@ -159,45 +172,71 @@ class TransformerStage(nn.Module):
         return (self.fusable and (self.drop == 0.0 or not self.training)
                 and H % 8 == 0 and W % 8 == 0)
 
-    def _fused_x(self, x: torch.Tensor, d: int) -> torch.Tensor:
+    @staticmethod
+    def _on_slab(fn, x: torch.Tensor, rows: Optional[Rows], halo: int) -> torch.Tensor:
+        """``fn`` (K3) on ``x``, or on a row shard's slab with ``halo`` rows
+        that K3 spoils, of which this peer's rows are kept."""
+        if rows is None:
+            return fn(x)
+        xs, keep = spatial.slab(x, rows, halo)
+        return fn(xs)[:, keep]
+
+    def _fused_x(self, x: torch.Tensor, d: int, rows: Optional[Rows] = None) -> torch.Tensor:
         lpu = self._block("lpu", d) if self.use_lpu else None
         conv, ln, mlp = (self._block(n, d) for n in ("conv_attn", "ln_cnvnxt", "mlp"))
-        return fused_x_block(
-            x, None if lpu is None else lpu.weight, None if lpu is None else lpu.bias,
+        halo = int(self.use_lpu) + self.window_size // 2 + 1  # LPU, window, the MLP's dw3
+        return self._on_slab(lambda t: fused_x_block(
+            t, None if lpu is None else lpu.weight, None if lpu is None else lpu.bias,
             conv.weight, conv.bias, ln.weight, ln.bias, *mlp.whole_weights(),
             self.window_size, self.use_lpu,
-        )
+        ), x, rows, halo)
 
-    def _fused_mlp(self, x: torch.Tensor, d: int) -> torch.Tensor:
+    def _fused_mlp(self, x: torch.Tensor, d: int, rows: Optional[Rows] = None) -> torch.Tensor:
         ln, mlp = self._block("norm2", d), self._block("mlp", d)
-        return fused_conv_mlp(x, ln.weight, ln.bias, *mlp.whole_weights())
+        return self._on_slab(lambda t: fused_conv_mlp(t, ln.weight, ln.bias,
+                                                      *mlp.whole_weights()), x, rows, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _attend(self, d: int, x: torch.Tensor, rows: Optional[Rows]) -> torch.Tensor:
+        """The 'D' block's attention on ``x``; on a row shard batch-parallel
+        over the spatial peers on whole maps: each peer takes B / S batch
+        rows (the rows <-> batch all-to-all), or where S does not divide B
+        every row of every batch row, keeping its own rows."""
+        attn = self._block("attn", d)
+        if rows is None:
+            return attn(x)
+        S, B = rows.axis.size, x.shape[0]
+        if B % S:
+            return spatial.keep_rows(attn(spatial.gather_rows(x, rows)), rows)
+        b = B // S
+        return spatial.from_batch(attn(spatial.to_batch(x, rows), batch=(rows.axis.rank * b, B)),
+                                  rows)
+
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
         if hasattr(self, "proj"):
-            x = self.proj(x)
-        fuse = self.fuses(x.shape[1], x.shape[2])
+            x = self.proj(x, rows)
+        fuse = self.fuses(x.shape[1] if rows is None else rows.H, x.shape[2])
         for d in range(self.depths):
             drop_path = self._block("drop_path", d)
             spec = self.stage_spec[d]
             if self.use_lpu and not (fuse and spec == "X"):  # K3 applies an X block's LPU
-                x = x + self._block("lpu", d)(x)
+                x = x + self._block("lpu", d)(x, rows)
             if spec == "X":
                 # ConvNeXt-like block; deliberately no residual (see header)
                 if fuse:
-                    y = self._fused_x(x, d)
+                    y = self._fused_x(x, d, rows)
                 else:
-                    y = self._block("conv_attn", d)(x)
-                    y = self._block("mlp", d)(self._block("ln_cnvnxt", d)(y))
+                    y = self._block("conv_attn", d)(x, rows)
+                    y = self._block("mlp", d)(self._block("ln_cnvnxt", d)(y), rows)
                 x = drop_path(y)
             else:
-                y = self._block("attn", d)(self._block("norm1", d)(x))
+                y = self._attend(d, self._block("norm1", d)(x), rows)
                 if self.layer_scale:
                     y = self._block("ls1", d)(y)
                 x = drop_path(y) + x
                 if fuse:
-                    y = self._fused_mlp(x, d)
+                    y = self._fused_mlp(x, d, rows)
                 else:
-                    y = self._block("mlp", d)(self._block("norm2", d)(x))
+                    y = self._block("mlp", d)(self._block("norm2", d)(x), rows)
                 if self.layer_scale:
                     y = self._block("ls2", d)(y)
                 x = drop_path(y) + x
@@ -225,8 +264,8 @@ def _replay(generators, states, stats):
                 t.copy_(k)
 
 
-def checkpointed(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``stage(x)`` whose activations are recomputed in the backward.
+def checkpointed(stage: nn.Module, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
+    """``stage(x, rows)`` whose activations are recomputed in the backward.
 
     The recompute sees what the forward saw. Its parameters and buffers
     are the tensors the stage holds at the forward (under the train
@@ -240,7 +279,9 @@ def checkpointed(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
     from a generator the caller owns, which ``torch.utils.checkpoint``
     does not restore (it restores the global RNG only): its state at the
     forward is replayed for the recompute. The BatchNorms' running
-    statistics (the stage's CMT MLPs) move in the forward only.
+    statistics (the stage's CMT MLPs) move in the forward only. On a row
+    shard the recompute exchanges rows again, in the forward's order on
+    every spatial peer (``parallel/spatial.py``).
     """
     tensors = dict(stage.named_parameters())
     tensors.update(stage.named_buffers())
@@ -251,10 +292,10 @@ def checkpointed(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
              if isinstance(m, nn.BatchNorm2d) for b, _ in m.named_buffers(recurse=False)]
     if is_sharded(stage):
         def run(inp, _):
-            return stage(inp)
+            return stage(inp, rows)
     else:
         def run(inp, t):
-            return torch.func.functional_call(stage, t, (inp,))
+            return torch.func.functional_call(stage, t, (inp, rows))
     return checkpoint(
         run, x, tensors, use_reentrant=False,
         context_fn=lambda: (contextlib.nullcontext(), _replay(generators, states, stats)),
@@ -360,17 +401,26 @@ class DAT(nn.Module):
             fmap //= 2
             in_dim = dims[i + 1] if i < 3 else dims[i]
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = self.stem_ln1(self.stem_conv1(x))
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None
+                ) -> Union[List[torch.Tensor], Tuple[List[torch.Tensor], List[Rows]]]:
+        """The outputs; on a row shard of the image (``rows``) their row
+        shards and their layouts."""
+        r = rows
+        x = self.stem_ln1(self.stem_conv1(x, r))
+        r = self.stem_conv1.out_rows(r)
         if self.use_conv_patches:
-            x = self.stem_ln2(self.stem_conv2(gelu(x)))
-        outs = []
+            x = self.stem_ln2(self.stem_conv2(gelu(x), r))
+            r = self.stem_conv2.out_rows(r)
+        outs, out_rows = [], []
         remat = self.use_checkpoint and self.training and torch.is_grad_enabled()
         for i in range(4):
             stage = getattr(self, f"stage_{i}")
-            x = checkpointed(stage, x) if remat else stage(x)
+            x = checkpointed(stage, x, r) if remat else stage(x, r)
             if i in self.out_indices:
                 outs.append(getattr(self, f"out_norm_{i}")(x))
+                out_rows.append(r)
             if i < 3:
-                x = getattr(self, f"down_ln_{i}")(getattr(self, f"down_conv_{i}")(x))
-        return outs
+                down = getattr(self, f"down_conv_{i}")
+                x = getattr(self, f"down_ln_{i}")(down(x, r))
+                r = down.out_rows(r)
+        return outs if rows is None else (outs, out_rows)

@@ -41,6 +41,11 @@ and K1 launch (on B·g/Y groups), the sampled features of every group
 gathered for ``proj_k``/``proj_v`` (this rank's heads), ``proj_out``'s
 partial sums all-reduced; the composite's blocks stay whole.
 
+Over the mesh's spatial axis the stage runs this module on whole maps of
+part of the data coordinate's batch (``models/dat.py:TransformerStage.
+_attend``); ``batch`` then places its dropout masks in the data
+coordinate's.
+
 Exact padded inference (``ops/valid_extent.py``: per-sample true extents
 inside a padded batch) is not ported; the port runs every input at its
 true shape.
@@ -155,7 +160,9 @@ class DeformableAttention(nn.Module):
         return (self.use_pe and not (self.dwc_pe or self.fixed_pe or self.log_cpb)
                 and not self.no_off and (self.attn_drop == 0.0 or not self.training))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, batch: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """x (B, H, W, C) -> (B, H, W, C); ``batch`` (first row, data
+        coordinate's batch size): x holds those batch rows of it."""
         B, H, W, C = x.shape
         ax = self.model_axis
         parts = 1 if ax is None else ax.size
@@ -202,7 +209,8 @@ class DeformableAttention(nn.Module):
         pos = pos.reshape(B * g, Ns, 2)
 
         if not self.runs_kernel():
-            return self.proj_drop(self.proj_out(self._composite(q, k, v, pos, H, W)))
+            return self.proj_drop(self.proj_out(self._composite(q, k, v, pos, H, W, batch)),
+                                  batch=batch)
 
         def by_group(t):  # (B, Ns, cl) -> (B*g, Ns, Cg)
             return t.reshape(B, Ns, g, cg).permute(0, 2, 1, 3).reshape(B * g, Ns, cg)
@@ -218,9 +226,9 @@ class DeformableAttention(nn.Module):
             scale=(C // self.n_heads) ** -0.5,
         )
         out = out.reshape(B, g, H, W, cg).permute(0, 2, 3, 1, 4).reshape(B, H, W, cl)
-        return self.proj_drop(row_parallel(self.proj_out, out, ax))
+        return self.proj_drop(row_parallel(self.proj_out, out, ax), batch=batch)
 
-    def _composite(self, q, k, v, pos, H: int, W: int) -> torch.Tensor:
+    def _composite(self, q, k, v, pos, H: int, W: int, batch=None) -> torch.Tensor:
         """The JAX package's composite (``deformable_attention.py:299-524``
         there) on q (B, H, W, C), k, v (B, Ns, C) and pos (B*g, Ns, 2): the
         products and the softmax in float32, P rounded to q's dtype for the
@@ -234,7 +242,7 @@ class DeformableAttention(nn.Module):
         bias = self._bias(pos, B, H, W)
         if bias is not None:
             attn = attn + bias
-        p = self.attn_dropout(torch.softmax(attn, dim=-1).to(q.dtype))
+        p = self.attn_dropout(torch.softmax(attn, dim=-1).to(q.dtype), batch=batch)
         out = torch.einsum("bhmn,bnhc->bmhc", p.float(), v.reshape(B, Ns, heads, hc).float())
         out = out.reshape(B, H, W, C).to(q.dtype)
         if hasattr(self, "rpe_dwc"):

@@ -25,8 +25,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.interpolate import adaptive_avg_pool, resize_bilinear, resize_nearest
-from ..parallel import mesh
+from ..parallel import mesh, spatial
+from ..parallel.spatial import Rows
 from .layers import BatchNorm2d, Conv2d, Dropout, LayerNorm2d, entering
+
+RowsList = Optional[Sequence[Optional[Rows]]]
+
+
+def _rows_of(rows: RowsList, n: int) -> List[Optional[Rows]]:
+    return list(rows) if rows is not None else [None] * n
+
+
+def _height(x: torch.Tensor, rows: Optional[Rows]) -> int:
+    return x.shape[1] if rows is None else rows.H
 
 
 def column(fn, x: torch.Tensor, axis) -> torch.Tensor:
@@ -49,8 +60,8 @@ class ConvBNReLU(nn.Module):
         self.conv = Conv2d(in_ch, features, kernel, padding=kernel // 2, bias=False)
         self.bn = BatchNorm2d(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return column(lambda t: F.relu(self.bn(self.conv(t))), x, self.model_axis)
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
+        return column(lambda t: F.relu(self.bn(self.conv(t, rows), rows)), x, self.model_axis)
 
 
 class UPerHead(nn.Module):
@@ -91,34 +102,40 @@ class UPerHead(nn.Module):
         self.dropout = Dropout(dropout_ratio)
         self.cls_seg = nn.Linear(channels, num_classes)
 
-    def _up(self, x: torch.Tensor, hw) -> torch.Tensor:
-        return resize_bilinear(x, hw, align_corners=False)
+    def _up(self, x: torch.Tensor, hw, rows: Optional[Rows] = None) -> torch.Tensor:
+        return resize_bilinear(x, hw, align_corners=False, rows=rows)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, feats: Sequence[torch.Tensor], rows: RowsList = None) -> torch.Tensor:
         n = self.n
-        deep = feats[-1]
+        rows = _rows_of(rows, n)
+        deep, r = feats[-1], rows[-1]
+        whole = deep if r is None else spatial.gather_rows(deep, r)
         ppm = [deep]
         for j, scale in enumerate(self.pool_scales):
-            p = getattr(self, f"ppm_{j}")(adaptive_avg_pool(deep, (scale, scale)))
-            ppm.append(self._up(p, deep.shape[1:3]))
-        laterals = [getattr(self, f"lateral_{i}")(feats[i]) for i in range(n - 1)]
-        laterals.append(self.ppm_bottleneck(torch.cat(ppm, dim=-1)))
+            p = getattr(self, f"ppm_{j}")(adaptive_avg_pool(whole, (scale, scale)))
+            up = self._up(p, whole.shape[1:3])
+            ppm.append(up if r is None else spatial.keep_rows(up, r))
+        laterals = [getattr(self, f"lateral_{i}")(feats[i], rows[i]) for i in range(n - 1)]
+        laterals.append(self.ppm_bottleneck(torch.cat(ppm, dim=-1), r))
+
+        def size(i):  # level i's global (H, W)
+            return _height(laterals[i], rows[i]), laterals[i].shape[2]
 
         fpn = [getattr(self, f"fpn_{i}") for i in range(n - 1)]
         if self.topdown == "mmseg":
             for i in range(n - 1, 0, -1):
-                laterals[i - 1] = laterals[i - 1] + self._up(laterals[i], laterals[i - 1].shape[1:3])
-            outs = [fpn[i](laterals[i]) for i in range(n - 1)] + [laterals[-1]]
+                laterals[i - 1] = laterals[i - 1] + self._up(laterals[i], size(i - 1), rows[i])
+            outs = [fpn[i](laterals[i], rows[i]) for i in range(n - 1)] + [laterals[-1]]
         else:
             for i in range(n - 1, 0, -1):
-                up = self._up(laterals[i], laterals[i - 1].shape[1:3])
-                laterals[i - 1] = fpn[i - 1](laterals[i - 1] + up)
+                up = self._up(laterals[i], size(i - 1), rows[i])
+                laterals[i - 1] = fpn[i - 1](laterals[i - 1] + up, rows[i - 1])
             outs = laterals
 
-        target = outs[0].shape[1:3]
-        outs = [outs[0]] + [self._up(o, target) for o in outs[1:]]
-        x = self.fuse_bottleneck(torch.cat(outs, dim=-1))
-        return self.cls_seg(self.dropout(x))
+        target = size(0)
+        outs = [outs[0]] + [self._up(o, target, rows[i + 1]) for i, o in enumerate(outs[1:])]
+        x = self.fuse_bottleneck(torch.cat(outs, dim=-1), rows[0])
+        return self.cls_seg(self.dropout(x, rows=rows[0]))
 
 
 class FCNHead(nn.Module):
@@ -140,10 +157,10 @@ class FCNHead(nn.Module):
         self.dropout = Dropout(dropout_ratio)
         self.cls_seg = nn.Linear(channels, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
         for i in range(self.num_convs):
-            x = getattr(self, f"conv_{i}")(x)
-        return self.cls_seg(self.dropout(x))
+            x = getattr(self, f"conv_{i}")(x, rows)
+        return self.cls_seg(self.dropout(x, rows=rows))
 
 
 class FPNNeck(nn.Module):
@@ -159,13 +176,15 @@ class FPNNeck(nn.Module):
             self.add_module(f"lateral_{i}", nn.Linear(c, out_channels))
             self.add_module(f"fpn_{i}", Conv2d(out_channels, out_channels, 3, padding=1))
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, feats: Sequence[torch.Tensor], rows: RowsList = None) -> List[torch.Tensor]:
         ax = self.model_axis
+        rows = _rows_of(rows, self.n)
         laterals = [column(getattr(self, f"lateral_{i}"), f, ax) for i, f in enumerate(feats)]
         for i in range(self.n - 1, 0, -1):
-            up = resize_nearest(laterals[i], laterals[i - 1].shape[1:3])
-            laterals[i - 1] = laterals[i - 1] + up
-        return [column(getattr(self, f"fpn_{i}"), lat, ax) for i, lat in enumerate(laterals)]
+            hw = (_height(laterals[i - 1], rows[i - 1]), laterals[i - 1].shape[2])
+            laterals[i - 1] = laterals[i - 1] + resize_nearest(laterals[i], hw, rows[i])
+        return [column(lambda t, i=i: getattr(self, f"fpn_{i}")(t, rows[i]), lat, ax)
+                for i, lat in enumerate(laterals)]
 
 
 class FPNHead(nn.Module):
@@ -197,22 +216,25 @@ class FPNHead(nn.Module):
         self.dropout = Dropout(dropout_ratio)
         self.cls_seg = nn.Linear(channels, num_classes)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, feats: Sequence[torch.Tensor], rows: RowsList = None) -> torch.Tensor:
         fs = self.feature_strides
+        rows = _rows_of(rows, len(feats))
         out = None
         for i, length in enumerate(self.head_lengths):
-            x = feats[i]
+            x, r = feats[i], rows[i]
             for k in range(length):
-                x = getattr(self, f"scale_{i}_{k}")(x)
+                x = getattr(self, f"scale_{i}_{k}")(x, r)
                 if fs[i] != fs[0]:
-                    x = resize_bilinear(
-                        x, (x.shape[1] * 2, x.shape[2] * 2), align_corners=self.align_corners
-                    )
+                    h = _height(x, r) * 2
+                    x = resize_bilinear(x, (h, x.shape[2] * 2), align_corners=self.align_corners,
+                                        rows=r)
+                    r = None if r is None else r.at(h)
             if out is None:
                 out = x
             else:
-                out = out + resize_bilinear(x, out.shape[1:3], align_corners=self.align_corners)
-        return self.cls_seg(self.dropout(out))
+                hw = (_height(out, rows[0]), out.shape[2])
+                out = out + resize_bilinear(x, hw, align_corners=self.align_corners, rows=r)
+        return self.cls_seg(self.dropout(out, rows=rows[0]))
 
 
 class ClsHead(nn.Module):
@@ -227,6 +249,11 @@ class ClsHead(nn.Module):
         self.drop = Dropout(dropout_ratio)
         self.fc = nn.Linear(in_channels, num_classes)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
-        x = self.norm(feats[-1]).mean(dim=(1, 2))
+    def forward(self, feats: Sequence[torch.Tensor], rows: RowsList = None) -> torch.Tensor:
+        r = _rows_of(rows, len(feats))[-1]
+        x = self.norm(feats[-1])
+        if r is None:
+            x = x.mean(dim=(1, 2))
+        else:  # each peer's rows' sum, summed over the peers
+            x = spatial.sum_over_peers(x.sum(dim=(1, 2)), r.axis) / (r.H * x.shape[2])
         return column(self.fc, self.drop(x), self.model_axis)

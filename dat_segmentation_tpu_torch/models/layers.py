@@ -15,6 +15,11 @@ Randomness in training (``DropPath``, ``Dropout``) draws from a
 with ``use_generator``; the global RNG is used nowhere, so a train step is
 reproducible from its seed. ``BatchNorm2d`` keeps its running statistics
 as the JAX package's flax BatchNorm does (biased variance).
+
+Over the mesh's spatial axis (``parallel/spatial.py``) a module given
+``rows`` (a ``Rows``) takes a row shard of its input: ``Conv2d`` fetches
+its kernel's halo, ``BatchNorm2d`` reduces over data × spatial and
+``Dropout`` keeps its rows of the data coordinate's whole mask.
 """
 
 from __future__ import annotations
@@ -25,8 +30,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..parallel.mesh import all_reduce, is_distributed, process_shard_info
+from ..parallel.spatial import Rows
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -34,10 +40,36 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` on NHWC tensors; ``groups=channels`` is depthwise."""
+    """``nn.Conv2d`` on NHWC tensors; ``groups=channels`` is depthwise.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    On a row shard (``rows``) it fetches the input rows its output rows
+    (``out_rows``) read, zeros beyond the image as the padding, and
+    convolves them unpadded in H: the halo of a stride-1 conv, the rows of
+    a stride-s conv on the output's layout. A peer without output rows
+    convolves one and keeps none (``parallel/spatial.py``: every peer runs
+    the same operations)."""
+
+    def out_rows(self, rows: Optional[Rows]) -> Optional[Rows]:
+        """The layout of the output of an input on ``rows`` (None: None)."""
+        if rows is None:
+            return None
+        (k, s, p) = self.kernel_size[0], self.stride[0], self.padding[0]
+        return rows.at((rows.H + 2 * p - k) // s + 1)
+
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
+        if rows is None:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        out = self.out_rows(rows)
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+
+        def want(r):
+            lo, hi = out.span(r)
+            return lo * s - p, (lo + max(hi - lo, 1) - 1) * s - p + k
+
+        xs = spatial.fetch(x, rows, want).permute(0, 3, 1, 2)
+        y = F.conv2d(xs, self.weight, self.bias, self.stride, (0, self.padding[1]),
+                     self.dilation, self.groups)
+        return y[:, :, :out.n].permute(0, 2, 3, 1)
 
 
 class LayerNorm2d(nn.LayerNorm):
@@ -69,7 +101,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     Inside a process group the statistics are the global batch's, as the
     JAX package's under GSPMD (``_GlobalBatchNorm``): two all-reduces over
-    the data group, the sum with the count and then the sum of squared
+    the data group (over data × spatial for a row shard, ``rows``; a
+    replicated tensor beside a spatial axis takes the data group's), the sum with the count and then the sum of squared
     deviations from the global mean (no E[x²] - E[x]² either), and one in
     the backward; the running statistics come out the same on every
     process. A BatchNorm of channels split over the model axis holds this
@@ -77,13 +110,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``nn.SyncBatchNorm`` refuses CPU tensors.)
     """
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
         if not self.training:
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         dt = torch.promote_types(x.dtype, torch.float32)
         if is_distributed():
             y, mean, var = _GlobalBatchNorm.apply(
-                x.permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt), self.eps)
+                x.permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt), self.eps,
+                rows is not None)
             self._track(mean, var)
             return y.permute(0, 2, 3, 1)
         y, mean, rstd = torch.native_batch_norm(
@@ -108,23 +142,24 @@ class _GlobalBatchNorm(torch.autograd.Function):
     process's channels together. The backward's dx takes the global sums of
     dy and dy * x_hat (one all-reduce); the affine's gradients are this
     process's share, which the step sums with the others'. Only x (as the
-    plain BatchNorm) and the per-channel statistics are kept for it."""
+    plain BatchNorm) and the per-channel statistics are kept for it.
+    ``rows``: x is a row shard, reduced over data × spatial."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, rows):
         c = x.shape[1]
         acc = torch.promote_types(x.dtype, torch.float32)  # float32, or float64
         n = torch.tensor([x.numel() // c], dtype=acc, device=x.device)
-        s = all_reduce(torch.cat([x.sum((0, 2, 3), dtype=acc), n]))
+        s = all_reduce(torch.cat([x.sum((0, 2, 3), dtype=acc), n]), rows=rows)
         count = s[c]
         mean = s[:c] / count
-        m2 = all_reduce((x.to(acc) - mean[:, None, None]).square().sum((0, 2, 3)))
+        m2 = all_reduce((x.to(acc) - mean[:, None, None]).square().sum((0, 2, 3)), rows=rows)
         var = m2 / count
         rstd = torch.rsqrt(var + eps)
         # eval-mode batch norm with the global statistics: one pass, x's dtype
         y = torch.native_batch_norm(x, weight, bias, mean, var, False, 0.0, eps)[0]
         ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.count = count
+        ctx.count, ctx.rows = count, rows
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -136,9 +171,9 @@ class _GlobalBatchNorm(torch.autograd.Function):
         xhat = (x.to(mean.dtype) - mean[:, None, None]) * rstd[:, None, None]
         local = torch.cat([g.sum((0, 2, 3)), (g * xhat).sum((0, 2, 3))])
         dbias, dweight = local[:c].clone(), local[c:].clone()
-        s = all_reduce(local) / ctx.count
+        s = all_reduce(local, rows=ctx.rows) / ctx.count
         dx = (g - s[:c, None, None] - xhat * s[c:, None, None]) * (weight * rstd)[:, None, None]
-        return dx.to(x.dtype), dweight, dbias, None
+        return dx.to(x.dtype), dweight, dbias, None, None
 
 
 class Dropout(nn.Module):
@@ -150,7 +185,11 @@ class Dropout(nn.Module):
     axis) and keeps its rows, so the masks are the one-process step's at
     the global batch; on a tensor whose last axis is this rank's slice of
     the channels (``channels``: the model axis) it keeps that slice of the
-    whole width's mask too."""
+    whole width's mask too, on a row shard (``rows``) its image rows, and
+    on whole maps of part of the data coordinate's batch (``batch``: the
+    first row and the data coordinate's batch size) those batch rows."""
+
+    rows_in_mask = True  # the mask has the tensor's rows (drop path's has 1)
 
     def __init__(self, rate: float):
         super().__init__()
@@ -160,8 +199,9 @@ class Dropout(nn.Module):
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return tuple(x.shape)
 
-    def forward(self, x: torch.Tensor,
-                channels: Optional[mesh.ModelAxis] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels: Optional[mesh.ModelAxis] = None,
+                rows: Optional[Rows] = None,
+                batch: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.generator is None:
@@ -170,17 +210,22 @@ class Dropout(nn.Module):
                 "hand one to the model with layers.use_generator(model, generator)"
             )
         keep = 1.0 - self.rate
-        shape = self.mask_shape(x)
+        shape = list(self.mask_shape(x))
         rank, world = process_shard_info()
         parts = 1 if channels is None or shape[-1] == 1 else channels.size
+        first, B = batch if batch is not None else (0, shape[0])
         # inside a process group: the global batch's mask (the generator is
         # seeded alike on every process), this process's rows of it (and
-        # its channels)
-        mask = torch.empty((shape[0] * world,) + shape[1:-1] + (shape[-1] * parts,),
-                           device=x.device)
+        # its channels, its image rows)
+        whole = [B * world] + shape[1:-1] + [shape[-1] * parts]
+        if rows is not None and self.rows_in_mask:
+            whole[1] = rows.H
+        mask = torch.empty(whole, device=x.device)
         mask.bernoulli_(keep, generator=self.generator)
-        if world > 1:
-            mask = mask[rank * shape[0]:(rank + 1) * shape[0]]
+        start = rank * B + first
+        mask = mask[start:start + shape[0]]
+        if rows is not None and self.rows_in_mask:
+            mask = mask[:, rows.lo:rows.hi]
         if parts > 1:
             mask = mesh.slice_of(mask, -1 % mask.ndim, channels)
         return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
@@ -189,6 +234,8 @@ class Dropout(nn.Module):
 class DropPath(Dropout):
     """Per-sample stochastic depth (timm semantics, the JAX ``DropPath``):
     each sample is kept and scaled by 1/keep, or zeroed, as a whole."""
+
+    rows_in_mask = False
 
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return (x.shape[0],) + (1,) * (x.ndim - 1)
@@ -242,10 +289,10 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(dim * expansion, dim)
         self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
         ax = self.model_axis
-        x = self.drop(gelu(self.fc1(entering(x, ax))), ax)
-        return self.drop(row_parallel(self.fc2, x, ax))
+        x = self.drop(gelu(self.fc1(entering(x, ax))), ax, rows)
+        return self.drop(row_parallel(self.fc2, x, ax), rows=rows)
 
 
 class ConvMlp(nn.Module):
@@ -263,11 +310,11 @@ class ConvMlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
         self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
         ax = self.model_axis
-        x = self.drop(self.fc1(entering(x, ax)), ax)
-        x = gelu(x + self.dwc(x))
-        return self.drop(row_parallel(self.fc2, x, ax))
+        x = self.drop(self.fc1(entering(x, ax)), ax, rows)
+        x = gelu(x + self.dwc(x, rows))
+        return self.drop(row_parallel(self.fc2, x, ax), rows=rows)
 
     def whole_weights(self):
         """(fc1 w, b, dwc w, b, fc2 w, b) whole: over the model axis the
@@ -297,8 +344,8 @@ class CmtConvMlp(nn.Module):
         self.bn3 = BatchNorm2d(dim)
         self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
         ax = self.model_axis
-        x = self.drop(self.bn1(gelu(self.fc1(entering(x, ax)))), ax)
-        x = self.bn2(gelu(x + self.dwc(x)))
-        return self.drop(self.bn3(row_parallel(self.fc2, x, ax)))
+        x = self.drop(self.bn1(gelu(self.fc1(entering(x, ax))), rows), ax, rows)
+        x = self.bn2(gelu(x + self.dwc(x, rows)), rows)
+        return self.drop(self.bn3(row_parallel(self.fc2, x, ax), rows), rows=rows)

@@ -8,6 +8,11 @@ auxiliary head also runs it on ``feats[aux_in_index]`` and returns
 ``(logits, aux)``, both upsampled to the input size, as the JAX package
 does with ``train=True``. ``DatClassifier`` is the backbone and a
 ``ClsHead`` (``segmentor.py:102`` there): image -> (B, num_classes) logits.
+
+Over the mesh's spatial axis both take a row shard of the image and its
+layout (``rows``, ``parallel/spatial.py``): a segmentor returns the row
+shards of its logits at the image's layout, a classifier its logits
+replicated on every spatial peer.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.interpolate import resize_bilinear
+from ..parallel.spatial import Rows
 
 
 class EncoderDecoder(nn.Module):
@@ -39,19 +45,27 @@ class EncoderDecoder(nn.Module):
         self.aux_in_index = aux_in_index
 
     def forward(
-        self, x: torch.Tensor, *, upsample: bool = True
+        self, x: torch.Tensor, *, upsample: bool = True, rows: Optional[Rows] = None
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """x (B, H, W, 3) -> logits (B, H, W, classes), or the head's
         stride-4 logits with ``upsample=False``; in training with an
-        auxiliary head, ``(logits, aux)``."""
-        feats = self.backbone(x)
-        head_feats = self.neck(feats) if self.neck is not None else feats
-        logits = self.decode_head(head_feats)
+        auxiliary head, ``(logits, aux)``. On a row shard of the image
+        (``rows``) the logits' row shards."""
+        if rows is None:  # a registered head may take the features alone
+            feats = self.backbone(x)
+            fr, kw, aux_kw = [None] * len(feats), {}, {}
+        else:
+            feats, fr = self.backbone(x, rows)
+            kw, aux_kw = {"rows": fr}, {"rows": fr[self.aux_in_index]}
+        hw = (x.shape[1] if rows is None else rows.H, x.shape[2])
+        head_feats = self.neck(feats, **kw) if self.neck is not None else feats
+        logits = self.decode_head(head_feats, **kw)
         if upsample:
-            logits = resize_bilinear(logits, x.shape[1:3], align_corners=self.align_corners)
+            logits = resize_bilinear(logits, hw, align_corners=self.align_corners, rows=fr[0])
         if self.training and self.auxiliary_head is not None:
-            aux = self.auxiliary_head(feats[self.aux_in_index])
-            aux = resize_bilinear(aux, x.shape[1:3], align_corners=self.align_corners)
+            i = self.aux_in_index
+            aux = self.auxiliary_head(feats[i], **aux_kw)
+            aux = resize_bilinear(aux, hw, align_corners=self.align_corners, rows=fr[i])
             return logits, aux
         return logits
 
@@ -64,6 +78,9 @@ class DatClassifier(nn.Module):
         self.backbone = backbone
         self.head = head
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, 3) -> logits (B, num_classes)."""
-        return self.head(self.backbone(x))
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
+        """x (B, H, W, 3) -> logits (B, num_classes); of a row shard of the
+        image (``rows``) too, replicated on the spatial peers."""
+        if rows is None:
+            return self.head(self.backbone(x))
+        return self.head(*self.backbone(x, rows))

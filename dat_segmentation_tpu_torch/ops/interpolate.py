@@ -7,14 +7,23 @@ card they are the PyTorch functionals the reference used
 to an NCHW view of the NHWC tensor (channels-last memory, no copy).
 ``resize_uint8_linear`` is cv2's fixed-point ``INTER_LINEAR`` resize of a
 uint8 image (the JAX package's test-time resizes), in integer PyTorch ops.
+
+On a row shard (``rows``, the mesh's spatial axis: ``parallel/
+spatial.py``) the resizes fetch the source rows their output rows read
+and interpolate them (``_rows_resize``); the output is the row shard of
+the output's height. ``adaptive_avg_pool`` takes every row (the callers
+gather them).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import spatial
+from ..parallel.spatial import Rows
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -25,10 +34,92 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _linear_src(n_in: int, n_out: int, lo: int, hi: int, align_corners: bool):
+    """``F.interpolate``'s bilinear source taps of output indices [lo, hi)
+    along one axis: (i0, i1, the weight of i1), in float64."""
+    d = torch.arange(lo, hi, dtype=torch.float64)
+    if align_corners:
+        src = d * ((n_in - 1) / (n_out - 1) if n_out > 1 else 0.0)
+    else:
+        src = ((d + 0.5) * (n_in / n_out) - 0.5).clamp_min(0.0)
+    i0 = src.floor().clamp_max(n_in - 1)
+    lam = (src - i0).clamp(0.0, 1.0)
+    i0 = i0.long()
+    return i0, (i0 + 1).clamp_max(n_in - 1), lam
+
+
+def _nearest_src(n_in: int, n_out: int, lo: int, hi: int) -> torch.Tensor:
+    """``F.interpolate(mode='nearest')``'s source indices of output indices
+    [lo, hi): floor(d · n_in / n_out) in float32, the last row at most."""
+    d = torch.arange(lo, hi, dtype=torch.float32)
+    return (d * torch.tensor(n_in / n_out, dtype=torch.float32)).floor().long().clamp_max(
+        n_in - 1)
+
+
+def _lerp(x: torch.Tensor, dim: int, i0, i1, lam) -> torch.Tensor:
+    shape = [1] * x.ndim
+    shape[dim] = -1
+    w = lam.to(x.device, x.dtype).view(shape)
+    a = x.index_select(dim, i0.to(x.device))
+    b = x.index_select(dim, i1.to(x.device))
+    return a + (b - a) * w
+
+
+def _span_of(idx: torch.Tensor) -> Tuple[int, int]:
+    return (int(idx.min()), int(idx.max()) + 1) if idx.numel() else (0, 0)
+
+
+def _rows_resize(x: torch.Tensor, rows: Rows, out_hw: Tuple[int, int], taps,
+                 mode: str, align_corners: Optional[bool]) -> torch.Tensor:
+    """The output rows this peer holds of a resize of the row shard ``x``.
+    An upsample by a whole factor k (``align_corners`` False) is
+    ``F.interpolate`` of the source rows with one more on each side: its
+    source coordinates are the same shifted by whole rows, so the kept rows
+    are the one-process values exactly. Any other is separable:
+    ``taps(n_in, n_out, lo, hi)`` gives an axis's source indices (and
+    weights, None for nearest) of output indices [lo, hi)."""
+    H_out, W_out = out_hw
+    out = rows.at(H_out)
+    k = H_out // rows.H
+    if k * rows.H == H_out and not align_corners:
+        def want(s):
+            lo, hi = out.span(s)
+            a = max(lo // k - 1, 0)
+            return a, max(min(-(-hi // k) + 1, rows.H), a + 1)
+
+        a = want(rows.axis.rank)[0]
+        xs = spatial.fetch(x, rows, want)
+        y = F.interpolate(_nchw(xs), size=(xs.shape[1] * k, W_out), mode=mode,
+                          align_corners=align_corners)
+        return _nhwc(y)[:, out.lo - a * k:out.hi - a * k].contiguous()
+
+    def need(s):
+        lo, hi = out.span(s)
+        idx = taps(rows.H, H_out, lo, hi)
+        return _span_of(torch.cat([idx[0], idx[1]]))
+
+    a = need(rows.axis.rank)[0]
+    xs = spatial.fetch(x, rows, need)
+    i0, i1, lam = taps(rows.H, H_out, out.lo, out.hi)
+    y = _lerp(xs, 1, i0 - a, i1 - a, lam) if lam is not None else xs.index_select(
+        1, (i0 - a).to(x.device))
+    if x.shape[2] != W_out:
+        j0, j1, lam = taps(x.shape[2], W_out, 0, W_out)
+        y = _lerp(y, 2, j0, j1, lam) if lam is not None else y.index_select(2, j0.to(x.device))
+    return y
+
+
 def resize_bilinear(
-    x: torch.Tensor, out_hw: Tuple[int, int], *, align_corners: bool = False
+    x: torch.Tensor, out_hw: Tuple[int, int], *, align_corners: bool = False,
+    rows: Optional[Rows] = None,
 ) -> torch.Tensor:
-    """``F.interpolate(mode='bilinear')`` of an NHWC tensor to ``out_hw``."""
+    """``F.interpolate(mode='bilinear')`` of an NHWC tensor to ``out_hw``;
+    of a row shard on ``rows``, its rows of the output (H global)."""
+    if rows is not None:
+        if (rows.H, x.shape[2]) == tuple(out_hw):
+            return x
+        return _rows_resize(x, rows, out_hw, lambda n_in, n_out, lo, hi: _linear_src(
+            n_in, n_out, lo, hi, align_corners), "bilinear", align_corners)
     if tuple(x.shape[1:3]) == tuple(out_hw):
         return x
     y = F.interpolate(
@@ -37,9 +128,15 @@ def resize_bilinear(
     return _nhwc(y)
 
 
-def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int],
+                   rows: Optional[Rows] = None) -> torch.Tensor:
     """``F.interpolate(mode='nearest')`` of an NHWC tensor (the FPN neck's
-    top-down path)."""
+    top-down path); of a row shard on ``rows``, its rows of the output."""
+    if rows is not None:
+        if (rows.H, x.shape[2]) == tuple(out_hw):
+            return x
+        return _rows_resize(x, rows, out_hw, lambda n_in, n_out, lo, hi: (
+            _nearest_src(n_in, n_out, lo, hi),) * 2 + (None,), "nearest", None)
     if tuple(x.shape[1:3]) == tuple(out_hw):
         return x
     return _nhwc(F.interpolate(_nchw(x), size=tuple(out_hw), mode="nearest"))

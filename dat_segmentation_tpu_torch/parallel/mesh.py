@@ -6,15 +6,19 @@ each process of ``torch.distributed`` runs the step on its share of the
 global batch, and the places where the JAX program reads the whole batch
 reduce across processes explicitly.
 
-The mesh is ``{"data": X, "model": Y}`` over the X·Y processes (``-1``: all
-the processes the other axes leave), laid out data-major as the JAX
-package reshapes its devices: rank ``d·Y + m`` is data coordinate d and
-model coordinate m, so model peers are adjacent ranks (one node).
-``resolve_mesh`` makes the ``Layout``: a process group for each data group
-(the X ranks of one model coordinate) and each model group (the Y ranks of
-one data coordinate); every rank creates every group, in one order. The
-batch is sharded over ``data`` only: the Y ranks of a model group hold the
-same rows (``process_shard_info`` gives the data coordinate).
+The mesh is ``{"data": X, "model": Y}`` or ``{"data": X, "spatial": S}``
+over the X·Y (X·S) processes (``-1``: all the processes the other axes
+leave), laid out as the JAX package reshapes its devices, in the dict's
+order, data first: rank ``d·Y + m`` is data coordinate d and model
+coordinate m (``d·S + s`` with spatial coordinate s), so model (spatial)
+peers are adjacent ranks (one node). ``resolve_mesh`` makes the
+``Layout``: a process group for each data group (the X ranks of one model
+or spatial coordinate), each model group and each spatial group (the Y or
+S ranks of one data coordinate); every rank creates every group, in one
+order. The batch is sharded over ``data``: the peers of a model or spatial
+group load the same rows (``process_shard_info`` gives the data
+coordinate); the spatial peers then split each image's rows
+(``parallel/spatial.py``).
 
 * Every reduction over the global batch goes over this rank's data group:
   BatchNorm's statistics (``models/layers.py:BatchNorm2d``), dropout and
@@ -22,10 +26,11 @@ same rows (``process_shard_info`` gives the data coordinate).
   (``mirror_rows``), the losses' counts (``train/losses.py``), the
   gradient sum and the metrics (``train/train_step.py``), the eval's counts
   (``all_reduce_host(..., data_axis=True)``). Over the world, each row
-  would count Y times.
+  would count Y times. A reduction over row-sharded activations (``rows``)
+  goes over the data × spatial group, ``Layout.rows_group``.
 * ``fsdp=True`` (or ``'data'``) shards the parameters and AdamW's moments
   over the data groups (ZeRO) with FSDP2 (``shard_model``); model peers
-  compute the same thing.
+  compute the same thing, spatial peers sum their sharded gradients.
 * ``fsdp='model'`` is tensor parallelism over the model groups
   (``parallel/model_axis.py``): parameters held as this rank's slices,
   Megatron's column- and row-parallel layers through the autograd
@@ -33,8 +38,8 @@ same rows (``process_shard_info`` gives the data coordinate).
   ``gather_model``), ``full_state`` and ``load_full_state`` gathering and
   slicing them in the one-process format.
 
-A ``spatial`` axis is not ported (ROADMAP.md, Queue 1 item 10: the spatial
-axis). With no process group initialised nothing here issues a
+The model and spatial axes together are not ported (ROADMAP.md, Queue 1
+item 13). With no process group initialised nothing here issues a
 collective, and every caller runs its one-process code.
 
 Collectives on the step's tensors go over NCCL on the card, gloo on the
@@ -58,9 +63,11 @@ import torch.nn as nn
 from ..utils.device import resolve_device
 
 BUCKET_BYTES = 64 << 20  # the gradient all-reduce's bucket
-SPATIAL_LATER = "ROADMAP.md, Queue 1 item 10: the spatial axis"
+BOTH_LATER = "ROADMAP.md, Queue 1 item 13: the model and spatial axes together"
+_AXES = ("data", "model", "spatial")
+_DATA = object()  # reduce_gradients' default group: this rank's data group
 _control: Dict[str, object] = {}  # the gloo group beside an NCCL default group
-_layouts: Dict[Tuple[int, int], "Layout"] = {}  # by (data, model), made once a group
+_layouts: Dict[Tuple[int, int, int], "Layout"] = {}  # by (data, model, spatial), made once
 _current: Dict[str, "Layout"] = {}  # the layout the last resolve_mesh chose
 
 
@@ -77,10 +84,11 @@ def is_main() -> bool:
 
 @dataclass(frozen=True)
 class ModelAxis:
-    """This process's place on the model axis: its coordinate, the axis's
-    size and the process group of its model peers. A model split by
-    ``parallel/model_axis.py:shard_model_axis`` holds it on every split
-    module."""
+    """This process's place on the model (or spatial) axis: its
+    coordinate, the axis's size and the process group of its peers. A
+    model split by ``parallel/model_axis.py:shard_model_axis`` holds it on
+    every split module; a row shard's ``parallel/spatial.py:Rows`` holds
+    the spatial axis's."""
 
     rank: int
     size: int
@@ -89,8 +97,10 @@ class ModelAxis:
 
 @dataclass(frozen=True)
 class Layout:
-    """The process mesh ``{data: X, model: Y}``: this rank's coordinates
-    and groups. ``data_group`` None is the default group (Y = 1);
+    """The process mesh ``{data: X, model: Y}`` or ``{data: X, spatial:
+    S}``: this rank's coordinates and groups. A group None is the default
+    group (``data_group`` when Y = S = 1, ``rows_group`` always: the data
+    × spatial group is the world where the model axis is 1);
     ``data_control`` None is ``control_group()``."""
 
     data: int
@@ -100,6 +110,9 @@ class Layout:
     data_group: object = None
     model_group: object = None
     data_control: object = None
+    spatial: int = 1
+    spatial_rank: int = 0
+    spatial_group: object = None
 
     @property
     def model_axis(self) -> Optional[ModelAxis]:
@@ -107,6 +120,19 @@ class Layout:
         if self.model == 1:
             return None
         return ModelAxis(self.model_rank, self.model, self.model_group)
+
+    @property
+    def spatial_axis(self) -> Optional[ModelAxis]:
+        """The spatial axis when it is larger than 1."""
+        if self.spatial == 1:
+            return None
+        return ModelAxis(self.spatial_rank, self.spatial, self.spatial_group)
+
+    @property
+    def rows_group(self):
+        """The group over which row-sharded activations and the gradients
+        sum: data × spatial (the data group without a spatial axis)."""
+        return None if self.spatial > 1 else self.data_group
 
 
 def layout() -> Layout:
@@ -199,39 +225,48 @@ def resolve_mesh(mesh_shape: Optional[Dict[str, int]] = None,
     """The ``Layout`` of ``mesh_shape`` (default ``{"data": -1}``: every
     process) in this process group (one process without one), made the
     current one; its groups are made at the first call for a shape (every
-    rank calls this at the same points). The axes are ``data`` and
-    ``model``: a ``spatial`` axis (or another name) larger than 1 raises
-    ``NotImplementedError``. The axes' product must be the group's size.
-    ``fsdp`` True or ``'data'`` shards over the data axis of a process
-    group (of any size); ``fsdp='model'`` splits over the model axis, which
-    must exist with a size above 1 (``ValueError``, as the JAX package)."""
+    rank calls this at the same points). The axes are ``data``, ``model``
+    and ``spatial``: ``model`` and ``spatial`` both larger than 1, or
+    another name larger than 1, raise ``NotImplementedError``. The axes'
+    product must be the group's size. ``fsdp`` True or ``'data'`` shards
+    over the data axis of a process group (of any size); ``fsdp='model'``
+    splits over the model axis, which must exist with a size above 1
+    (``ValueError``, as the JAX package)."""
     shape = dict(mesh_shape or {"data": -1})
     for axis, size in shape.items():
-        if axis not in ("data", "model") and size != 1:
+        if axis not in _AXES and size != 1:
             raise NotImplementedError(
-                f"mesh axis {axis!r} of size {size}: the port shards the batch over 'data' and "
-                f"the parameters over 'model' ({SPATIAL_LATER})")
+                f"mesh axis {axis!r} of size {size}: the port's axes are {', '.join(_AXES)}")
+    if shape.get("model", 1) != 1 and shape.get("spatial", 1) != 1:
+        raise NotImplementedError(f"mesh {shape}: a model axis beside a spatial one ({BOTH_LATER})")
     world = dist.get_world_size() if is_distributed() else 1
-    sizes = _axis_sizes({k: v for k, v in shape.items() if k in ("data", "model")}, world)
-    sizes.setdefault("data", world // max(sizes.get("model", 1), 1))
+    sizes = _axis_sizes({k: v for k, v in shape.items() if k in _AXES}, world)
+    sizes.setdefault("data", world // max(sizes.get("model", 1) * sizes.get("spatial", 1), 1))
     axis = fsdp if isinstance(fsdp, str) else "data"
+    if fsdp and axis == "spatial" and sizes.get("spatial", 1) > 1:
+        raise NotImplementedError("fsdp over 'spatial': the port shards parameters over the "
+                                  f"data axis beside a spatial one ({BOTH_LATER})")
     if fsdp and axis != "data":
         _check_fsdp_axis(sizes, axis)
     elif fsdp and not is_distributed():  # FSDP2 over a data group of one runs (the card's probe)
         raise ValueError("fsdp axis 'data' shards over the processes of a group: call "
                          "parallel.init_distributed() first")
-    data, model = sizes["data"], sizes.get("model", 1)
-    if data * model != world or data < 1 or model < 1:
-        raise ValueError(f"mesh {shape} ({data} x {model}) in a group of {world} processes")
-    if (data, model) not in _layouts:
-        _layouts[(data, model)] = _make_layout(data, model)
-    _current["layout"] = _layouts[(data, model)]
+    data, model, spatial = sizes["data"], sizes.get("model", 1), sizes.get("spatial", 1)
+    if data * model * spatial != world or min(data, model, spatial) < 1:
+        raise ValueError(f"mesh {shape} ({data} x {max(model, spatial)}) in a group of {world} "
+                         "processes")
+    key = (data, model, spatial)
+    if key not in _layouts:
+        _layouts[key] = _make_layout(data, model, spatial)
+    _current["layout"] = _layouts[key]
     return _current["layout"]
 
 
-def _make_layout(data: int, model: int) -> Layout:
-    """This rank's ``Layout`` on ``data`` x ``model``, its groups made."""
-    if not is_distributed() or model == 1:
+def _make_layout(data: int, model: int, spatial: int = 1) -> Layout:
+    """This rank's ``Layout`` on ``data`` x ``model`` (or x ``spatial``),
+    its groups made."""
+    peers = model * spatial  # one of them is 1
+    if not is_distributed() or peers == 1:
         rank = dist.get_rank() if is_distributed() else 0
         return Layout(data, 1, rank, 0)
     rank = dist.get_rank()
@@ -239,37 +274,43 @@ def _make_layout(data: int, model: int) -> Layout:
     host_groups = dist.get_backend() != "gloo"  # host values need gloo data groups too
     # every rank creates every group, in this order
     for d in range(data):
-        ranks = [d * model + m for m in range(model)]
+        ranks = [d * peers + m for m in range(peers)]
         g = dist.new_group(ranks)
         if rank in ranks:
-            mine["model_group"] = g
-    for m in range(model):
-        ranks = [d * model + m for d in range(data)]
+            mine["model_group" if model > 1 else "spatial_group"] = g
+    for m in range(peers):
+        ranks = [d * peers + m for d in range(data)]
         g = dist.new_group(ranks)
         c = dist.new_group(ranks, backend="gloo") if host_groups else g
         if rank in ranks:
             mine.update(data_group=g, data_control=c)
-    return Layout(data, model, rank // model, rank % model, **mine)
+    if model > 1:
+        return Layout(data, model, rank // model, rank % model, **mine)
+    return Layout(data, 1, rank // spatial, 0, spatial=spatial, spatial_rank=rank % spatial,
+                  **mine)
 
 
 # ---------------------------------------------------------------- collectives --
 
 
-def all_reduce(t: torch.Tensor) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, *, rows: bool = False) -> torch.Tensor:
     """``t`` summed over this rank's data group, in place (not
-    differentiable): the global batch's sum."""
-    dist.all_reduce(t, group=layout().data_group)
+    differentiable): the global batch's sum; with ``rows``, a sum over
+    row-sharded activations, over the data × spatial group."""
+    lay = layout()
+    dist.all_reduce(t, group=lay.rows_group if rows else lay.data_group)
     return t
 
 
 def all_reduce_host(values, op=dist.ReduceOp.SUM, *, data_axis: bool = False) -> np.ndarray:
     """A host array (int64 counts, flags) reduced over the gloo control
     group: over every process, or with ``data_axis`` over this rank's data
-    group (counts of the global batch, which model peers hold alike)."""
+    group (counts of the global batch, which model and spatial peers hold
+    alike)."""
     t = torch.from_numpy(np.array(values, dtype=np.int64, ndmin=1))
     lay = layout()
     group = control_group()
-    if data_axis and lay.model > 1:
+    if data_axis and lay.model * lay.spatial > 1:
         group = lay.data_control
     dist.all_reduce(t, op=op, group=group)
     return t.numpy()
@@ -299,14 +340,15 @@ def broadcast_module(model: nn.Module) -> None:
             dist.broadcast(t.data, src=0)
 
 
-def reduce_gradients(grads: Sequence[torch.Tensor], group=None, *,
+def reduce_gradients(grads: Sequence[torch.Tensor], group=_DATA, *,
                      src: Optional[int] = None) -> None:
-    """Sum ``grads`` over this rank's data group (or ``group``), in place,
-    in buckets of about ``BUCKET_BYTES`` (one collective a bucket); with
-    ``src`` (a global rank in ``group``) set them to that rank's instead."""
+    """Sum ``grads`` over this rank's data group (or ``group``, None the
+    world), in place, in buckets of about ``BUCKET_BYTES`` (one collective
+    a bucket); with ``src`` (a global rank in ``group``) set them to that
+    rank's instead."""
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-    group = layout().data_group if group is None else group
+    group = layout().data_group if group is _DATA else group
     bucket: List[torch.Tensor] = []
     size = 0
 
@@ -432,7 +474,7 @@ def shard_model(model: nn.Module, compute_dtype: torch.dtype) -> nn.Module:
 
     lay = layout()
     kw = {}
-    if lay.model > 1:  # the data group of a 2-D mesh (model peers shard alike)
+    if lay.model * lay.spatial > 1:  # the data group of a 2-D mesh (the peers shard alike)
         from torch.distributed.device_mesh import DeviceMesh
 
         device = next(model.parameters()).device.type

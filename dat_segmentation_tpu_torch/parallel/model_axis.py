@@ -75,7 +75,7 @@ def _mlp_rule(mod, size):
 def _attn_rule(mod, size):
     if not mod.splits_by_group():
         return {}, (), ("a position-bias mode K1 does not take (the composite): whole "
-                        "(ROADMAP.md, Queue 1 item 10)")
+                        "(ROADMAP.md, Queue 1 item 13)")
     if mod.n_groups % size:
         return {}, (), f"{mod.n_groups} offset groups do not divide by {size}: whole"
     dims = {f"{p}.{w}": 0 for p in ("proj_q", "proj_k", "proj_v") for w in ("weight", "bias")}

@@ -11,6 +11,13 @@
 #   NNODES=2 bash dat_segmentation_tpu_torch/tools/launch_slurm.sh gpu dat_upn \
 #       upn_tiny_160k_dp03_lr6 /data/ade20k --work-dir work_dirs/upn_tiny
 #
+# and on one node of eight cards with each 896x896 crop's rows split over
+# two cards (the mesh's spatial axis, four data coordinates):
+#
+#   bash dat_segmentation_tpu_torch/tools/launch_slurm.sh gpu dat_upn_896 \
+#       upn_tiny_160k_dp03_lr6 /data/ade20k --work-dir work_dirs/upn_tiny_896 \
+#       --set "mesh_shape={'data': 4, 'spatial': 2}" "data.crop_size=(896, 896)"
+#
 # Environment (the defaults in brackets):
 #   NNODES          nodes [1]
 #   GPUS_PER_NODE   processes a node, one a card [the cards nvidia-smi -L lists there]

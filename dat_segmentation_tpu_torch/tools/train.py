@@ -25,7 +25,9 @@ card, gloo with ``--device cpu``); the config's ``data.batch_size`` is then
 the global batch, and ``fsdp=True`` (``--set fsdp=True``) shards the
 parameters and AdamW's moments; ``--set "mesh_shape={'data': X, 'model':
 Y}" fsdp=model`` splits the model over the model axis (tensor
-parallelism, ``parallel/model_axis.py``). ``main(argv)`` returns the trainer's
+parallelism, ``parallel/model_axis.py``), and ``--set "mesh_shape={'data':
+X, 'spatial': S}"`` splits each image's rows over S processes
+(``parallel/spatial.py``: crops larger than one card's activations hold). ``main(argv)`` returns the trainer's
 (state, history). ``--diff-seed`` is taken, as the JAX CLI takes it, and
 changes nothing (see its help).
 """

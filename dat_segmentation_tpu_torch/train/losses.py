@@ -15,7 +15,11 @@ processes' losses, and of their gradients, is the JAX package's mean over
 the global batch. (A mean of per-process means is not, where processes
 hold different numbers of ignored pixels.) On a mesh with a model axis the
 counts and the sum are over the data group (``parallel/mesh.py``): model
-peers hold the same rows.
+peers hold the same rows. On a mesh with a spatial axis the labels are row
+shards: the pixel counts are over data × spatial. The classifier's logits
+are replicated on the spatial peers: its loss divides by the data axis's
+global batch and by S, so that its parts (and their gradients) summed
+over data × spatial are the mean once (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -25,14 +29,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import all_reduce, is_distributed, process_shard_info
+from ..parallel.mesh import all_reduce, is_distributed, layout, process_shard_info
 
 
 def valid_count(labels: torch.Tensor, *, ignore_index: int = 255) -> torch.Tensor:
     """int64 count of the pixels that are not ignored, over the global batch
-    inside a process group."""
+    inside a process group (over its row shards beside a spatial axis)."""
     count = (labels != ignore_index).sum()
-    return all_reduce(count) if is_distributed() else count
+    return all_reduce(count, rows=True) if is_distributed() else count
 
 
 def cross_entropy_loss(
@@ -68,10 +72,11 @@ def segmentation_loss(
 
 def _batch_mean(per_row: torch.Tensor) -> torch.Tensor:
     """The mean over the batch; inside a process group this process's sum
-    over the global batch size (the processes' batches are equal)."""
+    over the global batch size (the processes' batches are equal), and
+    over the spatial axis's size (each spatial peer holds the rows)."""
     if not is_distributed():
         return per_row.mean()
-    return per_row.sum() / (per_row.shape[0] * process_shard_info()[1])
+    return per_row.sum() / (per_row.shape[0] * process_shard_info()[1] * layout().spatial)
 
 
 def soft_target_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

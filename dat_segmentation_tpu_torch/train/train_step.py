@@ -24,7 +24,8 @@ state in place and returns it with the metrics of the JAX step:
 
 The metrics stay on the device: reading one waits for the step.
 ``make_cls_metric_step`` is the eval forward in ``compute_dtype`` and the
-int32 ``[hits1, hits5, total]`` of a batch with a ``valid`` mask.
+int32 ``[hits1, hits5, total]`` of a batch with a ``valid`` mask;
+``make_eval_step`` the eval forward's logits.
 
 bf16 compute: like the JAX step (``_cast``), the port casts every
 parameter to ``compute_dtype`` for the forward (``torch.func.
@@ -67,6 +68,18 @@ over the data group. Not wrapping the model in
 run. The gradient reduction runs after the backward, not beside it
 (ROADMAP.md, Queue 2). The metric step's ``[hits1, hits5, total]`` are
 summed over the data group.
+
+On a mesh with a spatial axis (``{"data": X, "spatial": S}``,
+``parallel/spatial.py``) every step still takes the data coordinate's
+batch: each spatial peer keeps its rows of each image and label
+(``ValueError`` where S does not divide H) and runs the model on them
+(``rows``). The gradients are summed over data × spatial (each peer's are
+parts: the module docstring of ``parallel/spatial.py`` says why; under
+FSDP2 the reduce-scattered shards are then summed over the spatial group),
+and so are the loss and the IoU counts; acc1 and the metric step's counts,
+of the replicated logits, over the data group. Mixup's box falls on the
+rows it covers. ``make_eval_step`` gathers the logits' rows and then the
+data coordinates' batches: the global batch's logits on every process.
 """
 
 from __future__ import annotations
@@ -80,7 +93,7 @@ import torch.nn as nn
 
 from ..data.mixup import LABEL_SMOOTHING, MixupSampler, mixup_cutmix
 from ..models.layers import use_generator
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from .losses import label_smoothing_cross_entropy, segmentation_loss, soft_target_cross_entropy
 from .metrics import intersect_and_union, topk_hits
 from .optim import make_optimizer
@@ -144,16 +157,30 @@ def _forward_in(model: nn.Module, compute_dtype: torch.dtype) -> Callable:
     """``model``'s forward with its parameters cast to ``compute_dtype`` (the
     JAX ``_cast``): differentiable bf16 copies through
     ``torch.func.functional_call``, the float32 masters untouched. A
-    sharded model casts as FSDP2 gathers (``shard_model``)."""
+    sharded model casts as FSDP2 gathers (``shard_model``). ``rows``: the
+    image is a row shard (the spatial axis)."""
     params = dict(model.named_parameters())
 
-    def forward(image):
+    def forward(image, rows=None):
+        kw = {} if rows is None else {"rows": rows}
         if compute_dtype == torch.float32 or mesh.is_sharded(model):
-            return model(image)
+            return model(image, **kw)
         cast = {n: p.to(compute_dtype) for n, p in params.items()}
-        return torch.func.functional_call(model, cast, (image,))
+        return torch.func.functional_call(model, cast, (image,), kw)
 
     return forward
+
+
+def _own_rows(image: torch.Tensor, *labels: torch.Tensor):
+    """This spatial peer's rows of a data coordinate's images (and (B, H,
+    ...) labels) and their layout; all of them and None without a spatial
+    axis."""
+    axis = mesh.layout().spatial_axis
+    if axis is None:
+        return (image, None) + labels
+    rows = spatial.image_rows(image.shape[1], axis)
+    return (spatial.keep_rows(image, rows), rows) + tuple(
+        spatial.keep_rows(t, rows) if t.ndim >= 3 else t for t in labels)
 
 
 def make_train_step(
@@ -184,6 +211,7 @@ def make_train_step(
     device = plist[0].device
     forward = _forward_in(model, compute_dtype)
     distributed, sharded = mesh.is_distributed(), mesh.is_sharded(model)
+    lay = mesh.layout()
     axis = mesh.model_axis_of(model)
     # over the model axis: the split leaves, and the whole ones split compute reads
     split = None if axis is None else [n in model.model_axis_dims for n in names]
@@ -197,19 +225,20 @@ def make_train_step(
         n not in model.model_axis_dims and n not in model.model_axis_partial)]
     first_peer = None if peers is None else dist.get_global_rank(peers, 0)
 
-    def seg_loss(image, label):
-        out = forward(image)
+    def seg_loss(image, label, rows):
+        out = forward(image, rows)
         logits, aux = out if isinstance(out, tuple) else (out, None)
         loss = segmentation_loss(
             logits, aux, label, aux_weight=aux_weight, ignore_index=ignore_index
         )
         return loss, logits, label
 
-    def cls_loss(state, image, label):
+    def cls_loss(state, image, label, rows):
         if mixup and label.ndim == 1:
-            draws = state.mixup.draw(image.shape[1], image.shape[2])
-            image, label = mixup_cutmix(image, label, draws, num_classes=num_classes)
-        logits = forward(image)
+            H = image.shape[1] if rows is None else rows.H
+            draws = state.mixup.draw(H, image.shape[2])
+            image, label = mixup_cutmix(image, label, draws, num_classes=num_classes, rows=rows)
+        logits = forward(image, rows)
         if mixup and label.ndim == 2:
             return soft_target_cross_entropy(logits, label), logits, label.argmax(-1)
         loss = label_smoothing_cross_entropy(logits, label, smoothing=LABEL_SMOOTHING)
@@ -220,10 +249,11 @@ def make_train_step(
         image = torch.as_tensor(batch["image"]).to(device, compute_dtype, non_blocking=True)
         label = torch.as_tensor(batch["label"]).to(device, non_blocking=True)
         label = label.float() if label.is_floating_point() else label.long()
+        image, rows, label = _own_rows(image, label)
         if task == "seg":
-            loss, logits, hard = seg_loss(image, label)
+            loss, logits, hard = seg_loss(image, label, rows)
         else:
-            loss, logits, hard = cls_loss(state, image, label)
+            loss, logits, hard = cls_loss(state, image, label, rows)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
 
@@ -234,7 +264,10 @@ def make_train_step(
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             if distributed and not sharded:
-                mesh.reduce_gradients([p.grad for p in plist])
+                mesh.reduce_gradients([p.grad for p in plist], group=lay.rows_group)
+            elif sharded and lay.spatial > 1:
+                mesh.reduce_gradients([mesh.local(p.grad) for p in plist],
+                                      group=lay.spatial_group)
             if partial:
                 mesh.reduce_gradients([p.grad for p in partial], group=axis.group)
             if peers is not None:  # model rank 0's, so that the peers' replicas stay equal
@@ -275,18 +308,17 @@ def make_train_step(
 
 
 def _global_metrics(metrics: Dict[str, torch.Tensor], task: str) -> None:
-    """The step's metrics over the global batch, in place (over the data
-    group: model peers hold the same rows): the loss (each process's share
-    of the global mean) summed, acc1 averaged (equal batches), the IoU
-    counts summed in int64."""
+    """The step's metrics over the global batch, in place: the loss (each
+    process's share of the global mean) summed and the IoU counts (of row
+    shards) summed in int64, over data × spatial; acc1 (of replicated
+    logits) averaged over the data group (model and spatial peers hold the
+    same batch rows; equal batches)."""
     world = mesh.process_shard_info()[1]
-    sums = [metrics["loss"].float()] + ([metrics["acc1"] / world] if task == "cls" else [])
-    sums = mesh.all_reduce(torch.stack(sums))
-    metrics["loss"] = sums[0]
+    metrics["loss"] = mesh.all_reduce(metrics["loss"].float(), rows=True)
     if task == "cls":
-        metrics["acc1"] = sums[1]
+        metrics["acc1"] = mesh.all_reduce(metrics["acc1"] / world)
     elif "inter" in metrics:
-        counts = mesh.all_reduce(torch.stack([metrics["inter"], metrics["union"]]))
+        counts = mesh.all_reduce(torch.stack([metrics["inter"], metrics["union"]]), rows=True)
         metrics.update(inter=counts[0], union=counts[1])
 
 
@@ -306,8 +338,37 @@ def make_cls_metric_step(
         image = torch.as_tensor(image).to(device, compute_dtype, non_blocking=True)
         label = torch.as_tensor(label).to(device, torch.long, non_blocking=True)
         valid = torch.as_tensor(valid).to(device, torch.bool, non_blocking=True)
+        image, rows = _own_rows(image)
         with torch.no_grad():
-            hits = topk_hits(forward(image).float(), label, valid)
+            hits = topk_hits(forward(image, rows).float(), label, valid)
         return mesh.all_reduce(hits) if mesh.is_distributed() else hits
+
+    return fn
+
+
+def make_eval_step(
+    model: nn.Module, *, compute_dtype: torch.dtype = torch.bfloat16
+) -> Callable[..., torch.Tensor]:
+    """``fn(image) -> float32 logits`` of the eval forward in
+    ``compute_dtype`` (the JAX ``make_eval_step``): ``image`` is the data
+    coordinate's batch (B, H, W, 3), each spatial peer runs its rows, and
+    every process gets the global batch's whole logits (the data
+    coordinates' batches in order): (B·X, H, W, classes) of a segmentor,
+    (B·X, classes) of a classifier."""
+    device = next(model.parameters()).device
+    forward = _forward_in(model, compute_dtype)
+
+    def fn(image) -> torch.Tensor:
+        model.eval()
+        image = torch.as_tensor(image).to(device, compute_dtype, non_blocking=True)
+        image, rows = _own_rows(image)
+        with torch.no_grad():
+            out = forward(image, rows).float()
+            if rows is not None and out.ndim == 4:
+                out = spatial.gather_rows(out, rows)
+            if mesh.is_distributed() and mesh.process_shard_info()[1] > 1:
+                out = mesh.gather_tensor(out, 0, mesh.ModelAxis(
+                    *mesh.process_shard_info(), mesh.layout().data_group))
+        return out
 
     return fn

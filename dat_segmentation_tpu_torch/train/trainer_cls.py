@@ -20,12 +20,13 @@ Inside a ``torch.distributed`` group, as ``trainer_seg.py``:
 ``cfg.data.batch_size`` is the global batch, each
 data coordinate loads its share of every epoch, the step is the global
 batch's on the mesh ``cfg.mesh_shape`` (replicated or, with ``cfg.fsdp``,
-sharded over the data axis or split over the model axis), the val is
+sharded over the data axis or split over the model axis; over a spatial
+axis each spatial peer takes its rows of every image), the val is
 sharded over the data axis with each item counted once (a process with
 fewer pads its last batches with masked rows; model peers run the split
-model's forward together) and its counts summed over the data group, so
-"best" is decided alike on every rank; rank 0 logs and writes. A
-``spatial`` mesh axis is left for later (ROADMAP.md, Queue 1 item 10).
+model's forward together, spatial peers their rows of each image, through
+``make_cls_metric_step``) and its counts summed over the data group, so
+"best" is decided alike on every rank; rank 0 logs and writes.
 Resume restores the model, AdamW, the step, the dropout generator and
 the mixup sampler from the latest checkpoint and restarts the epoch
 ``step // steps_per_epoch`` from its beginning.

@@ -19,14 +19,17 @@ loads its ``local_batch_size`` share, a disjoint slice of each epoch
 (``process_shard_info``), and the step is the global batch's
 (``train/train_step.py``) on the mesh ``cfg.mesh_shape``, replicated or,
 with ``cfg.fsdp``, sharded over the data axis or (``'model'``) split over
-the model axis; ``process_shard_info`` is the data coordinate, so model
-peers load the same items. The in-run val runs a whole copy of a sharded
-or split model, sharded over the data axis and its counts summed
+the model axis, or with a ``spatial`` axis each image's rows split over
+the spatial peers (the step keeps each peer's rows);
+``process_shard_info`` is the data coordinate, so model and spatial peers
+load the same items. The in-run val runs a whole copy of a sharded
+or split model on whole images in each process, as the JAX trainer's,
+sharded over the data axis and its counts summed over the data group
 (``evaluate_dataset(distributed=True)``), so "best" is decided alike on
 every rank; rank 0 logs and writes checkpoints, which are the one-process
 format (a sharded or split state is gathered first). Left for later
-(ROADMAP.md, Queue 1 item 10): a ``spatial`` mesh axis; and overlapping the
-gradient reduction with the backward (Queue 2).
+(ROADMAP.md, Queue 2): overlapping the gradient reduction with the
+backward.
 
 Resume restores the model (parameters and BatchNorm statistics), the
 AdamW state, the step and the drop-path/dropout generator (and the

@@ -429,6 +429,55 @@ def test_model_axis_on_the_card_equals_one_process(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_spatial_axis_on_the_card_equals_one_process(cuda, tmp_path):
+    """{data: 1, spatial: 2}: the small UperNet (drop path and dropout 0.1)
+    over two gloo ranks on the card, each image's rows split over them, one
+    float32 step with 'auto' and one with 'pallas' (K3 on halo slabs)
+    against the one-process card step on the same batch: loss to 1e-5
+    relative, all gradients to 1e-4, 4 K1 and 4 K2 launches a rank (and
+    with 'pallas' the one-process step's K3 launches), each K1 call on one
+    whole-map batch row of the two, and the ranks' states bit for bit
+    equal."""
+    import torch_parallel_worker as W
+
+    model_cfg = small_upernet(get_config, head_width=32, drop=0.1)
+    torch.manual_seed(0)
+    weights = tmp_path / "w.pt"
+    torch.save(build_model(model_cfg, device="cpu").state_dict(), weights)
+    kw = dict(weights=weights, batches=W.seg_batches(steps=1), model_cfg=model_cfg,
+              device="cuda", groups=True)
+    impls = ("auto", "pallas")
+    ctx = W.spawn(tmp_path / "ranks", [(impl, "seg_steps", dict(
+        kw, kernel_impl=impl, mesh_shape={"data": 1, "spatial": 2})) for impl in impls],
+        device="cuda")
+    try:
+        one = {impl: W.seg_steps(0, 1, kernel_impl=impl, **kw) for impl in impls}
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
+    ranks = W.collect(ctx, tmp_path / "ranks")
+    for impl in impls:
+        (want,) = one[impl]["steps"]
+        assert want["k3_launches"] == (3 if impl == "pallas" else 0)
+        for rank in ranks:
+            (got,) = rank[impl]["steps"]
+            assert abs(got["metrics"]["loss"] - want["metrics"]["loss"]) <= 1e-5 * abs(
+                want["metrics"]["loss"])
+            dsq = sum(float(np.square(got["grads"][n] - g).sum())
+                      for n, g in want["grads"].items())
+            gsq = sum(float(np.square(g).sum()) for g in want["grads"].values())
+            assert (dsq / gsq) ** 0.5 <= 1e-4, impl
+            assert got["launches"] == (4, 4) and got["k3_launches"] == want["k3_launches"]
+            # (B·g, H) of each K1 launch: one of the two batch rows, whole maps
+            assert rank[impl]["groups"] == [(b // 2, h) for b, h in one[impl]["groups"]]
+            for name in want["state"]:
+                np.testing.assert_array_equal(got["state"][name],
+                                              ranks[0][impl]["steps"][0]["state"][name],
+                                              err_msg=name)
+
+
+@pytest.mark.cuda
 def test_small_upernet_checkpointed_train_step_matches_cpu(cuda):
     """The same with ``use_checkpoint=True``: the same gates, and each 'D'
     block's K1 twice (the stages run again in the backward)."""

@@ -156,8 +156,8 @@ def test_resolve_mesh_axes_and_refusals():
     the axes fit; fsdp='model' over a missing or size-1 axis raises
     ``ValueError`` (the JAX package's ``_check_fsdp_axis``), fsdp over the
     data axis without a process group ``ValueError``, a mesh that is not the
-    group ``ValueError``, a spatial axis ``NotImplementedError`` naming its
-    item."""
+    group ``ValueError``, a spatial axis beside the model axis
+    ``NotImplementedError`` naming its item."""
     lay = resolve_mesh({"data": -1, "model": 1})
     assert (lay.data, lay.model, lay.model_axis) == (1, 1, None)
     assert resolve_mesh({"data": 1, "model": 1}, False).data == 1
@@ -169,7 +169,7 @@ def test_resolve_mesh_axes_and_refusals():
     for shape in ({"data": 1, "model": 2}, {"data": 2, "model": -1}, {"model": 2}):
         with pytest.raises(ValueError, match="processes"):
             resolve_mesh(shape)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10: the spatial axis"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13: the model and spatial axes"):
         resolve_mesh({"data": -1, "model": 2, "spatial": 2}, "model")
 
 

@@ -203,15 +203,16 @@ def _assert_counts_close(got, want, pixels=4 * 64 * 64):
 
 
 def test_resolve_mesh_refuses_what_is_not_ported():
-    """The data and model axes are ported, the spatial axis is not: it
-    raises ``NotImplementedError`` naming its ROADMAP item; without a group
-    the data axis is 1, and a mesh larger than the group or fsdp over a
-    missing axis raise ``ValueError`` (``tests/test_torch_model_axis.py``
-    holds the model axis)."""
+    """The data, model and spatial axes are ported: without a group the
+    data axis is 1, a spatial axis above 1 is a mesh larger than the group
+    (``ValueError`` naming the group's size), as is any mesh larger than the
+    group, and fsdp over a missing axis raises ``ValueError``
+    (``tests/test_torch_model_axis.py`` and
+    ``tests/test_torch_spatial_axis.py`` hold the two other axes)."""
     assert resolve_mesh({"data": -1}).data == 1 and resolve_mesh({"data": 1, "spatial": 1}).data == 1
     for shape, fsdp in (({"data": -1, "spatial": 2}, False),
-                        ({"data": 1, "model": 1, "spatial": 2}, "model")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+                        ({"data": 1, "model": 1, "spatial": 2}, False)):
+        with pytest.raises(ValueError, match="group of 1 processes"):
             resolve_mesh(shape, fsdp)
     for shape, fsdp in (({"data": 2}, False), ({"data": 1, "model": 2}, False),
                         ({"data": -1}, "model")):

@@ -279,15 +279,16 @@ def test_sigterm_checkpoints_and_exits(tmp_path):
 
 def test_one_device_only(tmp_path):
     """Without a process group the trainer runs on one device: a data axis
-    larger than one and fsdp need the group (tests/test_torch_parallel.py
-    runs them over two processes); a spatial axis is not ported."""
+    larger than one, fsdp and a spatial axis need the group
+    (tests/test_torch_parallel.py and tests/test_torch_spatial_axis.py run
+    them over processes)."""
     cfg = replace(get_config("upn_tiny_160k_dp03_lr6"), mesh_shape={"data": 4})
     with pytest.raises(ValueError, match="group of 1 processes"):
         trainer_seg.train_segmentation(cfg, device="cpu")
     with pytest.raises(ValueError, match="init_distributed"):
         trainer_seg.train_segmentation(replace(cfg, mesh_shape={"data": 1}, fsdp=True),
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="group of 1 processes"):
         trainer_seg.train_segmentation(replace(cfg, mesh_shape={"data": -1, "spatial": 2}),
                                        device="cpu")
 

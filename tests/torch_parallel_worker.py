@@ -1,5 +1,5 @@
 """Rank functions of the port's multi-process tests (tests/test_torch_parallel.py,
-tests/test_torch_model_axis.py).
+tests/test_torch_model_axis.py, tests/test_torch_spatial_axis.py).
 
 Imports no JAX: ``spawn`` starts one process a rank (``torch.multiprocessing``,
 spawn), each joins a gloo group on the CPU through
@@ -222,13 +222,15 @@ def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kerne
     out = []
     try:
         for b in batches:
-            before = (da.deform_attn.launches, da.deform_attn_bwd.launches)
+            before = (da.deform_attn.launches, da.deform_attn_bwd.launches,
+                      x_block.x_block_fwd.launches)
             _, m = step(state, {k: _rows(v, rank, world) for k, v in b.items()})
             grads = {} if mesh.is_sharded(model) else whole_grads(model)
             out.append({"metrics": _numpy(m), "state": _numpy(mesh.full_state(
                 model, everywhere=True)[0]), "grads": _numpy(grads),
                 "launches": (da.deform_attn.launches - before[0],
-                             da.deform_attn_bwd.launches - before[1])})
+                             da.deform_attn_bwd.launches - before[1]),
+                "k3_launches": x_block.x_block_fwd.launches - before[2]})
     finally:
         x_block.x_block_reference = real
         dattn.deform_attn = real_attn
@@ -284,6 +286,19 @@ def cls_steps(rank, world, *, weights, batch, draws, valid, mesh_shape=None, fsd
     hits = make_cls_metric_step(model, compute_dtype=torch.float32)(
         local["image"], local["label"], _rows(valid, rank, world))
     return {"steps": out, "hits": hits.numpy()}
+
+
+def eval_logits(rank, world, *, weights, image, mesh_shape, drop=0.0):
+    """``make_eval_step`` of the tiny UperNet (eval, float32) on this data
+    coordinate's rows of ``image`` on the mesh ``mesh_shape``: the global
+    batch's logits, as every rank gets them."""
+    from dat_segmentation_tpu_torch import get_config
+    from dat_segmentation_tpu_torch.parallel import make_eval_step, process_shard_info, resolve_mesh
+
+    model = _model(tiny_seg(get_config, drop=drop), weights)
+    resolve_mesh(mesh_shape)
+    rank, world = process_shard_info()
+    return make_eval_step(model, compute_dtype=torch.float32)(_rows(image, rank, world)).numpy()
 
 
 class Head:
