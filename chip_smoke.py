@@ -166,32 +166,52 @@ line each:
    replicated, fsdp and fsdp with ``use_checkpoint`` (28 K1 and 14 K2
    launches a step, its first loss the fsdp step's); the train CLI under
    torchrun, started by ``tools/launch_multihost.sh`` (one node, one card).
+17b-17d run their legs in two spawns of gloo ranks on the one card, one of
+   two ranks and one of four (``axis_phases``), the one-process references
+   computed meanwhile; 17b and 17c at the backbone depths ``AXIS_DEPTHS``
+   (2, 2, 2, 2: 5 'D' blocks, 8 in all), 17d at the preset's.
 17b. model_axis: fsdp='model' (tensor parallelism, ``parallel/
-   model_axis.py``) over gloo ranks on the one card, the flagship at full
-   width (the recipe's drop path and dropout), float32, TF32 off, a global
-   batch of two (scale_out's rows 0 and 3): two ranks on {data: 1, model:
-   2} with 'auto', 'pallas' and in float64, four on {data: 2, model: 2}
-   with 'auto'; each step against the one-process step: the loss, the
-   parameters and the IoU counts at scale_out's gates, the gradients
-   (gathered whole) reported in float32 and held in float64 (1e-9
-   globally, 1e-6 a leaf; ``AXIS_MESHES``' note says why), the ranks'
-   gathered states equal, 14 K1 + 14 K2 a step on each rank (+ 26 K3 with
-   'pallas'; the float64 leg runs the attention's plain version), each
+   model_axis.py``), the flagship at full width (the recipe's drop path
+   and dropout), float32, TF32 off, a global batch of two (scale_out's
+   rows 0 and 3): two ranks on {data: 1, model: 2} with 'auto', 'pallas'
+   and in float64, four on {data: 2, model: 2} with 'auto'; each step
+   against the one-process step: the loss, the parameters and the IoU
+   counts at scale_out's gates, the gradients (gathered whole) reported in
+   float32 and held in float64 (1e-9 globally, 1e-6 a leaf;
+   ``AXIS_MESHES``' note says why), the ranks' gathered states equal, 5 K1
+   + 5 K2 a step on each rank (+ 8 K3 with 'pallas'; the float64 leg runs
+   the attention's plain version), each
    attention call on the rank's rows and half the groups of a split stage
    (1-3), each rank's parameter + AdamW bytes at most 0.60 of the whole,
    peak memory beside the one-process step's. Parity and memory only:
    gloo carries the collectives through the host.
 17c. spatial_axis: each image's rows split over the mesh's spatial axis
    (``parallel/spatial.py``), against model_axis's one-process references:
-   two gloo ranks on {data: 1, spatial: 2} with 'auto', 'pallas', float64
+   two ranks on {data: 1, spatial: 2} with 'auto', 'pallas', float64
    and fsdp=True with ``use_checkpoint``, four on {data: 2, spatial: 2}
    (one image a data coordinate: the attention on gathered rows); loss,
    parameters and IoU counts at scale_out's gates, float64 gradients at
-   1e-9 globally and 1e-6 a leaf, the ranks' states equal, 14 K1 + 14 K2 a
-   step on each rank (+ 26 K3 with 'pallas', 28 K1 with
+   1e-9 globally and 1e-6 a leaf, the ranks' states equal, 5 K1 + 5 K2 a
+   step on each rank (+ 8 K3 with 'pallas', 10 K1 with
    ``use_checkpoint``), each K1 call on whole maps of one image, the halo
    rows each fetch adds and the bytes exchanged, peak memory a rank beside
    the one-process step's at two images and at one.
+17d. full_mesh: both axes together, at the preset's depth against its
+   references: four ranks on {data: 1, model: 2, spatial: 2} (rank
+   (d·2 + m)·2 + s,
+   the JAX make_mesh order, checked) with fsdp='model' ('auto', 'pallas',
+   float64, ``use_checkpoint``) and with fsdp='spatial' (HSDP: parameters
+   and AdamW's moments sharded over the spatial peers, the shards held
+   against the one-process tensors' rows); loss, parameters, BN statistics
+   and IoU counts at scale_out's gates, float64 gradients at 1e-9 globally
+   and 1e-6 a leaf, the ranks' states equal, 14 K1 + 14 K2 a step on each
+   rank (+ 26 K3 with 'pallas', 28 K1 with ``use_checkpoint``), each K1
+   call on whole maps of the rank's image and half the groups of a split
+   stage, each K1 launch of the 'auto' leg and each K3 launch of 'pallas'
+   against the plain version on its inputs (K2 at each K1 launch's shapes
+   on drawn inputs: FULL_MESH_LEGS' note), the halo rows each
+   fetch adds on the split channels and the bytes exchanged, bytes and
+   peak memory a rank beside the one-process step's.
 18. pe_modes: the position-bias modes the JAX package runs in its
    composite. Each of dwc_pe, fixed_pe, log_cpb, no_off and no position
    bias on all four stages of the full flagship, float32, TF32 off: card
@@ -1266,13 +1286,11 @@ def main() -> int:
     # ---- 17. scale_out: the step over processes --------------------------------
     scale_launches = scale_out_phase(torch, np, card, dev, n_d, timed)
 
-    # ---- 17b. model_axis: tensor parallelism over processes -----------------
+    # ---- 17b-d. model_axis, spatial_axis, full_mesh: the mesh's axes -----------
     refs = Path(tempfile.mkdtemp(prefix="axis_refs_"))
     try:
-        axis_launches, whole = model_axis_phase(torch, np, card, dev, n_d, n_x, refs)
-
-        # ---- 17c. spatial_axis: image rows split over processes ---------------
-        spatial_launches = spatial_axis_phase(torch, np, card, dev, n_d, n_x, refs, whole)
+        axis_launches, spatial_launches, full_launches = axis_phases(
+            torch, np, card, dev, n_d, n_x, refs)
     finally:
         shutil.rmtree(refs, ignore_errors=True)
 
@@ -1294,6 +1312,7 @@ def main() -> int:
                               "scale_out_rank0": scale_launches["deform_attn_fwd"],
                               "model_axis_rank0": axis_launches["deform_attn_fwd"],
                               "spatial_rank0": spatial_launches["deform_attn_fwd"],
+                              "full_mesh_rank0": full_launches["deform_attn_fwd"],
                               "pe_modes_mixed_serve": pe_launches["serve"],
                               "pe_modes_mixed_train": pe_launches["train"]["deform_attn_fwd"]}
     k1.update(lse_max_abs_err=max_lse_err, warps_per_sm=k1_warps, mma_instructions=k1_mma,
@@ -1309,6 +1328,7 @@ def main() -> int:
                                 "scale_out_rank0": scale_launches["deform_attn_bwd"],
                                 "model_axis_rank0": axis_launches["deform_attn_bwd"],
                                 "spatial_rank0": spatial_launches["deform_attn_bwd"],
+                                "full_mesh_rank0": full_launches["deform_attn_bwd"],
                                 "pe_modes_mixed_train": pe_launches["train"]["deform_attn_bwd"]})
     k3 = line(KERNELS[2], pserve_launches["x_block_fwd"], max_err_xb, dict(xtot, library_ms=None))
     k3.update(max_rel_err=max_rel_xb, chain_ms=xtot["chain_ms"], mma_instructions=k3_mma,
@@ -1322,6 +1342,7 @@ def main() -> int:
                                 "train_loop": loop_launches["x_block_fwd"],
                                 "model_axis_rank0": axis_launches["x_block_fwd"],
                                 "spatial_rank0": spatial_launches["x_block_fwd"],
+                                "full_mesh_rank0": full_launches["x_block_fwd"],
                                 **cls_launches["x_block_fwd"]})
     # K1-v1 (the JAX package's fused_deform_attention_fwd) is K1's function
     # without padded queries: the port runs it as K1's launch with hn = wn = 0,
@@ -2765,13 +2786,17 @@ def scale_batch(np, mc):
     return {"image": rng.randn(SCALE_BATCH, IMG, IMG, 3).astype(np.float32), "label": label}
 
 
-def scale_cfg():
-    """The preset as it is (drop path 0.3, dropout 0.1), float32, warm-up 0."""
+def scale_cfg(depths=None):
+    """The preset as it is (drop path 0.3, dropout 0.1), float32, warm-up 0;
+    the backbone cut to ``depths`` where given."""
     from dataclasses import replace
 
     from dat_segmentation_tpu_torch import get_config
 
     cfg = get_config(TRAIN_PRESET)
+    if depths is not None:
+        cfg = replace(cfg, model=replace(cfg.model, backbone=replace(cfg.model.backbone,
+                                                                     depths=depths)))
     return replace(cfg, dtype="float32", schedule=replace(cfg.schedule, warmup_iters=0))
 
 
@@ -3233,6 +3258,12 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
 AXIS_ROWS = (0, SCALE_BATCH - 1)  # scale_batch's rows: data coordinate 1's 90% ignored
 AXIS_MESHES = (({"data": 1, "model": 2}, ("auto", "pallas", "float64")),
                ({"data": 2, "model": 2}, ("auto",)))
+# The model and spatial axis phases run the flagship at full width and this
+# depth (every stage with both block kinds, every split of the attention:
+# 5 'D' blocks, 8 in all), against one-process references at the same
+# depth, so that the whole script keeps inside its time with the full_mesh
+# phase, which runs the full depth.
+AXIS_DEPTHS = (2, 2, 2, 2)
 AXIS_MAX_SHARE = 0.60  # a rank's parameter + AdamW bytes over the whole model's
 # The split step's float32 gradients are not comparable leaf by leaf with the
 # one-process step's at full size: the split products sum in another order,
@@ -3255,13 +3286,44 @@ def axis_batch(np, mc):
     return {k: v[list(AXIS_ROWS)] for k, v in scale_batch(np, mc).items()}
 
 
-def axis_rank(rank, world, tmp, tag, mesh_shape, impls):
-    """One gloo rank on the card on ``mesh_shape`` with fsdp='model': per
-    kernel_impl one float32 step of the flagship on this data coordinate's
-    rows against the one-process step (``tmp/ref_<impl>.pt``), the K1, K2
-    and K3 launches, each K1 call's (B·g, H), this rank's parameter and AdamW
-    bytes and peak memory; the result to ``tmp/<tag>rank<r>.pt``. Spawned by
-    ``model_axis_phase``."""
+def mesh_leg(name, fsdp, mesh, check=False, depths=None):
+    """A leg of the mesh phases: the step ``name`` on ``mesh`` with ``fsdp``
+    at the backbone's ``depths`` (None: the preset's). 'pallas' runs K3,
+    'float64' the step in float64 with the attention's plain version,
+    'ckpt' and 'fsdp_ckpt' ``use_checkpoint``; ``check``: ``mesh_rank``'s."""
+    return {"key": f"{name} {mesh_tag(mesh)}", "name": name, "mesh": mesh, "fsdp": fsdp,
+            "impl": "pallas" if name == "pallas" else "auto", "depths": depths,
+            "ckpt": name in ("ckpt", "fsdp_ckpt"), "check": check}
+
+
+def mesh_tag(mesh):
+    return "x".join(f"{k}{v}" for k, v in mesh.items())
+
+
+def ref_path(tmp, impl, depths):
+    """The one-process reference ``axis_refs`` writes for ``impl`` at
+    ``depths``."""
+    return Path(tmp) / f"ref_{impl}{'' if depths is None else '_' + ''.join(map(str, depths))}.pt"
+
+
+def mesh_rank(rank, world, tmp, tag, legs):
+    """One of ``world`` gloo ranks on the card: per leg (``mesh_leg``) one
+    step of the flagship on the leg's mesh, on this data coordinate's rows
+    (each spatial peer keeps its image rows), against the one-process step
+    (``ref_path``, waited for), the K1, K2 and K3 launches, each K1 call's (B·g, H),
+    the rows each fetch added to the peer's own and the bytes each exchange
+    received, this rank's coordinates, parameter and AdamW bytes and peak
+    memory; a split model's state and gradients gathered whole, a sharded
+    one's shards against the same rows of the one-process tensors (a
+    DTensor gather over gloo with CUDA tensors crashes: scale_out's note).
+    A leg with ``check`` holds each K1 launch ('auto') or K3 launch
+    ('pallas') against the plain version on its inputs, and a K2 launch at
+    each K1 launch's shapes on drawn inputs (FULL_MESH_LEGS' note; not
+    counted among the launches). The result to ``tmp/<tag>rank<r>.pt``.
+    Spawned by ``run_ranks`` for the model_axis, spatial_axis and full_mesh
+    phases (``axis_phases``)."""
+    import collections
+    import gc
     import hashlib
     import os
     from dataclasses import replace
@@ -3277,96 +3339,181 @@ def axis_rank(rank, world, tmp, tag, mesh_shape, impls):
     from dat_segmentation_tpu_torch.ops import deform_attn as da
     from dat_segmentation_tpu_torch.ops import x_block as xb
     from dat_segmentation_tpu_torch.parallel import destroy_distributed, init_distributed, mesh
+    from dat_segmentation_tpu_torch.parallel import spatial
 
     tmp = Path(tmp)
     dev = init_distributed("gloo", init_method=f"file://{tmp}/rendezvous_{tag}")
-    out = {"device": str(dev)}
-    calls = []
-    real_attn = dattn.deform_attn
-    route = dattn.deform_attn
+    out = {"joined_at": time.time()}
+    calls, halos, received = [], collections.Counter(), [0, 0]
+    route, fetch, exchange = dattn.deform_attn, spatial.fetch, spatial.exchange
+    xb_forward = xb.XBlockFunction.forward
+    real_attn = route
+    vs_plain = {}  # kernel -> the largest max |kernel - plain| / max |plain| of this leg
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def worst(kernel, got, want):
+        rel = (got.float() - want.float()).abs().max().item() / max(
+            want.float().abs().max().item(), 1e-12)
+        vs_plain[kernel] = max(vs_plain.get(kernel, 0.0), rel)
 
     def attn(q, *a, **k):
         calls.append((q.shape[0], q.shape[1]))
-        return real_attn(q, *a, **k)
+        out = real_attn(q, *a, **k)
+        if checking == "auto":
+            # K1 on this launch's inputs; K2 at its shapes on drawn inputs
+            # (FULL_MESH_LEGS' note says why not on these)
+            ins = [t.detach() for t in (q,) + a]
+            drawn = [torch.randn(t.shape, generator=gen, device=dev, dtype=t.dtype)
+                     for t in (q,) + a[:2]]
+            drawn += [torch.rand(a[2].shape, generator=gen, device=dev) * 2 - 1,
+                      torch.randn(a[3].shape, generator=gen, device=dev) * 0.02]
+            dout = torch.randn(out.shape, generator=gen, device=dev, dtype=out.dtype)
+            with torch.no_grad():
+                worst("deform_attn_fwd", out.detach(), da.deform_attn_reference(*ins, **k))
+                held = (da.deform_attn.launches, da.deform_attn_bwd.launches)
+                got = da.deform_attn_bwd(*drawn, dout, **k)
+                da.deform_attn.launches, da.deform_attn_bwd.launches = held
+                for g, w in zip(got, da.deform_attn_bwd_reference(*drawn, dout, **k)):
+                    worst("deform_attn_bwd", g, w)
+        return out
 
-    dattn.deform_attn = attn
-    try:
-        for impl in impls:
-            cfg = scale_cfg()
-            f64 = impl == "float64"
-            mc = replace(cfg.model, backbone=replace(cfg.model.backbone,
-                                                     kernel_impl="auto" if f64 else impl))
-            cfg = replace(cfg, model=mc, fsdp="model", mesh_shape=mesh_shape)
-            real_attn = da.deform_attn_reference if f64 else da.deform_attn
-            torch.manual_seed(SEED)
-            model = build_model(mc, device=dev)
-            if f64:
-                model.double()
-            state = create_train_state(model, cfg)
-            d, X = mesh.process_shard_info()
-            n = len(AXIS_ROWS) // X
-            local = {k: torch.as_tensor(v[d * n:(d + 1) * n]).to(dev)
-                     for k, v in axis_batch(np, mc).items()}
-            step = make_train_step(model, aux_weight=mc.aux_loss_weight,
-                                   num_classes=mc.num_classes,
-                                   compute_dtype=torch.float64 if f64 else torch.float32)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
-            calls.clear()
-            t0 = time.perf_counter()
-            _, met = step(state, local)
-            torch.cuda.synchronize()
-            res = {"seconds": time.perf_counter() - t0,
-                   "launches": {"deform_attn_fwd": da.deform_attn.launches,
-                                "deform_attn_bwd": da.deform_attn_bwd.launches,
-                                "x_block_fwd": xb.x_block_fwd.launches},
-                   "k1_calls": list(calls),
-                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                   "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
-                   "adamw_bytes": sum(t.numel() * t.element_size()
-                                      for s in state.optimizer.state.values()
-                                      for t in s.values() if torch.is_tensor(t) and t.ndim)}
-            axis = mesh.model_axis_of(model)
-            dims = model.model_axis_dims
-            grads = {n_: (mesh.gather_tensor(p.grad, dims[n_], axis) if n_ in dims else p.grad)
-                     for n_, p in model.named_parameters() if p.grad is not None}
+    def k3_forward(ctx, x, *params_and_lpu):
+        out = xb_forward(ctx, x, *params_and_lpu)
+        if checking == "pallas":
+            *params, with_lpu = params_and_lpu
+            with torch.no_grad():
+                worst("x_block_fwd", out, xb.x_block_reference(x, *params, with_lpu=with_lpu))
+        return out
+
+    def counted_fetch(x, rows, want):
+        lo, hi = want(rows.axis.rank)
+        halos[(hi - lo) - rows.n] += 1
+        return fetch(x, rows, want)
+
+    def counted_exchange(pieces, shapes, axis):
+        received[0] += 1
+        received[1] += sum(int(np.prod(sh)) for t, sh in enumerate(shapes)
+                           if t != axis.rank) * pieces[0].element_size()
+        return exchange(pieces, shapes, axis)
+
+    def nbytes(tensors):
+        return sum(mesh.local(t).numel() * t.element_size() for t in tensors)
+
+    def run_leg(leg):  # its tensors die with it: the next leg's peak holds none of them
+        nonlocal checking, real_attn
+        impl, fsdp = leg["impl"], leg["fsdp"]
+        f64 = leg["name"] == "float64"
+        checking = impl if leg["check"] else None
+        vs_plain.clear()
+        t_leg = time.perf_counter()
+        cfg = scale_cfg(leg["depths"])
+        mc = replace(cfg.model, backbone=replace(cfg.model.backbone, kernel_impl=impl,
+                                                 use_checkpoint=leg["ckpt"]))
+        cfg = replace(cfg, model=mc, fsdp=fsdp, mesh_shape=leg["mesh"])
+        real_attn = da.deform_attn_reference if f64 else route
+        torch.manual_seed(SEED)
+        model = build_model(mc, device=dev)
+        if f64:
+            model.double()
+        state = create_train_state(model, cfg)
+        lay = mesh.layout()
+        d, X = mesh.process_shard_info()
+        n = len(AXIS_ROWS) // X
+        local = {k: torch.as_tensor(v[d * n:(d + 1) * n]).to(dev)
+                 for k, v in axis_batch(np, mc).items()}
+        step = make_train_step(model, aux_weight=mc.aux_loss_weight,
+                               num_classes=mc.num_classes,
+                               compute_dtype=torch.float64 if f64 else torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
+        calls.clear()
+        halos.clear()
+        received[:] = [0, 0]
+        t0 = time.perf_counter()
+        _, met = step(state, local)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = {"seconds": t1 - t0, "setup_s": t0 - t_leg, "device": str(dev),
+               "coords": (lay.data_rank, lay.model_rank, lay.spatial_rank),
+               "launches": {"deform_attn_fwd": da.deform_attn.launches,
+                            "deform_attn_bwd": da.deform_attn_bwd.launches,
+                            "x_block_fwd": xb.x_block_fwd.launches},
+               "k1_calls": list(calls),
+               "kernel_vs_plain": dict(vs_plain),
+               "halo_rows_per_fetch": dict(sorted(halos.items())),
+               "exchanges": {"forward_calls": received[0],
+                             "forward_bytes_from_peers": received[1]},
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "param_bytes": nbytes(model.parameters()),
+               "adamw_bytes": nbytes([t for s in state.optimizer.state.values()
+                                      for t in s.values() if torch.is_tensor(t) and t.ndim])}
+        path = ref_path(tmp, "float64" if f64 else impl, leg["depths"])
+        end = time.time() + 300
+        while not path.with_suffix(".done").exists():
+            if time.time() > end:
+                raise TimeoutError(f"no one-process reference {path.name}")
+            time.sleep(0.2)
+        ref = torch.load(path, map_location=dev, weights_only=True)
+        stats = {n_: b for n_, b in model.named_buffers() if n_ in ref["stats"]}
+        if mesh.is_sharded(model):  # this rank's shards against the same rows of the whole
+            parts, s = ((lay.spatial, lay.spatial_rank) if model.fsdp_axis == "spatial"
+                        else (lay.data, lay.data_rank))
+
+            def part(t):
+                return (list(t.chunk(parts, dim=0)) + [t[:0]] * parts)[s]
+
+            params = {n_: mesh.local(p).detach() for n_, p in model.named_parameters()}
+            grads = {n_: mesh.local(p.grad) for n_, p in model.named_parameters()}
+            want_p = {n_: part(t) for n_, t in ref["params"].items()}
+            want_g = {n_: part(ref["grads"][n_]) for n_ in grads}
+        else:  # split leaves gathered whole
+            axis, dims = mesh.model_axis_of(model), getattr(model, "model_axis_dims", {})
+            grads = {n_: (mesh.gather_tensor(p.grad, dims[n_], axis) if n_ in dims
+                          else p.grad) for n_, p in model.named_parameters()}
             whole = mesh.full_state(model, everywhere=True)[0]
             params = {n_: whole[n_] for n_, _ in model.named_parameters()}
-            digest = hashlib.sha256()
-            for t in whole.values():
-                digest.update(t.detach().cpu().numpy().tobytes())
-            res["state_sha256"] = digest.hexdigest()
-            end = time.time() + 300
-            while not (tmp / f"ref_{impl}.done").exists():
-                if time.time() > end:
-                    raise TimeoutError("no one-process reference")
-                time.sleep(0.2)
-            ref = torch.load(tmp / f"ref_{impl}.pt", map_location=dev, weights_only=True)
-            res["vs_one_process"] = {
-                "loss": met["loss"].item(),
-                "loss_rel_err": abs(met["loss"].item() - ref["loss"].item()) / abs(
-                    ref["loss"].item()),
-                "grad": dict_grad_compare(grads, ref["grads"]),
-                "grad_f64": leaves_beyond(grads, ref["grads"], TOL_AXIS_F64_LEAF,
-                                          TOL_AXIS_F64_GRAD),
-                "params_rel_err": params_rel(params, ref["params"]),
-                "iou_count_abs_diff": int((met["inter"] - ref["inter"]).abs().sum()
-                                          + (met["union"] - ref["union"]).abs().sum()),
-            }
-            out[impl] = res
-            del model, state, step, grads, whole, params, ref
+            stats = {n_: whole[n_] for n_ in ref["stats"]}
+            want_p, want_g = ref["params"], ref["grads"]
+        digest = hashlib.sha256()
+        for t in list(params.values()) + list(stats.values()):
+            digest.update(t.detach().cpu().numpy().tobytes())
+        res["state_sha256"] = digest.hexdigest()
+        res["vs_one_process"] = {
+            "loss": met["loss"].item(),
+            "loss_rel_err": abs(met["loss"].item() - ref["loss"].item()) / abs(
+                ref["loss"].item()),
+            "grad": dict_grad_compare(grads, want_g),
+            "grad_f64": leaves_beyond(grads, want_g, TOL_AXIS_F64_LEAF, TOL_AXIS_F64_GRAD),
+            "params_rel_err": params_rel(params, want_p),
+            "bn_max_abs_err": max((stats[n_].double() - b.double()).abs().max().item()
+                                  for n_, b in ref["stats"].items()),
+            "iou_count_abs_diff": int((met["inter"] - ref["inter"]).abs().sum()
+                                      + (met["union"] - ref["union"]).abs().sum()),
+        }
+        res["compare_s"] = time.perf_counter() - t1
+        return res
+
+    checking = None
+    dattn.deform_attn, spatial.fetch, spatial.exchange = attn, counted_fetch, counted_exchange
+    xb.XBlockFunction.forward = staticmethod(k3_forward)
+    try:
+        for leg in legs:
+            out[leg["key"]] = run_leg(leg)
+            gc.collect()  # FSDP2's hooks hold the model in reference cycles
             torch.cuda.empty_cache()
     finally:
-        dattn.deform_attn = route
+        dattn.deform_attn, spatial.fetch, spatial.exchange = route, fetch, exchange
+        xb.XBlockFunction.forward = staticmethod(xb_forward)
         destroy_distributed()
     torch.save(out, tmp / f"{tag}rank{rank}.pt")
 
 
-def axis_refs(torch, np, dev, tmp):
+def axis_refs(torch, np, dev, tmp, depths=None):
     """The one-process float32 ('auto', 'pallas') and float64 steps of the
-    flagship on ``axis_batch``, each written to ``tmp/ref_<impl>.pt`` (then
-    ``.done``) for the model and spatial axes' ranks; returns per impl the
+    flagship at ``depths`` (None: the preset's) on ``axis_batch``, each
+    written to ``ref_path`` (then ``.done``) for the mesh phases' ranks;
+    returns per impl the
     loss, peak memory, parameter and AdamW bytes and the model axis plan's
     parameter share at Y = 2; and under "auto_one_image" the peak of the
     'auto' step on the batch's first image alone (the pixels a rank of
@@ -3380,7 +3527,7 @@ def axis_refs(torch, np, dev, tmp):
     from dat_segmentation_tpu_torch.ops import deform_attn as da
     from dat_segmentation_tpu_torch.parallel.model_axis import model_axis_plan
 
-    cfg = scale_cfg()
+    cfg = scale_cfg(depths)
     mc = cfg.model
     route = dattn.deform_attn
     whole = {}
@@ -3414,8 +3561,11 @@ def axis_refs(torch, np, dev, tmp):
         torch.save({"loss": met["loss"], "inter": met["inter"], "union": met["union"],
                     "grads": {n: p.grad for n, p in model.named_parameters()
                               if p.grad is not None},
-                    "params": dict(model.named_parameters())}, tmp / f"ref_{impl}.pt")
-        (tmp / f"ref_{impl}.done").touch()
+                    "params": dict(model.named_parameters()),
+                    "stats": {n: b for n, b in model.named_buffers()
+                              if n.endswith(("running_mean", "running_var"))}},
+                   ref_path(tmp, impl, depths))
+        ref_path(tmp, impl, depths).with_suffix(".done").touch()
         plan = model_axis_plan(model, 2)
         whole[impl]["plan_param_share"] = sum(
             p.numel() * p.element_size() / (2 if plan[n].dim is not None else 1)
@@ -3437,17 +3587,14 @@ def axis_refs(torch, np, dev, tmp):
     return whole
 
 
-def run_ranks(torch, tmp, fn, tag, shape, legs, meanwhile=None, limit=400):
-    """Start ``prod(shape)`` gloo ranks of ``fn(rank, world, tmp, tag, shape,
-    legs)`` on the card, run ``meanwhile()`` here while they start, wait for
-    them (a ``TimeoutError`` after ``limit`` s) and load their results; returns
+def run_ranks(torch, tmp, fn, tag, world, legs, meanwhile=None, limit=600):
+    """Start ``world`` gloo ranks of ``fn(rank, world, tmp, tag, legs)`` on
+    the card, run ``meanwhile()`` here while they start, wait for them (a
+    ``TimeoutError`` after ``limit`` s) and load their results; returns
     (``meanwhile``'s result, the ranks' results)."""
     import torch.multiprocessing as mp
 
-    world = 1
-    for size in shape.values():
-        world *= size
-    ctx = mp.start_processes(fn, args=(world, str(tmp), tag, shape, legs), nprocs=world,
+    ctx = mp.start_processes(fn, args=(world, str(tmp), tag, legs), nprocs=world,
                              start_method="spawn", join=False)
     try:
         got = meanwhile() if meanwhile is not None else None
@@ -3462,28 +3609,59 @@ def run_ranks(torch, tmp, fn, tag, shape, legs, meanwhile=None, limit=400):
     return got, [torch.load(tmp / f"{tag}rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def model_axis_phase(torch, np, card, dev, n_d, n_x, tmp):
-    """17b. model_axis (see the module docstring). The one-process references
-    go to ``tmp`` (``axis_refs``, while the first ranks start). Returns rank
-    0's K1, K2 and K3 launches in the {data: 1, model: 2} steps ('pallas' for
-    K3) and the references' figures."""
+def axis_phases(torch, np, card, dev, n_d, n_x, tmp):
+    """17b-17d: the legs of the model_axis, spatial_axis and full_mesh phases
+    in one spawn of ranks per world size (two and four; a spawn's first leg
+    costs a process start and the kernels' first loads), the one-process
+    references computed here meanwhile (``axis_refs``, at ``AXIS_DEPTHS``
+    and at the preset's depth); then each phase's lines and gates
+    (``n_d``, ``n_x``: K1 and K3 launches a step at the preset's depth).
+    Returns rank 0's launches of each phase."""
+    from dataclasses import replace
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_phase = time.perf_counter()
-    geo = {s["H"]: s for s in stage_geometry(scale_cfg().model.backbone, IMG)}
-    whole = {}
-    results = {}
+    cut = replace(scale_cfg().model.backbone, depths=AXIS_DEPTHS)
+    cut_d = sum(spec[:n].count("D") for spec, n in zip(cut.stage_spec, cut.depths))
+    legs = [mesh_leg(name, "model", shape, depths=AXIS_DEPTHS)
+            for shape, names in AXIS_MESHES for name in names]
+    legs += [mesh_leg(name, name == "fsdp_ckpt", shape, depths=AXIS_DEPTHS)
+             for shape, names in SPATIAL_MESHES for name in names]
+    legs += FULL_MESH_LEGS
+    by_world = {}
+    for leg in legs:
+        by_world.setdefault(int(np.prod(list(leg["mesh"].values()))), []).append(leg)
+    results, whole = {}, {}
     torch.cuda.empty_cache()
-    for shape, impls in AXIS_MESHES:
-        tag = "x".join(str(v) for v in shape.values())
-        refs, results[tag] = run_ranks(torch, tmp, axis_rank, tag, shape, impls, None if whole
-                                       else lambda: axis_refs(torch, np, dev, tmp))
-        whole = refs or whole
+    for world, group in sorted(by_world.items()):
+        t0 = time.perf_counter()
+        needed = {leg["depths"] for leg in group} - set(whole)
+        refs, ranks = run_ranks(torch, tmp, mesh_rank, f"w{world}", world, group, lambda: {
+            d: axis_refs(torch, np, dev, tmp, d) for d in needed})
+        whole.update(refs)
+        results.update({leg["key"]: [r[leg["key"]] for r in ranks] for leg in group})
+        emit({"phase": "axis_ranks", "card": card, "ranks": world,
+              "legs": [leg["key"] for leg in group], "seconds": time.perf_counter() - t0,
+              "joined_s": [r["joined_at"] - ranks[0]["joined_at"] for r in ranks],
+              "leg_s_rank0": {leg["key"]: {k: ranks[0][leg["key"]][k]
+                                           for k in ("setup_s", "seconds", "compare_s")}
+                              for leg in group}})
+    return (model_axis_report(card, whole[AXIS_DEPTHS], results, cut_d, sum(AXIS_DEPTHS)),
+            spatial_axis_report(card, whole[AXIS_DEPTHS], results, cut_d, sum(AXIS_DEPTHS)),
+            full_mesh_report(card, whole[None], results, n_d, n_x))
 
+
+def model_axis_report(card, whole, results, n_d, n_x):
+    """17b. model_axis (see the module docstring): its legs' lines and gates
+    against ``whole`` (``axis_refs``' figures at ``AXIS_DEPTHS``; ``n_d``,
+    ``n_x`` its launches a step). Returns rank 0's K1, K2 and K3 launches in
+    the {data: 1, model: 2} steps ('pallas' for K3)."""
+    geo = {s["H"]: s for s in stage_geometry(scale_cfg().model.backbone, IMG)}
     pixels = len(AXIS_ROWS) * IMG * IMG
-    for (shape, impls), (tag, ranks) in zip(AXIS_MESHES, results.items()):
+    for shape, impls in AXIS_MESHES:
+        tag = mesh_tag(shape)
         for impl in impls:
-            rows = [r[impl] for r in ranks]
+            rows = results[f"{impl} {tag}"]
             v = [r["vs_one_process"] for r in rows]
             w = whole[impl]
             local_bytes = [r["param_bytes"] + r["adamw_bytes"] for r in rows]
@@ -3491,7 +3669,7 @@ def model_axis_phase(torch, np, card, dev, n_d, n_x, tmp):
                   "kernel_impl": impl, "preset": TRAIN_PRESET,
                   "dtype": "float64" if impl == "float64" else "float32", "tf32": False,
                   "backend": "gloo (ranks on one card)", "global_batch": len(AXIS_ROWS),
-                  "devices": [r["device"] for r in ranks],
+                  "depths": AXIS_DEPTHS, "devices": [r["device"] for r in rows],
                   "loss": [x["loss"] for x in v], "loss_one_process": w["loss"],
                   "loss_rel_err": [x["loss_rel_err"] for x in v],
                   "grad_rel_err": [x["grad_f64"][0] if impl == "float64" else x["grad"][0]
@@ -3546,11 +3724,10 @@ def model_axis_phase(torch, np, card, dev, n_d, n_x, tmp):
                 check(share <= AXIS_MAX_SHARE, f"{what}: bytes share {share} > {AXIS_MAX_SHARE}")
             check(len({r["state_sha256"] for r in rows}) == 1,
                   f"model_axis {tag} {impl}: the ranks' gathered states differ")
-    emit({"phase": "model_axis", "card": card, "seconds": time.perf_counter() - t_phase})
-    r0 = results[next(iter(results))][0]
-    return {"deform_attn_fwd": r0["auto"]["launches"]["deform_attn_fwd"],
-            "deform_attn_bwd": r0["auto"]["launches"]["deform_attn_bwd"],
-            "x_block_fwd": r0["pallas"]["launches"]["x_block_fwd"]}, whole
+    tag = mesh_tag(AXIS_MESHES[0][0])
+    return {"deform_attn_fwd": results[f"auto {tag}"][0]["launches"]["deform_attn_fwd"],
+            "deform_attn_bwd": results[f"auto {tag}"][0]["launches"]["deform_attn_bwd"],
+            "x_block_fwd": results[f"pallas {tag}"][0]["launches"]["x_block_fwd"]}
 
 
 # ---- 17c. spatial_axis: each image's rows over the mesh's spatial axis -------
@@ -3561,154 +3738,24 @@ def model_axis_phase(torch, np, card, dev, n_d, n_x, tmp):
 # image a peer (the rows <-> batch all-to-all); {data: 2, spatial: 2} has one
 # image a data coordinate, which S = 2 does not divide, so each peer gathers
 # the image's rows for the attention. "fsdp_ckpt": fsdp=True (FSDP2 over the
-# data group of one) with use_checkpoint, the 'auto' kernels: 28 K1 launches
-# (each stage again in the backward).
+# data group of one) with use_checkpoint, the 'auto' kernels: twice the K1
+# launches (each stage again in the backward).
 SPATIAL_MESHES = (({"data": 1, "spatial": 2}, ("auto", "pallas", "float64", "fsdp_ckpt")),
                   ({"data": 2, "spatial": 2}, ("auto",)))
 
 
-def spatial_rank(rank, world, tmp, tag, mesh_shape, legs):
-    """One gloo rank on the card on ``mesh_shape`` ({data, spatial}): per leg
-    one step of the flagship on this data coordinate's rows (each spatial
-    peer keeps its image rows) against the one-process step (``tmp/ref_*.pt``),
-    the K1, K2 and K3 launches, each K1 call's (B·g, H), the rows each fetch
-    added to the peer's own and the bytes each exchange received, and peak
-    memory; the result to ``tmp/<tag>rank<r>.pt``. Spawned by
-    ``spatial_axis_phase``."""
-    import collections
-    import hashlib
-    import os
-    from dataclasses import replace
-
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
-    import numpy as np
-    import torch
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from dat_segmentation_tpu_torch import build_model, create_train_state, make_train_step
-    from dat_segmentation_tpu_torch.models import deformable_attention as dattn
-    from dat_segmentation_tpu_torch.ops import deform_attn as da
-    from dat_segmentation_tpu_torch.ops import x_block as xb
-    from dat_segmentation_tpu_torch.parallel import destroy_distributed, init_distributed, mesh
-    from dat_segmentation_tpu_torch.parallel import spatial
-
-    tmp = Path(tmp)
-    dev = init_distributed("gloo", init_method=f"file://{tmp}/rendezvous_{tag}")
-    out = {"device": str(dev)}
-    calls, halos, received = [], collections.Counter(), [0, 0]
-    route, fetch, exchange = dattn.deform_attn, spatial.fetch, spatial.exchange
-    real_attn = route
-
-    def attn(q, *a, **k):
-        calls.append((q.shape[0], q.shape[1]))
-        return real_attn(q, *a, **k)
-
-    def counted_fetch(x, rows, want):
-        lo, hi = want(rows.axis.rank)
-        halos[(hi - lo) - rows.n] += 1
-        return fetch(x, rows, want)
-
-    def counted_exchange(pieces, shapes, axis):
-        received[0] += 1
-        received[1] += sum(int(np.prod(sh)) for t, sh in enumerate(shapes)
-                           if t != axis.rank) * pieces[0].element_size()
-        return exchange(pieces, shapes, axis)
-
-    dattn.deform_attn, spatial.fetch, spatial.exchange = attn, counted_fetch, counted_exchange
-    try:
-        for leg in legs:
-            cfg = scale_cfg()
-            f64, fsdp = leg == "float64", leg == "fsdp_ckpt"
-            impl = "pallas" if leg == "pallas" else "auto"
-            mc = replace(cfg.model, backbone=replace(cfg.model.backbone, kernel_impl=impl,
-                                                     use_checkpoint=fsdp))
-            cfg = replace(cfg, model=mc, fsdp=fsdp, mesh_shape=mesh_shape)
-            real_attn = da.deform_attn_reference if f64 else route
-            torch.manual_seed(SEED)
-            model = build_model(mc, device=dev)
-            if f64:
-                model.double()
-            state = create_train_state(model, cfg)
-            d, X = mesh.process_shard_info()
-            n = len(AXIS_ROWS) // X
-            local = {k: torch.as_tensor(v[d * n:(d + 1) * n]).to(dev)
-                     for k, v in axis_batch(np, mc).items()}
-            step = make_train_step(model, aux_weight=mc.aux_loss_weight,
-                                   num_classes=mc.num_classes,
-                                   compute_dtype=torch.float64 if f64 else torch.float32)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
-            calls.clear()
-            halos.clear()
-            received[:] = [0, 0]
-            t0 = time.perf_counter()
-            _, met = step(state, local)
-            torch.cuda.synchronize()
-            res = {"seconds": time.perf_counter() - t0,
-                   "launches": {"deform_attn_fwd": da.deform_attn.launches,
-                                "deform_attn_bwd": da.deform_attn_bwd.launches,
-                                "x_block_fwd": xb.x_block_fwd.launches},
-                   "k1_calls": list(calls),
-                   "halo_rows_per_fetch": dict(sorted(halos.items())),
-                   "exchanges": {"forward_calls": received[0],
-                                 "forward_bytes_from_peers": received[1]},
-                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-            whole = mesh.full_state(model, everywhere=True)[0]
-            params = {n_: whole[n_] for n_, _ in model.named_parameters()}
-            grads = {} if fsdp else {n_: p.grad for n_, p in model.named_parameters()
-                                     if p.grad is not None}
-            digest = hashlib.sha256()
-            for t in whole.values():
-                digest.update(t.detach().cpu().numpy().tobytes())
-            res["state_sha256"] = digest.hexdigest()
-            ref_impl = "float64" if f64 else impl
-            end = time.time() + 300
-            while not (tmp / f"ref_{ref_impl}.done").exists():
-                if time.time() > end:
-                    raise TimeoutError("no one-process reference")
-                time.sleep(0.2)
-            ref = torch.load(tmp / f"ref_{ref_impl}.pt", map_location=dev, weights_only=True)
-            res["vs_one_process"] = {
-                "loss": met["loss"].item(),
-                "loss_rel_err": abs(met["loss"].item() - ref["loss"].item()) / abs(
-                    ref["loss"].item()),
-                "grad": dict_grad_compare(grads, ref["grads"]) if grads else None,
-                "grad_f64": leaves_beyond(grads, ref["grads"], TOL_AXIS_F64_LEAF,
-                                          TOL_AXIS_F64_GRAD) if grads else None,
-                "params_rel_err": params_rel(params, ref["params"]),
-                "iou_count_abs_diff": int((met["inter"] - ref["inter"]).abs().sum()
-                                          + (met["union"] - ref["union"]).abs().sum()),
-            }
-            out[leg] = res
-            del model, state, step, grads, whole, params, ref
-            torch.cuda.empty_cache()
-    finally:
-        dattn.deform_attn, spatial.fetch, spatial.exchange = route, fetch, exchange
-        destroy_distributed()
-    torch.save(out, tmp / f"{tag}rank{rank}.pt")
-
-
-def spatial_axis_phase(torch, np, card, dev, n_d, n_x, tmp, whole):
-    """17c. spatial_axis (see the module docstring), against the one-process
-    references ``model_axis_phase`` left in ``tmp`` (``whole``: their
-    figures). Returns rank 0's K1, K2 and K3 launches in the {data: 1,
-    spatial: 2} steps ('pallas' for K3)."""
-    t_phase = time.perf_counter()
+def spatial_axis_report(card, whole, results, n_d, n_x):
+    """17c. spatial_axis (see the module docstring): its legs' lines and
+    gates, as ``model_axis_report``. Returns rank 0's K1, K2 and K3 launches
+    in the {data: 1, spatial: 2} steps ('pallas' for K3)."""
     geo = {s["H"]: s for s in stage_geometry(scale_cfg().model.backbone, IMG)}
-    torch.cuda.empty_cache()
-    results = {}
-    for shape, legs in SPATIAL_MESHES:
-        tag = "sp" + "x".join(str(v) for v in shape.values())
-        _, results[tag] = run_ranks(torch, tmp, spatial_rank, tag, shape, legs)
-
     pixels = len(AXIS_ROWS) * IMG * IMG
     want_k1 = {"auto": n_d, "pallas": n_d, "float64": 0, "fsdp_ckpt": 2 * n_d}
-    for (shape, legs), (tag, ranks) in zip(SPATIAL_MESHES, results.items()):
+    for shape, legs in SPATIAL_MESHES:
+        tag = mesh_tag(shape)
         X, S = shape["data"], shape["spatial"]
         for leg in legs:
-            rows = [r[leg] for r in ranks]
+            rows = results[f"{leg} {tag}"]
             v = [r["vs_one_process"] for r in rows]
             w = whole["float64" if leg == "float64" else "pallas" if leg == "pallas" else "auto"]
             emit({"phase": "spatial_axis", "card": card, "mesh": shape, "leg": leg,
@@ -3718,7 +3765,7 @@ def spatial_axis_phase(torch, np, card, dev, n_d, n_x, tmp, whole):
                   "backend": "gloo (ranks on one card)", "global_batch": len(AXIS_ROWS),
                   "attention_route": ("rows <-> batch all-to-all" if len(AXIS_ROWS) // X % S == 0
                                       else "every row gathered"),
-                  "devices": [r["device"] for r in ranks],
+                  "depths": AXIS_DEPTHS, "devices": [r["device"] for r in rows],
                   "loss": [x["loss"] for x in v], "loss_one_process": w["loss"],
                   "loss_rel_err": [x["loss_rel_err"] for x in v],
                   "grad_rel_err": [None if x["grad"] is None else
@@ -3766,11 +3813,134 @@ def spatial_axis_phase(torch, np, card, dev, n_d, n_x, tmp, whole):
                       f"{what}: K1 calls (B·g, H) {row['k1_calls']}, want {whole_maps}")
             check(len({r["state_sha256"] for r in rows}) == 1,
                   f"spatial_axis {tag} {leg}: the ranks' states differ")
-    emit({"phase": "spatial_axis", "card": card, "seconds": time.perf_counter() - t_phase})
-    r0 = results[next(iter(results))][0]
-    return {"deform_attn_fwd": r0["auto"]["launches"]["deform_attn_fwd"],
-            "deform_attn_bwd": r0["auto"]["launches"]["deform_attn_bwd"],
-            "x_block_fwd": r0["pallas"]["launches"]["x_block_fwd"]}
+    tag = mesh_tag(SPATIAL_MESHES[0][0])
+    return {"deform_attn_fwd": results[f"auto {tag}"][0]["launches"]["deform_attn_fwd"],
+            "deform_attn_bwd": results[f"auto {tag}"][0]["launches"]["deform_attn_bwd"],
+            "x_block_fwd": results[f"pallas {tag}"][0]["launches"]["x_block_fwd"]}
+
+
+# ---- 17d. full_mesh: the model and spatial axes together ---------------------
+# The flagship's float32 step on axis_batch with both axes above 1, against
+# the same one-process references (the model axis's note on float32
+# gradients holds: they are reported, and gated in float64). Each leg is
+# (kernel_impl, fsdp, use_checkpoint): fsdp='model' splits the model over
+# the model peers on each spatial peer's rows; "fsdp_spatial" shards the
+# parameters and AdamW's moments over the spatial peers (HSDP with a data
+# group of one), whose shards are held against the same rows of the
+# one-process tensors (gathering them, a DTensor redistribute, crashes in
+# gloo's CUDA path: scale_out's note). Each K1 launch of the 'auto' leg is
+# held against the plain version on its own inputs, K2 at each launch's
+# shapes on drawn inputs: on this step's activations a stage-2 call is
+# ill-conditioned (its exact dq, dk and dtable nearly vanish, and the float32
+# plain version's are float32 noise, far from its float64 version's), so a
+# float32 K2 there matches neither.
+FULL_MESH = {"data": 1, "model": 2, "spatial": 2}
+FULL_MESH_LEGS = [mesh_leg("auto", "model", FULL_MESH, check=True),
+                  mesh_leg("pallas", "model", FULL_MESH, check=True),
+                  mesh_leg("float64", "model", FULL_MESH), mesh_leg("ckpt", "model", FULL_MESH),
+                  mesh_leg("fsdp_spatial", "spatial", FULL_MESH)]
+
+
+def full_mesh_report(card, whole, results, n_d, n_x):
+    """17d. full_mesh (see the module docstring): its legs' lines and gates
+    against ``whole`` (``axis_refs``' figures at the preset's depth).
+    Returns rank 0's K1, K2 and K3 launches ('pallas' for K3)."""
+    geo = {s["H"]: s for s in stage_geometry(scale_cfg().model.backbone, IMG)}
+    X, Y, S = (FULL_MESH[a] for a in ("data", "model", "spatial"))
+    pixels = len(AXIS_ROWS) * IMG * IMG
+    want_k1 = {"auto": n_d, "pallas": n_d, "float64": 0, "ckpt": 2 * n_d, "fsdp_spatial": n_d}
+    for spec in FULL_MESH_LEGS:
+        leg, impl, fsdp, ckpt = spec["name"], spec["impl"], spec["fsdp"], spec["ckpt"]
+        rows = results[spec["key"]]
+        v = [r["vs_one_process"] for r in rows]
+        w = whole["float64" if leg == "float64" else impl]
+        local_bytes = [r["param_bytes"] + r["adamw_bytes"] for r in rows]
+        emit({"phase": "full_mesh", "card": card, "mesh": FULL_MESH, "leg": leg, "fsdp": fsdp,
+              "kernel_impl": impl, "use_checkpoint": ckpt, "preset": TRAIN_PRESET,
+              "image": [IMG, IMG], "dtype": "float64" if leg == "float64" else "float32",
+              "tf32": False, "backend": "gloo (ranks on one card)",
+              "global_batch": len(AXIS_ROWS), "devices": [r["device"] for r in rows],
+              "coords": [r["coords"] for r in rows],
+              "loss": [x["loss"] for x in v], "loss_one_process": w["loss"],
+              "loss_rel_err": [x["loss_rel_err"] for x in v],
+              "grad_rel_err": [x["grad_f64"][0] if leg == "float64" else x["grad"][0]
+                               for x in v],
+              "params_rel_err": [x["params_rel_err"] for x in v],
+              "bn_max_abs_err": [x["bn_max_abs_err"] for x in v],
+              "iou_count_abs_diff": [x["iou_count_abs_diff"] for x in v], "pixels": pixels,
+              "launches_per_rank": [r["launches"] for r in rows],
+              "k1_calls_rank0": rows[0]["k1_calls"],
+              "kernel_vs_plain_max_rel_err": [r["kernel_vs_plain"] for r in rows],
+              "halo_rows_per_fetch_rank0": rows[0]["halo_rows_per_fetch"],
+              "exchanges_rank0": rows[0]["exchanges"],
+              "bytes_per_rank": {"param": [r["param_bytes"] for r in rows],
+                                 "adamw": [r["adamw_bytes"] for r in rows],
+                                 "share_of_whole": [b / (w["param_bytes"] + w["adamw_bytes"])
+                                                    for b in local_bytes]},
+              "peak_gib_per_rank": [r["peak_gib"] for r in rows],
+              "peak_gib_one_process": w["peak_gib"],
+              "peak_share_of_one_process": [r["peak_gib"] / w["peak_gib"] for r in rows],
+              "step_s": [r["seconds"] for r in rows],
+              "states_equal": len({r["state_sha256"] for r in rows}) == 1,
+              "shards_equal_per_spatial_coordinate": all(
+                  len({rows[r]["state_sha256"] for r in range(len(rows)) if r % S == s}) == 1
+                  for s in range(S)),
+              "tol": {"loss": TOL_TRAIN_LOSS, "params": TOL_GRAD, "bn": TOL_BN,
+                      "kernel_vs_plain": {"K1": TOL_F32, "K2": TOL_BWD_F32, "K3": TOL_XB_F32},
+                      "grad": (f"{TOL_AXIS_F64_GRAD} global, {TOL_AXIS_F64_LEAF} a leaf"
+                               if leg == "float64" else "reported, not gated in float32 "
+                               "(AXIS_MESHES' note)")},
+              "note": "gloo through the host on one card: parity and memory, not speed"})
+        for r, (row, x) in enumerate(zip(rows, v)):
+            what = f"full_mesh {leg} rank {r}"
+            check(row["coords"] == ((r // S) // Y, (r // S) % Y, r % S),
+                  f"{what}: coordinates {row['coords']}, the JAX make_mesh order gives "
+                  f"{((r // S) // Y, (r // S) % Y, r % S)}")
+            check(x["loss_rel_err"] <= TOL_TRAIN_LOSS,
+                  f"{what}: loss rel err {x['loss_rel_err']} > {TOL_TRAIN_LOSS}")
+            if leg == "float64":  # every gradient, globally and per leaf
+                rel, off = x["grad_f64"]
+                check(rel <= TOL_AXIS_F64_GRAD and not off,
+                      f"{what}: float64 grad rel err {rel}, leaves beyond "
+                      f"{TOL_AXIS_F64_LEAF}: {off}")
+            check(x["params_rel_err"] <= TOL_GRAD,
+                  f"{what}: params rel err {x['params_rel_err']} > {TOL_GRAD}")
+            check(x["bn_max_abs_err"] <= TOL_BN,
+                  f"{what}: BN statistics differ by {x['bn_max_abs_err']} > {TOL_BN}")
+            check(x["iou_count_abs_diff"] <= 1e-4 * pixels,
+                  f"{what}: IoU counts differ by {x['iou_count_abs_diff']}")
+            want = {"deform_attn_fwd": want_k1[leg],
+                    "deform_attn_bwd": 0 if leg == "float64" else n_d,
+                    "x_block_fwd": n_x if leg == "pallas" else 0}
+            check(row["launches"] == want, f"{what}: launches {row['launches']}, want {want}")
+            # the main path's launches against the plain version on their inputs
+            tols = {"auto": {"deform_attn_fwd": TOL_F32, "deform_attn_bwd": TOL_BWD_F32},
+                    "pallas": {"x_block_fwd": TOL_XB_F32}}.get(leg, {})
+            for kernel, tol in tols.items():
+                err = row["kernel_vs_plain"].get(kernel)
+                check(err is not None and err <= tol,
+                      f"{what}: {kernel} against its plain version {err} > {tol}")
+            # each K1 call on whole maps of the rank's B/S images and, under the
+            # model axis, half the groups of a stage whose groups divide by 2
+            split = fsdp == "model"
+            groups = [(len(AXIS_ROWS) // X // S * geo[h]["g"]
+                       // (Y if split and geo[h]["g"] % Y == 0 else 1), h)
+                      for _, h in row["k1_calls"]]
+            check(row["k1_calls"] == groups and len(groups) == (2 if ckpt else 1) * n_d,
+                  f"{what}: K1 calls (B·g, H) {row['k1_calls']}, want {groups}")
+            share = local_bytes[r] / (w["param_bytes"] + w["adamw_bytes"])
+            check(share <= AXIS_MAX_SHARE, f"{what}: bytes share {share} > {AXIS_MAX_SHARE}")
+        if fsdp == "spatial":  # shards: the model peers of a spatial coordinate agree
+            check(all(len({rows[r]["state_sha256"] for r in range(len(rows)) if r % S == s}) == 1
+                      for s in range(S)),
+                  f"full_mesh {leg}: the model peers of a spatial coordinate hold other shards")
+        else:
+            check(len({r["state_sha256"] for r in rows}) == 1,
+                  f"full_mesh {leg}: the ranks' gathered states differ")
+    tag = mesh_tag(FULL_MESH)
+    return {"deform_attn_fwd": results[f"auto {tag}"][0]["launches"]["deform_attn_fwd"],
+            "deform_attn_bwd": results[f"auto {tag}"][0]["launches"]["deform_attn_bwd"],
+            "x_block_fwd": results[f"pallas {tag}"][0]["launches"]["x_block_fwd"]}
 
 
 # ---- 18. pe_modes: the other position-bias modes (models/deformable_attention.py)

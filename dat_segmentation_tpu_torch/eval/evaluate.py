@@ -69,8 +69,8 @@ def _batched(inferencer, dataset, indices, finish, *, img_scale, keep_ratio, bat
 
 def _reduce_across_processes(iou: StreamingIoU, done: int) -> int:
     """Sum ``iou``'s counts (in place) and the image count over the data
-    group (model peers evaluate the same images); returns the summed image
-    count."""
+    group (model and spatial peers evaluate the same images); returns the
+    summed image count."""
     c = iou.num_classes
     totals = mesh.all_reduce_host(np.concatenate([iou.inter, iou.union, iou.area_label, [done]]),
                                   data_axis=True)

@@ -45,7 +45,11 @@ or every row gathered where S does not divide the batch), so the offsets
 sample the whole map and K1/K2 see the one-process step's shapes; K3 runs
 on a slab of the peer's rows and the halo it spoils (``spatial.slab``: 1 +
 window // 2 + 1 rows for an 'X' block with its LPU, 1 for an MLP), gated
-at the stage's global size.
+at the stage's global size. Both axes together: the attention's whole maps
+split by offset group over the model peers, which hold the same batch
+rows, and K3 on slabs with the MLP weights gathered over the model group;
+a checkpointed stage's recompute issues both axes' collectives again in
+the forward's order.
 
 ``use_checkpoint`` recomputes each stage's activations in the backward
 during training (``torch.utils.checkpoint``), one stage at a time as the

@@ -44,7 +44,9 @@ partial sums all-reduced; the composite's blocks stay whole.
 Over the mesh's spatial axis the stage runs this module on whole maps of
 part of the data coordinate's batch (``models/dat.py:TransformerStage.
 _attend``); ``batch`` then places its dropout masks in the data
-coordinate's.
+coordinate's, under a model axis too (the model peers of a spatial
+coordinate take the same batch rows, and a split block's masks cover
+whole channels).
 
 Exact padded inference (``ops/valid_extent.py``: per-sample true extents
 inside a padded batch) is not ported; the port runs every input at its

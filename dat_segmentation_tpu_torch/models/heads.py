@@ -11,8 +11,10 @@ its true shape. Dropout is elementwise and draws from the generator that
 Over the mesh's model axis (``parallel/model_axis.py``) each
 ``ConvBNReLU``, ``FPNNeck``'s laterals and output convs and ``ClsHead.fc``
 hold this rank's output channels (a BatchNorm its channels' statistics
-over the data group) and gather the peers' outputs (``column``): no conv
-of a head stays whole, and what follows each runs whole on every peer.
+over the data group, over data × spatial on a row shard) and gather the
+peers' outputs (``column``): no conv of a head stays whole, and what
+follows each runs whole on every peer. Beside a spatial axis the convs run
+on row shards, fetching their halos on this rank's channels.
 """
 
 from __future__ import annotations

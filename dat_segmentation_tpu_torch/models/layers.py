@@ -18,8 +18,12 @@ as the JAX package's flax BatchNorm does (biased variance).
 
 Over the mesh's spatial axis (``parallel/spatial.py``) a module given
 ``rows`` (a ``Rows``) takes a row shard of its input: ``Conv2d`` fetches
-its kernel's halo, ``BatchNorm2d`` reduces over data × spatial and
-``Dropout`` keeps its rows of the data coordinate's whole mask.
+its kernel's halo, ``BatchNorm2d`` reduces over data × spatial (of this
+rank's model coordinate) and ``Dropout`` keeps its rows of the data
+coordinate's whole mask. Beside the model axis a split MLP runs on row
+shards of its hidden units: ``dwc`` fetches its halo on this rank's
+channels, the CMT BatchNorms take those channels' statistics over the
+same group, and the masks are cut from the whole rows and width.
 """
 
 from __future__ import annotations

@@ -6,41 +6,53 @@ each process of ``torch.distributed`` runs the step on its share of the
 global batch, and the places where the JAX program reads the whole batch
 reduce across processes explicitly.
 
-The mesh is ``{"data": X, "model": Y}`` or ``{"data": X, "spatial": S}``
-over the X·Y (X·S) processes (``-1``: all the processes the other axes
-leave), laid out as the JAX package reshapes its devices, in the dict's
-order, data first: rank ``d·Y + m`` is data coordinate d and model
-coordinate m (``d·S + s`` with spatial coordinate s), so model (spatial)
-peers are adjacent ranks (one node). ``resolve_mesh`` makes the
-``Layout``: a process group for each data group (the X ranks of one model
-or spatial coordinate), each model group and each spatial group (the Y or
-S ranks of one data coordinate); every rank creates every group, in one
-order. The batch is sharded over ``data``: the peers of a model or spatial
-group load the same rows (``process_shard_info`` gives the data
+The mesh is a dict of the axes ``data``, ``model`` and ``spatial`` over
+their product of processes (``-1``: all the processes the other axes
+leave), laid out as the JAX package's ``make_mesh`` reshapes its devices:
+in the dict's order (``data`` first where the dict leaves it out), so on
+``{"data": X, "model": Y, "spatial": S}`` rank ``(d·Y + m)·S + s`` is data
+coordinate d, model coordinate m, spatial coordinate s, and on ``{"data":
+X, "spatial": S, "model": Y}`` rank ``(d·S + s)·Y + m``; the last axis's
+peers are adjacent ranks (one node). ``rank_grid`` gives that placement,
+``resolve_mesh`` makes the ``Layout``: a process group for each line of the
+mesh, the data groups (the X ranks of one (m, s)), the model groups (the Y
+ranks of one (d, s)), the spatial groups (the S ranks of one (d, m)) and,
+with both a model and a spatial axis, the rows groups (the X·S ranks of
+one model coordinate); every rank creates every group, in one order. The
+batch is sharded over ``data``: the model and spatial peers of a data
+coordinate load the same rows (``process_shard_info`` gives the data
 coordinate); the spatial peers then split each image's rows
 (``parallel/spatial.py``).
 
 * Every reduction over the global batch goes over this rank's data group:
-  BatchNorm's statistics (``models/layers.py:BatchNorm2d``), dropout and
-  drop path's masks (``models/layers.py:Dropout``), mixup's pairs
-  (``mirror_rows``), the losses' counts (``train/losses.py``), the
-  gradient sum and the metrics (``train/train_step.py``), the eval's counts
-  (``all_reduce_host(..., data_axis=True)``). Over the world, each row
-  would count Y times. A reduction over row-sharded activations (``rows``)
-  goes over the data × spatial group, ``Layout.rows_group``.
+  BatchNorm's statistics of a replicated tensor (``models/layers.py:
+  BatchNorm2d``), dropout and drop path's masks (``models/layers.py:
+  Dropout``), mixup's pairs (``mirror_rows``), the classifier's metrics,
+  the eval's counts (``all_reduce_host(..., data_axis=True)``). Over the
+  world, each row would count Y·S times. A reduction over row-sharded
+  activations (``rows``: BatchNorm on a row shard, the losses' pixel
+  counts, the gradient sum, the IoU counts) goes over the data × spatial
+  group of this rank's model coordinate, ``Layout.rows_group``; over the
+  world it would count each pixel Y times.
 * ``fsdp=True`` (or ``'data'``) shards the parameters and AdamW's moments
   over the data groups (ZeRO) with FSDP2 (``shard_model``); model peers
   compute the same thing, spatial peers sum their sharded gradients.
+* ``fsdp='spatial'`` shards them over the spatial groups and replicates
+  them over the data groups (FSDP2 on the 2-D (data, spatial) mesh of the
+  model coordinate: HSDP); the reduce-scatter sums the spatial peers'
+  parts, the all-reduce the data replicas'. A rank holds 1/S of each
+  parameter's and moment's rows.
 * ``fsdp='model'`` is tensor parallelism over the model groups
   (``parallel/model_axis.py``): parameters held as this rank's slices,
   Megatron's column- and row-parallel layers through the autograd
   collectives below (``copy_to_model``, ``reduce_from_model``,
   ``gather_model``), ``full_state`` and ``load_full_state`` gathering and
-  slicing them in the one-process format.
+  slicing them in the one-process format. Beside a spatial axis the split
+  modules run on row shards: each model group holds one spatial
+  coordinate's rows, so its collectives' shapes agree.
 
-The model and spatial axes together are not ported (ROADMAP.md, Queue 1
-item 13). With no process group initialised nothing here issues a
-collective, and every caller runs its one-process code.
+With no process group initialised nothing here issues a collective, and
+every caller runs its one-process code.
 
 Collectives on the step's tensors go over NCCL on the card, gloo on the
 CPU. Host-side control values (the preemption flag, the eval's int64
@@ -63,7 +75,6 @@ import torch.nn as nn
 from ..utils.device import resolve_device
 
 BUCKET_BYTES = 64 << 20  # the gradient all-reduce's bucket
-BOTH_LATER = "ROADMAP.md, Queue 1 item 13: the model and spatial axes together"
 _AXES = ("data", "model", "spatial")
 _DATA = object()  # reduce_gradients' default group: this rank's data group
 _control: Dict[str, object] = {}  # the gloo group beside an NCCL default group
@@ -97,11 +108,11 @@ class ModelAxis:
 
 @dataclass(frozen=True)
 class Layout:
-    """The process mesh ``{data: X, model: Y}`` or ``{data: X, spatial:
-    S}``: this rank's coordinates and groups. A group None is the default
-    group (``data_group`` when Y = S = 1, ``rows_group`` always: the data
-    × spatial group is the world where the model axis is 1);
-    ``data_control`` None is ``control_group()``."""
+    """The process mesh ``{data: X, model: Y, spatial: S}``: this rank's
+    coordinates and groups. ``rows_group`` is data × spatial at this rank's
+    model coordinate (the data group when S = 1). A group None is the
+    default group (``data_group`` when Y = S = 1, ``rows_group`` when Y =
+    1); ``data_control`` None is ``control_group()``."""
 
     data: int
     model: int
@@ -113,6 +124,8 @@ class Layout:
     spatial: int = 1
     spatial_rank: int = 0
     spatial_group: object = None
+    rows_group: object = None
+    rows_ranks: Tuple[Tuple[int, ...], ...] = ()  # the (X, S) ranks of this model coordinate
 
     @property
     def model_axis(self) -> Optional[ModelAxis]:
@@ -127,12 +140,6 @@ class Layout:
         if self.spatial == 1:
             return None
         return ModelAxis(self.spatial_rank, self.spatial, self.spatial_group)
-
-    @property
-    def rows_group(self):
-        """The group over which row-sharded activations and the gradients
-        sum: data × spatial (the data group without a spatial axis)."""
-        return None if self.spatial > 1 else self.data_group
 
 
 def layout() -> Layout:
@@ -220,74 +227,99 @@ def _check_fsdp_axis(sizes: Dict[str, int], axis: str) -> None:
                          "no-op — drop fsdp or grow the axis")
 
 
-def resolve_mesh(mesh_shape: Optional[Dict[str, int]] = None,
-                 fsdp: Union[bool, str] = False) -> Layout:
-    """The ``Layout`` of ``mesh_shape`` (default ``{"data": -1}``: every
-    process) in this process group (one process without one), made the
-    current one; its groups are made at the first call for a shape (every
-    rank calls this at the same points). The axes are ``data``, ``model``
-    and ``spatial``: ``model`` and ``spatial`` both larger than 1, or
-    another name larger than 1, raise ``NotImplementedError``. The axes'
-    product must be the group's size. ``fsdp`` True or ``'data'`` shards
-    over the data axis of a process group (of any size); ``fsdp='model'``
-    splits over the model axis, which must exist with a size above 1
-    (``ValueError``, as the JAX package)."""
+def mesh_sizes(mesh_shape: Optional[Dict[str, int]], world: int) -> Dict[str, int]:
+    """The axes' sizes of ``mesh_shape`` (default ``{"data": -1}``) over
+    ``world`` processes, in the mesh's order (``data`` first where the dict
+    leaves it out; ``model`` and ``spatial`` of 1 where it does): the data,
+    model and spatial axes, another name only at size 1
+    (``NotImplementedError``), their product ``world`` (``ValueError``)."""
     shape = dict(mesh_shape or {"data": -1})
     for axis, size in shape.items():
         if axis not in _AXES and size != 1:
             raise NotImplementedError(
                 f"mesh axis {axis!r} of size {size}: the port's axes are {', '.join(_AXES)}")
-    if shape.get("model", 1) != 1 and shape.get("spatial", 1) != 1:
-        raise NotImplementedError(f"mesh {shape}: a model axis beside a spatial one ({BOTH_LATER})")
+    shape = {k: v for k, v in shape.items() if k in _AXES}
+    sizes = _axis_sizes(shape, world)
+    if "data" not in sizes:
+        rest = int(np.prod(list(sizes.values()))) or 1
+        sizes = dict(data=world // rest, **sizes)
+    for axis in _AXES:
+        sizes.setdefault(axis, 1)
+    if int(np.prod(list(sizes.values()))) != world or min(sizes.values()) < 1:
+        raise ValueError(f"mesh {shape} ({' x '.join(map(str, sizes.values()))}) in a group of "
+                         f"{world} processes")
+    return sizes
+
+
+def rank_grid(sizes: Dict[str, int]) -> np.ndarray:
+    """The ranks on the mesh ``sizes`` (``mesh_sizes``' order) as the JAX
+    ``make_mesh`` reshapes its devices, indexed [data, model, spatial]:
+    ``rank_grid(sizes)[d, m, s]`` is the rank at those coordinates."""
+    names = list(sizes)
+    grid = np.arange(int(np.prod(list(sizes.values())))).reshape([sizes[a] for a in names])
+    return np.transpose(grid, [names.index(a) for a in _AXES])
+
+
+def resolve_mesh(mesh_shape: Optional[Dict[str, int]] = None,
+                 fsdp: Union[bool, str] = False) -> Layout:
+    """The ``Layout`` of ``mesh_shape`` (default ``{"data": -1}``: every
+    process) in this process group (one process without one), made the
+    current one; its groups are made at the first call for a mesh (every
+    rank calls this at the same points). The axes are ``data``, ``model``
+    and ``spatial``, in any combination and order (``mesh_sizes``), their
+    product the group's size. ``fsdp`` True or ``'data'`` shards over the
+    data axis of a process group (of any size); ``fsdp='model'`` splits over
+    the model axis and ``fsdp='spatial'`` shards over the spatial axis,
+    which must exist with a size above 1 (``ValueError``, as the JAX
+    package)."""
     world = dist.get_world_size() if is_distributed() else 1
-    sizes = _axis_sizes({k: v for k, v in shape.items() if k in _AXES}, world)
-    sizes.setdefault("data", world // max(sizes.get("model", 1) * sizes.get("spatial", 1), 1))
+    sizes = mesh_sizes(mesh_shape, world)
     axis = fsdp if isinstance(fsdp, str) else "data"
-    if fsdp and axis == "spatial" and sizes.get("spatial", 1) > 1:
-        raise NotImplementedError("fsdp over 'spatial': the port shards parameters over the "
-                                  f"data axis beside a spatial one ({BOTH_LATER})")
     if fsdp and axis != "data":
-        _check_fsdp_axis(sizes, axis)
+        _check_fsdp_axis({k: v for k, v in sizes.items() if k in (mesh_shape or {})}, axis)
     elif fsdp and not is_distributed():  # FSDP2 over a data group of one runs (the card's probe)
         raise ValueError("fsdp axis 'data' shards over the processes of a group: call "
                          "parallel.init_distributed() first")
-    data, model, spatial = sizes["data"], sizes.get("model", 1), sizes.get("spatial", 1)
-    if data * model * spatial != world or min(data, model, spatial) < 1:
-        raise ValueError(f"mesh {shape} ({data} x {max(model, spatial)}) in a group of {world} "
-                         "processes")
-    key = (data, model, spatial)
+    key = tuple(sizes.items())
     if key not in _layouts:
-        _layouts[key] = _make_layout(data, model, spatial)
+        _layouts[key] = _make_layout(sizes)
     _current["layout"] = _layouts[key]
     return _current["layout"]
 
 
-def _make_layout(data: int, model: int, spatial: int = 1) -> Layout:
-    """This rank's ``Layout`` on ``data`` x ``model`` (or x ``spatial``),
-    its groups made."""
-    peers = model * spatial  # one of them is 1
-    if not is_distributed() or peers == 1:
-        rank = dist.get_rank() if is_distributed() else 0
-        return Layout(data, 1, rank, 0)
+def _make_layout(sizes: Dict[str, int]) -> Layout:
+    """This rank's ``Layout`` on the mesh ``sizes``, its groups made."""
+    data, model, spatial = (sizes[a] for a in _AXES)
+    if not is_distributed() or model * spatial == 1:
+        return Layout(data, 1, dist.get_rank() if is_distributed() else 0, 0)
+    grid = rank_grid(sizes)
     rank = dist.get_rank()
-    mine = {}
+    d, m, s = (int(i) for i in np.argwhere(grid == rank)[0])
     host_groups = dist.get_backend() != "gloo"  # host values need gloo data groups too
-    # every rank creates every group, in this order
-    for d in range(data):
-        ranks = [d * peers + m for m in range(peers)]
-        g = dist.new_group(ranks)
-        if rank in ranks:
-            mine["model_group" if model > 1 else "spatial_group"] = g
-    for m in range(peers):
-        ranks = [d * peers + m for d in range(data)]
-        g = dist.new_group(ranks)
-        c = dist.new_group(ranks, backend="gloo") if host_groups else g
-        if rank in ranks:
-            mine.update(data_group=g, data_control=c)
+    mine = {}
+
+    def make(lines, key, twin=None):  # every rank creates every line's group, in order
+        for ranks in lines:
+            ranks = sorted(int(r) for r in np.ravel(ranks))
+            g = dist.new_group(ranks)
+            c = dist.new_group(ranks, backend="gloo") if twin and host_groups else g
+            if rank in ranks:
+                mine[key] = g
+                if twin:
+                    mine[twin] = c
+
+    make([grid[:, j, k] for j in range(model) for k in range(spatial)], "data_group",
+         "data_control")
     if model > 1:
-        return Layout(data, model, rank // model, rank % model, **mine)
-    return Layout(data, 1, rank // spatial, 0, spatial=spatial, spatial_rank=rank % spatial,
-                  **mine)
+        make([grid[i, :, k] for i in range(data) for k in range(spatial)], "model_group")
+    if spatial > 1:
+        make([grid[i, j, :] for i in range(data) for j in range(model)], "spatial_group")
+    if model > 1 and spatial > 1:
+        make([grid[:, j, :] for j in range(model)], "rows_group")
+    elif model > 1:
+        mine["rows_group"] = mine["data_group"]
+    return Layout(data, model, d, m, spatial=spatial, spatial_rank=s,
+                  rows_ranks=tuple(map(tuple, grid[:, m, :].tolist())), **mine)
 
 
 # ---------------------------------------------------------------- collectives --
@@ -296,7 +328,8 @@ def _make_layout(data: int, model: int, spatial: int = 1) -> Layout:
 def all_reduce(t: torch.Tensor, *, rows: bool = False) -> torch.Tensor:
     """``t`` summed over this rank's data group, in place (not
     differentiable): the global batch's sum; with ``rows``, a sum over
-    row-sharded activations, over the data × spatial group."""
+    row-sharded activations, over the data × spatial group of this rank's
+    model coordinate (``Layout.rows_group``)."""
     lay = layout()
     dist.all_reduce(t, group=lay.rows_group if rows else lay.data_group)
     return t
@@ -459,25 +492,31 @@ def gather_model(x: torch.Tensor, axis: ModelAxis, dim: int = -1, *,
 # ----------------------------------------------------------------------- fsdp --
 
 
-def shard_model(model: nn.Module, compute_dtype: torch.dtype) -> nn.Module:
-    """ZeRO over the data axis (FSDP2's ``fully_shard``, in place, over
-    this rank's data group): a unit for each backbone stage, each head and
-    the root, the parameters gathered in ``compute_dtype`` for the forward
-    and the gradients reduce-scattered in float32 and summed (not averaged:
-    the losses divide by global counts). Buffers (BatchNorm statistics)
-    stay whole on every process. With ``use_checkpoint`` a stage's
-    recompute runs on the parameters FSDP2 gathers again before the stage's
-    backward (``models/dat.py:checkpointed``)."""
+def shard_model(model: nn.Module, compute_dtype: torch.dtype, axis: str = "data") -> nn.Module:
+    """ZeRO over the ``axis`` (FSDP2's ``fully_shard``, in place): over
+    this rank's data group (``'data'``), or over its spatial group and
+    replicated over its data group (``'spatial'``: HSDP on the 2-D (data,
+    spatial) mesh of this model coordinate). A unit for each backbone
+    stage, each head and the root, the parameters gathered in
+    ``compute_dtype`` for the forward and the gradients reduce-scattered in
+    float32 and summed (not averaged: the losses divide by global counts,
+    and the spatial peers' gradients are parts). Buffers (BatchNorm
+    statistics) stay whole on every process. With ``use_checkpoint`` a
+    stage's recompute runs on the parameters FSDP2 gathers again before
+    the stage's backward (``models/dat.py:checkpointed``). The model keeps
+    ``axis`` as ``fsdp_axis``."""
+    from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.fsdp import FSDPModule, MixedPrecisionPolicy, fully_shard
 
     from ..models.dat import TransformerStage
 
     lay = layout()
+    device = next(model.parameters()).device.type
     kw = {}
-    if lay.model * lay.spatial > 1:  # the data group of a 2-D mesh (the peers shard alike)
-        from torch.distributed.device_mesh import DeviceMesh
-
-        device = next(model.parameters()).device.type
+    if axis == "spatial":
+        kw["mesh"] = DeviceMesh.from_group([lay.data_group, lay.spatial_group], device,
+                                           mesh=lay.rows_ranks, mesh_dim_names=("data", "spatial"))
+    elif lay.model * lay.spatial > 1:  # the data group of a larger mesh (the peers shard alike)
         kw["mesh"] = DeviceMesh.from_group(lay.data_group, device)
     policy = MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32)
     for m in model.modules():
@@ -491,7 +530,16 @@ def shard_model(model: nn.Module, compute_dtype: torch.dtype) -> nn.Module:
         if isinstance(m, FSDPModule):  # a plain SUM (gloo has no AVG or PREMUL_SUM)
             m.set_gradient_divide_factor(1.0)
             m.set_force_sum_reduction_for_comms(True)
+    model.fsdp_axis = axis
     return model
+
+
+def shard_group(model: nn.Module):
+    """The group whose ranks hold the shards of a model FSDP2 shards: the
+    data group, or the spatial group under ``fsdp='spatial'``."""
+    lay = layout()
+    return lay.spatial_group if getattr(model, "fsdp_axis", "data") == "spatial" else \
+        lay.data_group
 
 
 def is_sharded(model: nn.Module) -> bool:
@@ -520,16 +568,16 @@ def local(t: torch.Tensor) -> torch.Tensor:
 
 
 def sharded_norm(tensors: Sequence[torch.Tensor],
-                 split: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                 split: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element of ``tensors`` (this
-    process's shards) in float32: FSDP's shards summed over the data group;
-    with ``split`` (a tensor-parallel model's leaves, True where split), the
-    split leaves summed over the model group and the whole ones counted
-    once."""
+    process's shards) in float32: FSDP's shards summed over ``group`` (the
+    shards' group, ``shard_group``); with ``split`` (a tensor-parallel
+    model's leaves, True where split), the split leaves summed over the
+    model group and the whole ones counted once."""
     sq = [torch.linalg.vector_norm(local(t).float()) ** 2 for t in tensors]
     if split is None:
         total = torch.stack(sq).sum()
-        dist.all_reduce(total, group=layout().data_group)
+        dist.all_reduce(total, group=group)
         return total.sqrt()
     zero = sq[0].new_zeros(())
     parts = torch.stack([sum((q for q, s in zip(sq, split) if s), zero),

@@ -30,7 +30,11 @@ shapes; ``shard_model_axis`` applies it in place to a whole model (after
 ``load_full_state`` gather and slice by it, so checkpoints keep the
 one-process format. K3 (``kernel_impl='pallas'``) runs on the MLP weights
 gathered over the axis (``models/dat.py``), as GSPMD treats a kernel it
-cannot partition.
+cannot partition. Beside a spatial axis every split module runs on row
+shards (``parallel/spatial.py``): the MLPs' and heads' convs fetch their
+halos on this rank's channels, the split attention runs on the whole maps
+of the rank's B/S batch rows (``models/dat.py:TransformerStage._attend``),
+and K3 on halo slabs with the gathered weights.
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ bins, the classifier's pooled features and logits, the attention's maps
 where the gather route computes them) holds on each peer the part of its
 gradient that comes from that peer's rows, so every peer's gradient of
 every parameter is a part, and the train step sums them over data ×
-spatial. The replicated loss (the classifier's) is weighted by 1/S for
+spatial (of the rank's model coordinate). The replicated loss (the classifier's) is weighted by 1/S for
 that (``train/losses.py``); BatchNorm of a replicated tensor reduces over
 the data group only (its backward is linear in the gradient, so the parts
 stay parts). ``exchange``'s backward sends each row's gradient back to the
@@ -43,6 +43,14 @@ differ: a peer with 0 rows of a conv's output convolves one row of what it
 fetched and keeps none, so the autograd graphs match and the backward (and
 a checkpointed stage's recompute) issues the collectives in one order on
 every peer.
+
+Beside the mesh's model axis (``parallel/model_axis.py``) a split module's
+activations are row shards of this rank's channel slice (a split MLP's
+hidden units, a split conv's outputs): ``fetch``, ``slab``, ``to_batch``
+and ``from_batch`` move whatever channels they are given over the spatial
+group, and the model peers of one spatial coordinate hold the same rows,
+so the model group's collectives between them see equal shapes, a peer
+with no rows included.
 """
 
 from __future__ import annotations

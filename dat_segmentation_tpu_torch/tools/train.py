@@ -25,11 +25,16 @@ card, gloo with ``--device cpu``); the config's ``data.batch_size`` is then
 the global batch, and ``fsdp=True`` (``--set fsdp=True``) shards the
 parameters and AdamW's moments; ``--set "mesh_shape={'data': X, 'model':
 Y}" fsdp=model`` splits the model over the model axis (tensor
-parallelism, ``parallel/model_axis.py``), and ``--set "mesh_shape={'data':
+parallelism, ``parallel/model_axis.py``), ``--set "mesh_shape={'data':
 X, 'spatial': S}"`` splits each image's rows over S processes
-(``parallel/spatial.py``: crops larger than one card's activations hold). ``main(argv)`` returns the trainer's
-(state, history). ``--diff-seed`` is taken, as the JAX CLI takes it, and
-changes nothing (see its help).
+(``parallel/spatial.py``: crops larger than one card's activations hold),
+and ``--set "mesh_shape={'data': X, 'model': Y, 'spatial': S}"
+fsdp=model`` does both over X·Y·S processes (rank (d·Y + m)·S + s, the
+dict's order as the JAX ``make_mesh``); ``fsdp=spatial`` shards the
+parameters and AdamW's moments over the spatial peers instead (a rank
+holds 1/S of them), with or without a model axis. ``main(argv)`` returns
+the trainer's (state, history). ``--diff-seed`` is taken, as the JAX CLI
+takes it, and changes nothing (see its help).
 """
 
 from __future__ import annotations

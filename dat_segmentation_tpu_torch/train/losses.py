@@ -16,7 +16,8 @@ the global batch. (A mean of per-process means is not, where processes
 hold different numbers of ignored pixels.) On a mesh with a model axis the
 counts and the sum are over the data group (``parallel/mesh.py``): model
 peers hold the same rows. On a mesh with a spatial axis the labels are row
-shards: the pixel counts are over data × spatial. The classifier's logits
+shards: the pixel counts are over data × spatial (of the rank's model
+coordinate: its model peers hold the same rows). The classifier's logits
 are replicated on the spatial peers: its loss divides by the data axis's
 global batch and by S, so that its parts (and their gradients) summed
 over data × spatial are the mean once (``parallel/spatial.py``).

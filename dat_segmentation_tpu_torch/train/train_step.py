@@ -41,12 +41,14 @@ float32 buffers.
 Inside a ``torch.distributed`` process group (``parallel/mesh.py``) the
 step is the JAX package's over the GLOBAL batch (the data coordinates'
 batches in order) on the mesh ``cfg.mesh_shape`` (``{"data": X, "model":
-Y}``): ``create_train_state`` makes the layout (``resolve_mesh``),
-broadcasts rank 0's parameters and buffers, and with ``cfg.fsdp`` True (or
-``'data'``) shards the model over the data groups (``shard_model``: FSDP2,
-which gathers the parameters in ``compute_dtype`` for the forward in place
-of the cast copies, whose ``functional_call`` would see sharded
-parameters), or with ``cfg.fsdp='model'`` splits it over the model groups
+Y, "spatial": S}``, any of them): ``create_train_state`` makes the layout
+(``resolve_mesh``), broadcasts rank 0's parameters and buffers, and with
+``cfg.fsdp`` True (or ``'data'``) shards the model over the data groups,
+with ``cfg.fsdp='spatial'`` over the spatial groups (replicated over the
+data groups: ``shard_model``, FSDP2, which gathers the parameters in
+``compute_dtype`` for the forward in place of the cast copies, whose
+``functional_call`` would see sharded parameters), or with
+``cfg.fsdp='model'`` splits it over the model groups
 (``parallel/model_axis.py:shard_model_axis``: tensor parallelism, the cast
 copies of this rank's slices). The model's BatchNorms, dropout and the
 losses take the global batch over the data group (see
@@ -57,29 +59,32 @@ split compute reads (the offset nets) over the model group too, and on
 any mesh with a model axis the other whole leaves' gradients are set to
 model rank 0's (the peers compute them alike, but K2's float32 atomics
 round them otherwise on each), so that the peers' replicas stay equal bit
-for bit; so
-``grad_norm``, the clip and ``update_ratio`` read the global gradient
-(over the model axis: the split leaves' squares summed over the peers, the
-whole ones once), and the metrics are global on every process: ``loss``
-and ``acc1`` over the global batch, ``inter``/``union`` summed in int64
-over the data group. Not wrapping the model in
+for bit; so ``grad_norm``, the clip and ``update_ratio`` read the global
+gradient (over the model axis: the split leaves' squares summed over the
+peers, the whole ones once; under FSDP2 the shards' squares over the
+shards' group, ``mesh.shard_group``), and the metrics are global on every
+process: ``loss`` and ``acc1`` over the global batch, ``inter``/``union``
+summed in int64 over the data group. Not wrapping the model in
 ``DistributedDataParallel`` is deliberate: the cast forward's
 ``functional_call`` bypasses DDP's ``forward``, so its reducer would never
 run. The gradient reduction runs after the backward, not beside it
 (ROADMAP.md, Queue 2). The metric step's ``[hits1, hits5, total]`` are
 summed over the data group.
 
-On a mesh with a spatial axis (``{"data": X, "spatial": S}``,
-``parallel/spatial.py``) every step still takes the data coordinate's
-batch: each spatial peer keeps its rows of each image and label
-(``ValueError`` where S does not divide H) and runs the model on them
-(``rows``). The gradients are summed over data × spatial (each peer's are
-parts: the module docstring of ``parallel/spatial.py`` says why; under
-FSDP2 the reduce-scattered shards are then summed over the spatial group),
+On a mesh with a spatial axis (``parallel/spatial.py``) every step still
+takes the data coordinate's batch: each spatial peer keeps its rows of
+each image and label (``ValueError`` where S does not divide H) and runs
+the model on them (``rows``). The gradients are summed over data ×
+spatial of the rank's model coordinate (``Layout.rows_group``: each
+peer's are parts, the module docstring of ``parallel/spatial.py`` says
+why; under FSDP2 over the data axis the reduce-scattered shards are then
+summed over the spatial group, over the spatial axis its HSDP sums both),
 and so are the loss and the IoU counts; acc1 and the metric step's counts,
-of the replicated logits, over the data group. Mixup's box falls on the
-rows it covers. ``make_eval_step`` gathers the logits' rows and then the
-data coordinates' batches: the global batch's logits on every process.
+of the replicated logits, over the data group. Beside a model axis the
+split modules run on the row shards, the model peers of one spatial
+coordinate holding the same rows. Mixup's box falls on the rows it
+covers. ``make_eval_step`` gathers the logits' rows and then the data
+coordinates' batches: the global batch's logits on every process.
 """
 
 from __future__ import annotations
@@ -115,8 +120,9 @@ def create_train_state(model: nn.Module, cfg) -> TrainState:
     """The train state of ``model`` (its weights as they are) under the
     optimizer and schedule of ``cfg`` (a ``TrainConfig``). Inside a
     process group: rank 0's weights on every process, and with
-    ``cfg.fsdp`` the model sharded over the data axis or split over the
-    model axis (in place) before the optimizer sees its parameters. fsdp
+    ``cfg.fsdp`` the model sharded over the data or the spatial axis or
+    split over the model axis (in place) before the optimizer sees its
+    parameters. fsdp
     over an axis the mesh lacks, or of size 1 (one process), raises
     ``ValueError``."""
     device = next(model.parameters()).device
@@ -128,7 +134,8 @@ def create_train_state(model: nn.Module, cfg) -> TrainState:
 
             shard_model_axis(model, layout.model_axis)
         elif cfg.fsdp:
-            mesh.shard_model(model, torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+            mesh.shard_model(model, torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
+                             "spatial" if cfg.fsdp == "spatial" else "data")
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     use_generator(model, generator)
     opt = cfg.optimizer
@@ -142,12 +149,13 @@ def create_train_state(model: nn.Module, cfg) -> TrainState:
 
 
 def global_norm(tensors: Iterable[torch.Tensor], sharded: bool = False,
-                split: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                split: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32; over every
-    process's shards when ``sharded`` (FSDP's DTensors) or ``split`` (a
-    model split over the model axis: True for its split leaves)."""
+    process's shards when ``sharded`` (FSDP's DTensors, over ``group``:
+    ``mesh.shard_group``) or ``split`` (a model split over the model axis:
+    True for its split leaves)."""
     if sharded or split is not None:
-        return mesh.sharded_norm(list(tensors), split)
+        return mesh.sharded_norm(list(tensors), split, group)
     return torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
     )
@@ -212,6 +220,10 @@ def make_train_step(
     forward = _forward_in(model, compute_dtype)
     distributed, sharded = mesh.is_distributed(), mesh.is_sharded(model)
     lay = mesh.layout()
+    shards = mesh.shard_group(model) if sharded else None
+    # fsdp over the data axis beside a spatial one: the spatial peers'
+    # gradient shards are parts (over 'spatial', FSDP2's HSDP sums both axes)
+    spatial_parts = sharded and lay.spatial > 1 and model.fsdp_axis == "data"
     axis = mesh.model_axis_of(model)
     # over the model axis: the split leaves, and the whole ones split compute reads
     split = None if axis is None else [n in model.model_axis_dims for n in names]
@@ -265,7 +277,7 @@ def make_train_step(
                     p.grad = torch.zeros_like(p)
             if distributed and not sharded:
                 mesh.reduce_gradients([p.grad for p in plist], group=lay.rows_group)
-            elif sharded and lay.spatial > 1:
+            elif spatial_parts:
                 mesh.reduce_gradients([mesh.local(p.grad) for p in plist],
                                       group=lay.spatial_group)
             if partial:
@@ -274,8 +286,8 @@ def make_train_step(
                 mesh.reduce_gradients([mesh.local(p.grad) for p in whole], group=peers,
                                       src=first_peer)
             grads = [mesh.local(p.grad) for p in plist]
-            grad_norm = global_norm(grads, sharded, split)
-            param_norm = global_norm([mesh.local(p) for p in plist], sharded, split)
+            grad_norm = global_norm(grads, sharded, split, shards)
+            param_norm = global_norm([mesh.local(p) for p in plist], sharded, split, shards)
             before = [mesh.local(p).detach().clone() for p in plist]
             if state.grad_clip is not None:
                 # optax.clip_by_global_norm: g * clip / norm where norm > clip
@@ -286,7 +298,7 @@ def make_train_step(
             state.optimizer.step()
             update_norm = global_norm(
                 torch._foreach_sub([mesh.local(p).detach() for p in plist], before), sharded,
-                split)
+                split, shards)
             metrics = {
                 "loss": loss.detach(),
                 "grad_norm": grad_norm,

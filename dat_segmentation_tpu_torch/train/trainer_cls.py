@@ -20,8 +20,9 @@ Inside a ``torch.distributed`` group, as ``trainer_seg.py``:
 ``cfg.data.batch_size`` is the global batch, each
 data coordinate loads its share of every epoch, the step is the global
 batch's on the mesh ``cfg.mesh_shape`` (replicated or, with ``cfg.fsdp``,
-sharded over the data axis or split over the model axis; over a spatial
-axis each spatial peer takes its rows of every image), the val is
+sharded over the data or the spatial axis or split over the model axis;
+over a spatial axis each spatial peer takes its rows of every image, also
+beside a model axis), the val is
 sharded over the data axis with each item counted once (a process with
 fewer pads its last batches with masked rows; model peers run the split
 model's forward together, spatial peers their rows of each image, through

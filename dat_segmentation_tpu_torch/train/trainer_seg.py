@@ -18,9 +18,10 @@ Inside a process group (``parallel.init_distributed``; ``tools/train.py
 loads its ``local_batch_size`` share, a disjoint slice of each epoch
 (``process_shard_info``), and the step is the global batch's
 (``train/train_step.py``) on the mesh ``cfg.mesh_shape``, replicated or,
-with ``cfg.fsdp``, sharded over the data axis or (``'model'``) split over
-the model axis, or with a ``spatial`` axis each image's rows split over
-the spatial peers (the step keeps each peer's rows);
+with ``cfg.fsdp``, sharded over the data axis or (``'spatial'``) the
+spatial axis or (``'model'``) split over the model axis; with a
+``spatial`` axis, alone or beside a model axis, each image's rows split
+over the spatial peers (the step keeps each peer's rows);
 ``process_shard_info`` is the data coordinate, so model and spatial peers
 load the same items. The in-run val runs a whole copy of a sharded
 or split model on whole images in each process, as the JAX trainer's,

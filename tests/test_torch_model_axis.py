@@ -46,6 +46,7 @@ from dat_segmentation_tpu.train import make_optimizer as jax_make_optimizer
 from dat_segmentation_tpu.train import schedules as jsched
 from dat_segmentation_tpu_torch import build_model, get_config
 from dat_segmentation_tpu_torch.parallel import resolve_mesh
+from dat_segmentation_tpu_torch.parallel.mesh import mesh_sizes, rank_grid
 from dat_segmentation_tpu_torch.parallel.model_axis import model_axis_plan
 from dat_segmentation_tpu_torch.train import trainer_seg
 from dat_segmentation_tpu_torch.train.checkpoint import CheckpointManager
@@ -156,8 +157,10 @@ def test_resolve_mesh_axes_and_refusals():
     the axes fit; fsdp='model' over a missing or size-1 axis raises
     ``ValueError`` (the JAX package's ``_check_fsdp_axis``), fsdp over the
     data axis without a process group ``ValueError``, a mesh that is not the
-    group ``ValueError``, a spatial axis beside the model axis
-    ``NotImplementedError`` naming its item."""
+    group ``ValueError``. A spatial axis beside the model axis is a mesh of
+    its own: larger than the group here (``ValueError``), rank (d·2 + m)·2 +
+    s on {data: 2, model: 2, spatial: 2} (the JAX ``make_mesh`` order,
+    ``rank_grid``)."""
     lay = resolve_mesh({"data": -1, "model": 1})
     assert (lay.data, lay.model, lay.model_axis) == (1, 1, None)
     assert resolve_mesh({"data": 1, "model": 1}, False).data == 1
@@ -169,8 +172,11 @@ def test_resolve_mesh_axes_and_refusals():
     for shape in ({"data": 1, "model": 2}, {"data": 2, "model": -1}, {"model": 2}):
         with pytest.raises(ValueError, match="processes"):
             resolve_mesh(shape)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13: the model and spatial axes"):
+    with pytest.raises(ValueError, match="group of 1 processes"):
         resolve_mesh({"data": -1, "model": 2, "spatial": 2}, "model")
+    grid = rank_grid(mesh_sizes({"data": 2, "model": 2, "spatial": 2}, 8))
+    assert all(grid[d, m, s] == (d * 2 + m) * 2 + s
+               for d in range(2) for m in range(2) for s in range(2))
 
 
 def test_plan_of_the_full_width_upernet_leaves_each_rank_half():

@@ -43,7 +43,7 @@ from dat_segmentation_tpu.train import schedules as jsched
 from dat_segmentation_tpu_torch import build_model, get_config
 from dat_segmentation_tpu_torch.ops.x_block import x_block_reference
 from dat_segmentation_tpu_torch.parallel import resolve_mesh
-from dat_segmentation_tpu_torch.parallel.mesh import ModelAxis
+from dat_segmentation_tpu_torch.parallel.mesh import ModelAxis, mesh_sizes, rank_grid
 from dat_segmentation_tpu_torch.parallel.spatial import SLAB_MULTIPLE, Rows, slab_span
 from dat_segmentation_tpu_torch.train import trainer_seg
 from dat_segmentation_tpu_torch.train.checkpoint import CheckpointManager
@@ -198,22 +198,32 @@ def _noise_ok(noise, grads):
 
 
 def test_resolve_mesh_spatial_layouts_and_refusals():
-    """Without a group a spatial axis above 1 is a mesh larger than the
-    group (``ValueError`` naming the processes), ``spatial: 1`` is the data
-    axis, another axis name above 1 and the model axis beside the spatial
-    one raise ``NotImplementedError`` (the latter naming ROADMAP.md's item
-    13), and fsdp='spatial' over a spatial axis too."""
+    """Without a group a spatial axis above 1 is a mesh larger than the group
+    (``ValueError`` naming the processes), ``spatial: 1`` is the data axis,
+    another axis name above 1 raises ``NotImplementedError``. The model axis
+    beside the spatial one, and fsdp='spatial', are meshes of their own: the
+    ranks' places (``rank_grid``, the JAX ``make_mesh`` order) on {data: 1,
+    model: 2, spatial: 2} and, spatial first, {data: 1, spatial: 2, model:
+    2}; fsdp='spatial' where the mesh has no spatial axis above 1 raises the
+    JAX package's ``ValueError``, on a spatial axis the group-size one."""
     assert resolve_mesh({"data": -1, "spatial": 1}).spatial_axis is None
     for shape in ({"data": -1, "spatial": 2}, {"data": 1, "spatial": 2}, {"spatial": -1,
                                                                           "data": 2}):
         with pytest.raises(ValueError, match="processes"):
             resolve_mesh(shape, False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    assert rank_grid(mesh_sizes({"data": 1, "model": 2, "spatial": 2}, 4)).tolist() == [
+        [[0, 1], [2, 3]]]
+    assert rank_grid(mesh_sizes({"data": 1, "spatial": 2, "model": 2}, 4)).tolist() == [
+        [[0, 2], [1, 3]]]
+    with pytest.raises(ValueError, match="processes"):
         resolve_mesh({"data": 1, "model": 2, "spatial": 2})
     with pytest.raises(NotImplementedError, match="'sequence'"):
         resolve_mesh({"data": 1, "sequence": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(ValueError, match="processes"):
         resolve_mesh({"data": 1, "spatial": 2}, "spatial")
+    for shape in ({"data": -1}, {"data": 1, "spatial": 1}):
+        with pytest.raises(ValueError, match="fsdp axis 'spatial'"):
+            resolve_mesh(shape, "spatial")
 
 
 @pytest.mark.parametrize("H,S", [(64, 2), (32, 4), (16, 4), (24, 2), (8, 4)])

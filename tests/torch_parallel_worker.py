@@ -1,5 +1,6 @@
 """Rank functions of the port's multi-process tests (tests/test_torch_parallel.py,
-tests/test_torch_model_axis.py, tests/test_torch_spatial_axis.py).
+tests/test_torch_model_axis.py, tests/test_torch_spatial_axis.py,
+tests/test_torch_full_mesh.py).
 
 Imports no JAX: ``spawn`` starts one process a rank (``torch.multiprocessing``,
 spawn), each joins a gloo group on the CPU through
@@ -100,12 +101,17 @@ def spawn(tmp, tasks, world=2, device="cpu"):
     """Start ``world`` ranks running ``tasks`` ([(key, function name,
     kwargs)], in turn); returns the context to ``collect``. With
     ``device="cuda"`` every rank runs on the one card (gloo: NCCL refuses
-    two ranks on one GPU)."""
+    two ranks on one GPU). The tasks go to the ranks in a file: a process's
+    arguments larger than a pipe's buffer would hold ``start`` until the
+    child had imported torch, one child after the other."""
+    import pickle
+
     import torch.multiprocessing as mp
 
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
-    return mp.start_processes(_entry, args=(world, str(tmp), tasks, device), nprocs=world,
+    (tmp / "tasks.pkl").write_bytes(pickle.dumps(tasks))
+    return mp.start_processes(_entry, args=(world, str(tmp), device), nprocs=world,
                               start_method="spawn", join=False)
 
 
@@ -122,7 +128,10 @@ def collect(ctx, tmp, world=2, timeout=300):
     return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def _entry(rank, world, tmp, tasks, device):
+def _entry(rank, world, tmp, device):
+    import pickle
+
+    tasks = pickle.loads((Path(tmp) / "tasks.pkl").read_bytes())
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -288,17 +297,42 @@ def cls_steps(rank, world, *, weights, batch, draws, valid, mesh_shape=None, fsd
     return {"steps": out, "hits": hits.numpy()}
 
 
-def eval_logits(rank, world, *, weights, image, mesh_shape, drop=0.0):
+def eval_logits(rank, world, *, weights, image, mesh_shape, drop=0.0, fsdp=False):
     """``make_eval_step`` of the tiny UperNet (eval, float32) on this data
-    coordinate's rows of ``image`` on the mesh ``mesh_shape``: the global
+    coordinate's rows of ``image`` on the mesh ``mesh_shape`` (with
+    ``fsdp='model'`` the model split over the model axis): the global
     batch's logits, as every rank gets them."""
     from dat_segmentation_tpu_torch import get_config
     from dat_segmentation_tpu_torch.parallel import make_eval_step, process_shard_info, resolve_mesh
+    from dat_segmentation_tpu_torch.parallel.model_axis import shard_model_axis
 
     model = _model(tiny_seg(get_config, drop=drop), weights)
-    resolve_mesh(mesh_shape)
+    lay = resolve_mesh(mesh_shape, fsdp)
+    if fsdp == "model":
+        shard_model_axis(model, lay.model_axis)
     rank, world = process_shard_info()
     return make_eval_step(model, compute_dtype=torch.float32)(_rows(image, rank, world)).numpy()
+
+
+def mesh_coords(rank, world, *, shapes):
+    """Per mesh of ``shapes``, this rank's (data, model, spatial)
+    coordinates in the layout ``resolve_mesh`` makes, and the sizes of its
+    data, model, spatial and rows groups (1 for a group it has none of)."""
+    import torch.distributed as dist
+
+    from dat_segmentation_tpu_torch.parallel import resolve_mesh
+
+    out = []
+    for shape in shapes:
+        lay = resolve_mesh(shape)
+        out.append({"coords": (lay.data_rank, lay.model_rank, lay.spatial_rank),
+                    "group_sizes": (dist.get_world_size(lay.data_group),
+                                    1 if lay.model_group is None else
+                                    dist.get_world_size(lay.model_group),
+                                    1 if lay.spatial_group is None else
+                                    dist.get_world_size(lay.spatial_group),
+                                    dist.get_world_size(lay.rows_group))})  # None: the world
+    return out
 
 
 class Head:
