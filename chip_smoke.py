@@ -90,6 +90,22 @@ line each:
    forwards). The float32 eval card against CPU, per pixel. img/s of the
    bf16 eval at batch 1 and 4 in turns, and the share of batch 1's wall
    time in decode, ``predict`` and the IoU update.
+10c. exact_eval (run after 10, before 10b): exact padded inference
+   (``ops/valid_extent.py``) and the bucket-batched eval. The flagship at full width and depth, random
+   weights from the seed; four images of different true sizes in one
+   512x704 bucket of 32. float32, TF32 off: the exact padded forward
+   (``valid_hw``: the attention's composite, 0 K1 launches) against each
+   image's true-shape forward (K1), gated at 1e-4 on the stride-4 logits;
+   bf16: the pair's argmax agreement; the plain padded forward
+   (``exact=False``): each of its 14 K1 launches (128x176 queries at stage
+   0, Ns 352) against K1's plain version, float32 and bf16. The test CLI
+   with ``--pad-bucket 32`` and with ``--no-exact`` on the fixture (counts
+   set to 0 just before: K1 in the forwards whose inputs all fill their
+   bucket, 14 each; the exact ones run the composite); the bucketed exact
+   eval against the true-shape eval in bf16 at batch 4 (counts within the
+   eval phase's share), img/s in turns and each one's device busy share;
+   the exact forward's ms and device ms a batch beside the plain padded
+   one's.
 10b. export: the serving export (``serving/``). The flagship from the eval
    phase's ``.pth`` through ``tools/export.py --check`` (bf16, batch 16,
    entries 512x512 and 512x704, the artifact within 1e-3 relative of
@@ -343,6 +359,18 @@ EVAL_BATCH_SHARE = 0.01
 # comparison says little.
 EVAL_F32_TIE = 2 * TOL_MODEL
 EVAL_F32_SHARE = 0.01
+
+# 10c. exact_eval: exact padded inference (ops/valid_extent.py). Four images
+# of different true sizes in one 512x704 bucket of 32 (stage 0: 128x176
+# queries, Ns 16 x 22 = 352 samples). Its float32 forward (TF32 off) against
+# each image's true-shape forward on its valid region, as the JAX package's
+# tests gate it: the true-shape forward runs K1 and the exact one the
+# attention's composite (the JAX gate), and cuDNN picks its convs'
+# algorithms by shape, so the two sum in other orders; nothing else differs.
+EXACT_SHAPES = ((512, 683), (512, 700), (497, 704), (480, 672))
+EXACT_BUCKET, EXACT_BATCH = 32, 4
+EXACT_TOL = 1e-4
+EXACT_TIME_ITERS = 5
 
 # 10b. export: the flagship's entries (the second holds PREDICT_HW) and the
 # gate of tools/export.py --check (bf16 on both sides, the same kernels: only
@@ -1269,6 +1297,9 @@ def main() -> int:
     work = Path(tempfile.mkdtemp(prefix="eval_export_"))
     eval_launches, eval_ckpt = eval_phase(torch, np, card, dev, get_config(PRESET), n_d, work)
 
+    # ---- 10c. exact_eval: exact padded inference, bucket-batched eval ---------
+    exact_launches = exact_eval_phase(torch, np, card, dev, eval_ckpt, n_d, timed)
+
     # ---- 10b. export: torch.export artifacts, served without the model code --
     export_launches = export_phase(torch, np, card, dev, eval_ckpt, work, n_d, n_x, timed)
     shutil.rmtree(work, ignore_errors=True)
@@ -1306,7 +1337,8 @@ def main() -> int:
 
     k1 = line(KERNELS[0], train_launches["deform_attn_fwd"], max_err, totals)
     k1["launches_by_path"] = {"serve": serve_launches, "train": train_launches["deform_attn_fwd"],
-                              "eval": eval_launches, "export": export_launches["deform_attn_fwd"],
+                              "eval": eval_launches, **exact_launches,
+                              "export": export_launches["deform_attn_fwd"],
                               "train_loop": loop_launches["deform_attn_fwd"],
                               **cls_launches["deform_attn_fwd"],
                               "scale_out_rank0": scale_launches["deform_attn_fwd"],
@@ -1591,6 +1623,224 @@ def eval_phase(torch, np, card, dev, full_cfg, n_d, work):
                                                            verbose=False),
                         card, min(walls[1]) * 1e3, "eval_pass"))
     return k1["batch1"], ckpt
+
+
+def exact_eval_phase(torch, np, card, dev, ckpt, n_d, timed):
+    """10c. exact_eval: exact padded inference and the bucket-batched eval
+    on the card, the flagship at full width and depth with random weights
+    from the seed. (a) float32, TF32 off: the exact padded forward of
+    ``EXACT_SHAPES`` in one bucket against each image's true-shape forward
+    (K1's), gated at ``EXACT_TOL``, with 0 K1 launches in the exact one and
+    n_d an image in the true-shape ones; (b) bf16: the two forwards' argmax
+    agreement on the stride-4 grid, reported; (c) the plain padded forward
+    (``exact=False``) in float32 and bf16: each K1 launch against K1's plain
+    version on its inputs (max |err| / max |plain|, gated at TOL_F32 and
+    TOL_BF16); (d) ``tools/test.py --pad-bucket 32`` and ``--pad-bucket 32
+    --no-exact`` on the fixture (counts set to 0 just before each: K1 runs
+    in the forwards whose inputs all fill the bucket, the exact ones run the
+    composite), then the bucketed exact eval against the true-shape eval
+    (``evaluate_dataset``, batch 4, bucket 32 against 1) in bf16: counts
+    within EVAL_BATCH_SHARE of the pixels, img/s in turns and each one's
+    device busy share; the exact forward's ms a batch beside the plain
+    padded one's. Returns the CLI runs' K1 launches."""
+    import torch.nn.functional as F
+
+    from dat_segmentation_tpu_torch import SegInferencer, build_model, get_config
+    from dat_segmentation_tpu_torch.data.ade20k import ADE20KDataset
+    from dat_segmentation_tpu_torch.eval import evaluate as ev
+    from dat_segmentation_tpu_torch.eval.inference import round_up
+    from dat_segmentation_tpu_torch.models import deformable_attention as dattn
+    from dat_segmentation_tpu_torch.ops import deform_attn as da
+    from dat_segmentation_tpu_torch.tools import test as test_cli
+
+    t_phase = time.perf_counter()
+    marks = [t_phase]
+
+    def lap():  # seconds since the last step's line
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    full = get_config(PRESET)
+    cfg, scale = full.model, tuple(full.data.img_scale)
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device=dev).eval()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    imgs = [torch.randn(h, w, 3, generator=gen, device=dev) for h, w in EXACT_SHAPES]
+    bucket_hw = tuple(round_up(max(s[d] for s in EXACT_SHAPES), EXACT_BUCKET) for d in (0, 1))
+    infs = {dt: {ex: SegInferencer(model, num_classes=cfg.num_classes, compute_dtype=dt,
+                                   bucket=EXACT_BUCKET, exact=ex, device=dev)
+                 for ex in (True, False)} for dt in (torch.float32, torch.bfloat16)}
+    x, valid = infs[torch.float32][True]._padded(imgs, bucket_hw)
+
+    # -- (a) float32: the exact padded forward against each true shape ---------
+    ext4 = [infs[torch.float32][True]._ext4(s) for s in EXACT_SHAPES]
+    outs = {}
+    for dt, key in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        inf = infs[dt][True]
+        da.deform_attn.launches = 0
+        exact = inf.forward_batch(x, valid_hw=valid)
+        torch.cuda.synchronize()
+        k1_exact = da.deform_attn.launches
+        true = [inf.forward_batch(img[None])[0] for img in imgs]
+        torch.cuda.synchronize()
+        outs[key] = (exact, true, k1_exact, da.deform_attn.launches - k1_exact)
+    exact, true, k1_exact, k1_true = outs["float32"]
+    diffs = [(exact[i, :eh, :ew] - t).abs().max().item() if t.shape[:2] == (eh, ew) else
+             float("inf") for i, ((eh, ew), t) in enumerate(zip(ext4, true))]
+    finite = bool(torch.isfinite(exact).all()) and all(bool(torch.isfinite(t).all()) for t in true)
+    emit({"phase": "exact_eval", "card": card, "step": "float32 exact vs true shape",
+          "preset": PRESET, "tf32": False, "shapes": [list(s) for s in EXACT_SHAPES],
+          "bucket": list(bucket_hw), "logits": list(exact.shape), "stride4_extents": ext4,
+          "max_abs_diff": diffs, "tol": EXACT_TOL,
+          "logit_max_abs": max(t.abs().max().item() for t in true),
+          "k1_launches_exact": k1_exact, "k1_launches_true_shape": k1_true, "finite": finite,
+          "s": lap()})
+    check(finite and max(diffs) <= EXACT_TOL,
+          f"exact_eval f32: exact padded vs true-shape logits differ by {max(diffs)}")
+    check(k1_exact == 0 and k1_true == n_d * len(imgs),
+          f"exact_eval f32: K1 launches exact {k1_exact} (want 0), true-shape {k1_true} "
+          f"(want {n_d * len(imgs)})")
+
+    # -- (b) bf16: argmax agreement of the same pair ----------------------------
+    exact, true, k1_exact, k1_true = outs["bfloat16"]
+    agree = [(exact[i, :eh, :ew].argmax(-1) == t.argmax(-1)).float().mean().item()
+             for i, ((eh, ew), t) in enumerate(zip(ext4, true))]
+    emit({"phase": "exact_eval", "card": card, "step": "bf16 exact vs true shape",
+          "argmax_agreement": agree, "max_abs_diff": [
+              (exact[i, :eh, :ew] - t).abs().max().item()
+              for i, ((eh, ew), t) in enumerate(zip(ext4, true))],
+          "k1_launches_exact": k1_exact, "k1_launches_true_shape": k1_true, "s": lap()})
+    check(k1_exact == 0 and k1_true == n_d * len(imgs), f"exact_eval bf16: K1 launches "
+                                                         f"{k1_exact}, {k1_true}")
+    del outs, exact, true
+
+    # -- (c) the plain padded forward: each K1 launch against its plain version --
+    real_attn = dattn.deform_attn
+    seen = []
+
+    def attn(q, *a, **k):
+        out = real_attn(q, *a, **k)
+        with torch.no_grad():
+            ref = da.deform_attn_reference(q, *a, **k)
+        err = (out.float() - ref.float()).abs().max().item()
+        seen.append({"q": list(q.shape), "Ns": a[0].shape[1], "max_abs_err": err,
+                     "rel_err": err / max(ref.float().abs().max().item(), 1e-12)})
+        return out
+
+    plain_k1 = {}
+    dattn.deform_attn = attn
+    try:
+        for dt, key, tol in ((torch.float32, "float32", TOL_F32),
+                             (torch.bfloat16, "bfloat16", TOL_BF16)):
+            seen.clear()
+            da.deform_attn.launches = 0
+            infs[dt][False].forward_batch(x, valid_hw=valid)  # exact=False: valid_hw unused
+            torch.cuda.synchronize()
+            worst = max(r["rel_err"] for r in seen) if seen else float("inf")
+            plain_k1[key] = {"launches": da.deform_attn.launches,
+                             "max_abs_err": max((r["max_abs_err"] for r in seen), default=None),
+                             "max_rel_err": worst}
+            emit({"phase": "exact_eval", "card": card, "step": f"no_exact K1 vs plain {key}",
+                  "launches": da.deform_attn.launches, "tol_rel": tol,
+                  "per_launch": seen[:4] + seen[-1:], "max_rel_err": worst,
+                  "max_abs_err": plain_k1[key]["max_abs_err"], "s": lap()})
+            check(da.deform_attn.launches == n_d == len(seen) and worst <= tol,
+                  f"exact_eval no_exact {key}: {da.deform_attn.launches} K1 launches "
+                  f"(want {n_d}), max rel err {worst} > {tol}")
+    finally:
+        dattn.deform_attn = real_attn
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # -- (d) the CLI with --pad-bucket 32 [--no-exact], then the timed passes ----
+    root = Path(__file__).resolve().parent / EVAL_DATA
+    ds = ADE20KDataset(root, "val")
+    n_img = len(ds)
+
+    def resized(h, w):  # keep-ratio fit to scale, as SegInferencer.tta_inputs
+        f = min(scale[0] / w, scale[1] / h)
+        return int(h * f + 0.5), int(w * f + 0.5)
+
+    keys = {}
+    for i in range(n_img):  # the bucket batcher's keys: padded shape -> true shapes
+        hw = resized(*ds.load_raw(i)[1].shape)
+        keys.setdefault(tuple(round_up(v, EXACT_BUCKET) for v in hw), []).append(hw)
+    full_fwd = sum(-(-len(v) // EXACT_BATCH) for k, v in keys.items() if all(s == k for s in v))
+    fwds = sum(-(-len(v) // EXACT_BATCH) for v in keys.values())
+    cli = {}
+    for name, extra, want in (("exact_eval_cli", [], full_fwd * n_d),
+                              ("exact_eval_cli_no_exact", ["--no-exact"], fwds * n_d)):
+        da.deform_attn.launches = 0
+        res = test_cli.main([PRESET, str(ckpt), "--data-root", str(root), "--mode", "whole",
+                             "--pad-bucket", str(EXACT_BUCKET), "--batch-size",
+                             str(EXACT_BATCH), *extra])
+        torch.cuda.synchronize()
+        cli[name] = da.deform_attn.launches
+        emit({"phase": "exact_eval", "card": card, "step": f"cli --pad-bucket {EXACT_BUCKET}"
+              + (" --no-exact" if extra else ""), "buckets": {f"{k[0]}x{k[1]}": [list(s) for s in v]
+                                                             for k, v in keys.items()},
+              "forwards": fwds, "k1_launches": cli[name], "want": want,
+              "num_images": res["num_images"], "mIoU": res["mIoU"], "aAcc": res["aAcc"],
+              "s": lap()})
+        check(cli[name] == want and res["num_images"] == n_img and np.isfinite(res["mIoU"]),
+              f"exact_eval {name}: {cli[name]} K1 launches, want {want}")
+
+    server = {b: SegInferencer(model, num_classes=cfg.num_classes, bucket=b, device=dev)
+              for b in (1, EXACT_BUCKET)}
+    del model
+    results, walls = {}, {1: [], EXACT_BUCKET: []}
+    for b in (1, EXACT_BUCKET, EXACT_BUCKET, 1) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[b] = ev.evaluate_dataset(server[b], ds, img_scale=scale, batch_size=EXACT_BATCH,
+                                         verbose=False)
+        torch.cuda.synchronize()
+        walls[b].append(time.perf_counter() - t0)
+    pixels = int(sum(np.prod(ds.load_raw(i)[1].shape) for i in range(n_img)))
+    d_inter = int(np.abs(np.subtract(results[EXACT_BUCKET]["inter"], results[1]["inter"])).sum())
+    d_union = int(np.abs(np.subtract(results[EXACT_BUCKET]["union"], results[1]["union"])).sum())
+    # one profiled pass each: the profiler's host work on a pass's thousands
+    # of ops is most of the phase's time at its default three
+    profiles = {b: profile_device(torch, lambda b=b: ev.evaluate_dataset(
+        server[b], ds, img_scale=scale, batch_size=EXACT_BATCH, verbose=False), card,
+        min(walls[b]) * 1e3, "eval_pass", iters=1) for b in server}
+    emit({"phase": "exact_eval", "card": card, "step": "eval time", "dtype": "bfloat16",
+          "images": n_img, "batch": EXACT_BATCH, "order": "(1 32 32 1) x 2",
+          "compare": "bucket 32 (exact padded, fixed batch of 4) vs bucket 1 (true shape, "
+                     "consecutive images of one shape batched)",
+          "wall_s": {str(b): v for b, v in walls.items()},
+          "img_per_s": {str(b): [n_img / w for w in v] for b, v in walls.items()},
+          "device_busy_share": {str(b): p.get("device_busy_share") for b, p in profiles.items()},
+          "device_ms_per_pass": {str(b): p.get("device_ms_per_eval_pass")
+                                 for b, p in profiles.items()},
+          "pixels": pixels, "sum_abs_d_inter": d_inter, "sum_abs_d_union": d_union,
+          "tol_share": EVAL_BATCH_SHARE, "s": lap()})
+    for b, p in profiles.items():
+        emit(dict(p, compare=f"eval pass at bucket {b}"))
+    check(d_inter <= EVAL_BATCH_SHARE * pixels and d_union <= 2 * EVAL_BATCH_SHARE * pixels,
+          f"exact_eval bucket 32 vs 1: counts differ by {d_inter}, {d_union} of {pixels} pixels")
+
+    fwd = {"exact": lambda: server[EXACT_BUCKET].forward_batch(x, valid_hw=valid),
+           "plain_padded": lambda: server[EXACT_BUCKET].forward_batch(x)}
+    ms = {k: [] for k in fwd}
+    for k in ("exact", "plain_padded", "plain_padded", "exact"):
+        with torch.inference_mode():
+            ms[k].append(timed(fwd[k], EXACT_TIME_ITERS))
+    fprof = {k: profile_device(torch, fn, card, min(ms[k]), "forward", iters=2)
+             for k, fn in fwd.items()}
+    emit({"phase": "exact_eval", "card": card, "step": "forward time", "dtype": "bfloat16",
+          "batch": list(x.shape), "valid_hw": valid.tolist(), "ms_per_batch": ms,
+          "device_ms_per_batch": {k: p.get("device_ms_per_forward") for k, p in fprof.items()},
+          "device_busy_share": {k: p.get("device_busy_share") for k, p in fprof.items()},
+          "k1_ms_per_batch": {k: p.get("kernels_ms", {}).get("deform_attn_fwd")
+                              for k, p in fprof.items()},
+          "s": lap(), "phase_s": time.perf_counter() - t_phase})
+    for k, p in fprof.items():
+        emit(dict(p, compare=f"{k} forward, batch {EXACT_BATCH} at {bucket_hw}"))
+    del server, infs
+    torch.cuda.empty_cache()
+    return cli
 
 
 def export_worker(spec_path: str) -> None:

@@ -6,13 +6,25 @@ the reference's ``tools/test.py --eval mIoU [--aug-test]``): per image,
 against the original-resolution GT, per-class intersection and union
 summed in int64, then mIoU, aAcc and the per-class IoU and Acc.
 
-* ``batch_size=1``, slide mode, or ``aug_test``: the per-image loop.
-* ``batch_size>1`` in whole mode without TTA: consecutive images whose
-  resized inputs have one shape run ``batch_size`` to a forward. The
-  port runs every image at its true shape, so there are no pad buckets
-  (the JAX package pads to buckets and runs its exact path, which is
-  proven equal to the true-shape forward); each image's logits are
-  resized to its original size and argmaxed as ``predict`` does.
+* ``batch_size=1`` or slide mode: the per-image loop.
+* ``batch_size>1`` in whole mode with the inferencer's ``bucket`` > 1:
+  the JAX package's bucket batcher (``_BucketBatcher`` and
+  ``_evaluate_batched``, ``evaluate.py:72-240`` there). Every test-time
+  input (each ratio and flip of each image) is keyed by its shape padded
+  to the bucket; a key's inputs run ``batch_size`` to a forward, the
+  batch fixed (empty slots zeros of the full extent), with ``valid_hw``
+  when some input is partial and ``exact`` is on
+  (``SegInferencer.forward_batch``). Each input's logits come back at
+  its true size (``SegInferencer._bucket_logits``); without TTA they are
+  resized to the original size and argmaxed, with TTA flipped back,
+  resized, soft-maxed and summed into the image's accumulator until all
+  its variants are in. At most ``max(2 * batch_size, 8)`` images wait for
+  their variants; beyond that every bucket is flushed.
+* ``batch_size>1`` in whole mode at ``bucket`` 1 (each image at its true
+  shape): without TTA, consecutive images whose resized inputs have one
+  shape run ``batch_size`` to a forward; with TTA the per-image loop.
+  Each image's logits are resized to its original size and argmaxed as
+  ``predict`` does.
 
 The JAX package's ``postproc_workers`` (host threads overlapping the
 resize and argmax with the next forward) has no counterpart: the port's
@@ -28,13 +40,15 @@ results of separate sharded runs offline.
 from __future__ import annotations
 
 import time
+from collections import defaultdict
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..parallel import mesh
 from ..train.metrics import StreamingIoU, miou_from_totals
-from .inference import MS_RATIOS, SegInferencer
+from .inference import MS_RATIOS, SegInferencer, _resize, round_up
 
 
 def _per_image(inferencer, dataset, indices, finish, *, img_scale, ratios, flip, keep_ratio):
@@ -65,6 +79,79 @@ def _batched(inferencer, dataset, indices, finish, *, img_scale, keep_ratio, bat
             flush()
     if group:
         flush()
+
+
+class _BucketBatcher:
+    """Test-time inputs grouped by their shape padded to the inferencer's
+    bucket, run ``batch_size`` to a forward of one (batch, hb, wb) shape;
+    ``on_logits(meta, logits)`` takes each input's (h, w, C) logits."""
+
+    def __init__(self, inferencer: SegInferencer, batch_size: int, on_logits):
+        self.inf = inferencer
+        self.batch_size = batch_size
+        self.on_logits = on_logits
+        self.buffers = defaultdict(list)  # (hb, wb) -> [(img, meta)]
+
+    def add(self, img, meta) -> None:
+        b = self.inf.bucket
+        key = (round_up(img.shape[0], b), round_up(img.shape[1], b))
+        buf = self.buffers[key]
+        buf.append((img, meta))
+        if len(buf) >= self.batch_size:
+            self._flush(key)
+
+    def _flush(self, key) -> None:
+        entries = self.buffers.pop(key, [])
+        if not entries:
+            return
+        x, valid = self.inf._padded([img for img, _ in entries], key, self.batch_size)
+        exact = self.inf.exact and any(tuple(img.shape[:2]) != key for img, _ in entries)
+        small = self.inf.forward_batch(x, valid_hw=valid if exact else None)
+        for i, (img, meta) in enumerate(entries):
+            self.on_logits(meta, self.inf._bucket_logits(small[i], tuple(img.shape[:2]), key,
+                                                         exact))
+
+    def flush_all(self) -> None:
+        for key in list(self.buffers):
+            self._flush(key)
+
+
+@torch.inference_mode()
+def _bucketed(inferencer, dataset, indices, finish, *, img_scale, ratios, flip, keep_ratio,
+              batch_size):
+    n_aug = len(ratios) * (2 if flip else 1)
+    pending = {}  # idx -> [prob sum, variants in, gt]
+
+    def on_logits(meta, logits):
+        idx, do_flip, ori = meta
+        if n_aug == 1:
+            finish(idx, inferencer._class_map(logits, ori), pending.pop(idx)[2])
+            return
+        if do_flip:
+            logits = torch.flip(logits, dims=[1])
+        if tuple(logits.shape[:2]) != ori:
+            logits = _resize(logits, ori)
+        acc = pending[idx]
+        acc[0] += torch.softmax(logits, dim=-1)
+        acc[1] += 1
+        if acc[1] == n_aug:
+            finish(idx, acc[0].div_(n_aug).argmax(-1).to(torch.int32).cpu().numpy(), acc[2])
+            del pending[idx]
+
+    batcher = _BucketBatcher(inferencer, batch_size, on_logits)
+    max_pending = max(2 * batch_size, 8)  # each holds an (H, W, C) float32 sum on the device
+    for idx in indices:
+        raw, gt = dataset.load_raw(idx)
+        ori = tuple(gt.shape)
+        pending[idx] = [None if n_aug == 1 else torch.zeros(
+            *ori, inferencer.num_classes, device=inferencer.device), 0, gt]
+        for inp, do_flip in inferencer.tta_inputs(raw, img_scale=img_scale, ratios=ratios,
+                                                  flip=flip, keep_ratio=keep_ratio):
+            batcher.add(inp, (idx, do_flip, ori))
+        if len(pending) > max_pending:
+            batcher.flush_all()
+    batcher.flush_all()
+    assert not pending, f"{len(pending)} images never finished"
 
 
 def _reduce_across_processes(iou: StreamingIoU, done: int) -> int:
@@ -123,7 +210,10 @@ def evaluate_dataset(
             print(f"[eval] {done} imgs, {done / (time.time() - t0):.2f} img/s, "
                   f"running mIoU={iou.miou() * 100:.2f}")
 
-    if batch_size > 1 and inferencer.mode == "whole" and not aug_test:
+    if batch_size > 1 and inferencer.mode == "whole" and inferencer.bucket > 1:
+        _bucketed(inferencer, dataset, indices, finish, img_scale=img_scale, ratios=ratios,
+                  flip=flip, keep_ratio=keep_ratio, batch_size=batch_size)
+    elif batch_size > 1 and inferencer.mode == "whole" and not aug_test:
         _batched(inferencer, dataset, indices, finish, img_scale=img_scale,
                  keep_ratio=keep_ratio, batch_size=batch_size)
     else:

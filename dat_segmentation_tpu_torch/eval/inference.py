@@ -4,13 +4,22 @@ flip test-time augmentation, in PyTorch.
 Counterpart of ``dat_segmentation_tpu/eval/inference.py:SegInferencer``
 (the mmseg test path: per image, resize keeping the ratio to each TTA
 scale, run whole or slide inference, resize the logits back to the
-original size, softmax, average over scales and flips). Eager PyTorch
-runs every image at its true shape, which is what the JAX package's exact
-padded inference (``exact=True``) is proven equal to, so there is no
-padding to buckets and no valid-extent bookkeeping; the JAX package's
-compile-economy settings (``bucket``, ``exact``, ``transfer_dtype``) have
-no counterpart. The forward runs on the device in ``compute_dtype`` (bf16
-on the card); everything after it (the bilinear resizes, the softmax, the
+original size, softmax, average over scales and flips). By default
+(``bucket=1``) every image runs at its true shape: the JAX package's exact
+unpadded setting, which its exact padded inference is proven equal to.
+``bucket`` > 1 pads whole-mode inputs to multiples of it, so that images of
+mixed true shapes share one batch (``eval/evaluate.py``), with the JAX
+meanings (``inference.py:121-135`` there): ``exact=True`` runs the exact
+padded forward (``EncoderDecoder.forward(valid_hw=...)``,
+``ops/valid_extent.py``) and slices the stride-4 logits to each image's
+true stride-4 extent before resizing them to its true size, equal to the
+true-shape forward; ``exact=False`` is the JAX plain zero-pad path, the
+padded forward's logits resized to the padded size and then sliced. Slide
+mode forwards partial windows at their true extent, what the JAX exact
+path equals, whatever ``bucket`` and ``exact`` say. The JAX package's
+``transfer_dtype`` (the device-to-host
+copy) has no counterpart. The forward runs on the device in
+``compute_dtype`` (bf16 on the card); everything after it (the bilinear resizes, the softmax, the
 averaging, the argmax) runs there too, in float32, as PyTorch ops. The
 logits' resizes are ``F.interpolate(mode='bilinear', align_corners=False,
 antialias=False)``, cv2's ``INTER_LINEAR`` on float data; the raw uint8
@@ -31,11 +40,16 @@ import torch.nn as nn
 
 from ..data.ade20k import IMG_NORM_MEAN, IMG_NORM_STD, IMG_SCALE
 from ..ops.interpolate import resize_bilinear, resize_uint8_linear
+from ..ops.valid_extent import stride4_extent
 from ..utils.device import resolve_device
 
 MS_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)  # tools/test.py --aug-test
 
 Image = Union[np.ndarray, torch.Tensor]
+
+
+def round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def _resize(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -52,7 +66,10 @@ class SegInferencer:
     trainer's float32 master weights survive a validation pass. ``mode`` is
     ``'whole'`` or ``'slide'`` (mmseg's test_cfg); slide mode runs
     ``crop_size`` (W, H) windows at ``stride`` (W, H), ``slide_batch``
-    windows a forward.
+    windows a forward. ``bucket``: the whole-mode pad-to multiple (1: each
+    image at its true shape); ``exact``: the whole-mode padded forward is
+    the exact one (else the plain zero-pad forward), as the JAX
+    inferencer's.
     """
 
     def __init__(
@@ -66,10 +83,14 @@ class SegInferencer:
         compute_dtype: torch.dtype = torch.bfloat16,
         align_corners: bool = False,
         slide_batch: int = 4,
+        bucket: int = 1,
+        exact: bool = True,
         device: Optional[Union[str, torch.device]] = None,
     ):
         if mode not in ("whole", "slide"):
             raise ValueError(f"mode {mode!r}: 'whole' or 'slide'")
+        if int(bucket) < 1:
+            raise ValueError(f"bucket {bucket}: a pad-to multiple of 1 or more")
         self.device = resolve_device(device)
         self.model = copy.deepcopy(model).to(device=self.device, dtype=compute_dtype).eval()
         self.num_classes = num_classes
@@ -79,6 +100,11 @@ class SegInferencer:
         self.compute_dtype = compute_dtype
         self.align_corners = align_corners
         self.slide_batch = max(int(slide_batch), 1)
+        self.bucket = int(bucket)
+        self.exact = bool(exact)
+        bb = getattr(model, "backbone", None)
+        self._conv_stem = bool(getattr(bb, "use_conv_patches", False))
+        self._patch_size = int(getattr(bb, "patch_size", 4))
         self._mean = torch.tensor(IMG_NORM_MEAN, device=self.device)
         self._std = torch.tensor(IMG_NORM_STD, device=self.device)
 
@@ -90,17 +116,54 @@ class SegInferencer:
 
     # -- forwards -----------------------------------------------------------
 
+    def _ext4(self, hw):
+        """The stride-4 logits' true extent of a true image size."""
+        return tuple(int(v) for v in stride4_extent(hw, self._conv_stem, self._patch_size))
+
     @torch.inference_mode()
-    def forward_batch(self, images: Image) -> torch.Tensor:
+    def forward_batch(self, images: Image, valid_hw=None) -> torch.Tensor:
         """(B, H, W, 3) normalised float32, any H and W -> (B, h4, w4, C)
-        float32 stride-4 logits of the true-shape forward, on the device."""
+        float32 stride-4 logits, on the device. ``valid_hw`` ((B, 2) true
+        sizes of zero-padded images) with ``exact``: the exact padded
+        forward, whose rows and columns beyond each sample's stride-4
+        extent (``_ext4``) are invalid; else the plain forward."""
         x = torch.as_tensor(images).to(self.device, self.compute_dtype, non_blocking=True)
+        if valid_hw is not None and self.exact:
+            valid = torch.as_tensor(np.asarray(valid_hw), dtype=torch.int32).to(self.device)
+            return self.model(x, upsample=False, valid_hw=valid).float()
         return self.model(x, upsample=False).float()
+
+    def _padded(self, imgs: Sequence[torch.Tensor], hw, batch: Optional[int] = None):
+        """Images zero-padded to ``hw`` in a batch of ``batch`` (the empty
+        slots zeros of the full extent), and their (B, 2) true sizes."""
+        n = batch or len(imgs)
+        x = torch.zeros(n, hw[0], hw[1], 3, device=self.device)
+        valid = np.full((n, 2), hw, np.int32)
+        for i, im in enumerate(imgs):
+            x[i, :im.shape[0], :im.shape[1]] = im
+            valid[i] = im.shape[:2]
+        return x, valid
+
+    def _bucket_logits(self, small: torch.Tensor, hw, bucket_hw, exact: bool) -> torch.Tensor:
+        """One image's (h, w, C) logits from its padded forward's stride-4
+        logits: sliced to the true stride-4 extent and resized to (h, w)
+        (exact; mmseg resizes the exact run's logits to the image), or
+        resized to the padded size and sliced (the plain path)."""
+        if exact:
+            eh, ew = self._ext4(hw)
+            return _resize(small[:eh, :ew], hw)
+        return _resize(small, bucket_hw)[:hw[0], :hw[1]]
 
     @torch.inference_mode()
     def _whole(self, img: torch.Tensor) -> torch.Tensor:
-        small = self.forward_batch(img[None])
-        return self._up(small, img.shape[:2])[0]
+        h, w = img.shape[:2]
+        hb, wb = round_up(h, self.bucket), round_up(w, self.bucket)
+        if (hb, wb) == (h, w):
+            small = self.forward_batch(img[None])
+            return self._up(small, (h, w))[0]
+        x, valid = self._padded([img], (hb, wb))
+        small = self.forward_batch(x, valid_hw=valid)
+        return self._bucket_logits(small[0], (h, w), (hb, wb), self.exact)
 
     @torch.inference_mode()
     def _slide(self, img: torch.Tensor) -> torch.Tensor:

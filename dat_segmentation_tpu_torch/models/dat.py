@@ -29,8 +29,9 @@ peers' slices (``ConvMlp.whole_weights``), replicated compute whose
 backward gives each peer its slice of the weights' gradient. Any other ``kernel_impl``
 ('xla', 'auto', 'gather') is the unfused chain, as the JAX package runs
 on every backend but the TPU. The JAX package's TPU switch
-``DAT_TPU_XBLOCK`` and its exact-extent clause have no counterpart: eager
-PyTorch runs every input at its true shape. K1 (the deformable attention)
+``DAT_TPU_XBLOCK`` has no counterpart; its exact-extent clause is kept:
+under exact padded inference (``ops/valid_extent.py``) no stage fuses,
+whatever ``kernel_impl`` says. K1 (the deformable attention)
 runs on the card whatever ``kernel_impl`` says, in each 'D' block whose
 position-bias mode the JAX gate gives it (``DeformableAttention.
 runs_kernel``: the continuous bias, offsets on, attention dropout 0 or
@@ -70,6 +71,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import valid_extent
 from ..ops.x_block import (CHANNEL_MULTIPLE, HIDDEN_MULTIPLE, MAX_CHANNELS, WINDOWS,
                            fused_conv_mlp, fused_x_block)
 from ..parallel import spatial
@@ -172,9 +174,12 @@ class TransformerStage(nn.Module):
 
     def fuses(self, H: int, W: int) -> bool:
         """The JAX gate at this stage's true size, within the kernel's
-        limits: K3 runs here."""
+        limits: K3 runs here. Not under exact padded inference, whose
+        per-sample extents the kernel does not take (the JAX gate's
+        ``_ve.current() is None``, ``models/dat.py:111-113`` there): the
+        unfused chain's convs mask them."""
         return (self.fusable and (self.drop == 0.0 or not self.training)
-                and H % 8 == 0 and W % 8 == 0)
+                and H % 8 == 0 and W % 8 == 0 and valid_extent.current() is None)
 
     @staticmethod
     def _on_slab(fn, x: torch.Tensor, rows: Optional[Rows], halo: int) -> torch.Tensor:
@@ -347,6 +352,7 @@ class DAT(nn.Module):
         self.out_indices = tuple(out_indices)
         self.use_checkpoint = use_checkpoint
         self.use_conv_patches = use_conv_patches
+        self.patch_size = patch_size
         if use_conv_patches:
             self.stem_conv1 = Conv2d(3, dim_stem // 2, 3, stride=patch_size // 2, padding=1)
             self.stem_ln1 = LayerNorm2d(dim_stem // 2)

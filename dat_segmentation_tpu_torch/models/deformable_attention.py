@@ -48,9 +48,22 @@ coordinate's, under a model axis too (the model peers of a spatial
 coordinate take the same batch rows, and a split block's masks cover
 whole channels).
 
-Exact padded inference (``ops/valid_extent.py``: per-sample true extents
-inside a padded batch) is not ported; the port runs every input at its
-true shape.
+Under exact padded inference (``ops/valid_extent.py``: a zero-padded
+batch whose samples have their own true extents, the JAX package's
+``deformable_attention.py:103-110, 139-216, 299-527``) every size-dependent
+quantity takes the sample's true extent: the kv extent is the offset
+conv's own arithmetic (``ext_q // stride`` with ``no_off``), the tanh
+range is over the true kv extent, the reference grid spans it, the
+positions (normalised over the true extent) feed the bias while their
+rescaling ``(pos + 1)·(ext_q - 1)/(H - 1) - 1`` feeds the sampler on the
+features zeroed beyond ``ext_q``, the query grid of the continuous bias
+and of ``log_cpb`` is per sample, ``fixed_pe`` resizes its table along
+the flat axes of each sample's true sizes (per-sample tap-weight
+products), and the kv points beyond the true grid leave the softmax. K1
+takes no per-sample extents, so the JAX gate routes such a block to its
+composite (``and not exact`` there, ``runs_kernel(exact=True)`` here): a
+design of the reference, not a fallback; a K1 build or launch failure
+raises as ever.
 """
 
 from __future__ import annotations
@@ -62,8 +75,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.deform_attn import deform_attn, query_coords, rpe_bias
-from ..ops.grid_sample import grid_sample
+from ..ops import valid_extent
+from ..ops.deform_attn import deform_attn, query_coords, rpe_bias, rpe_bias_at
+from ..ops.grid_sample import grid_sample, lerp_weight_matrix
 from ..ops.interpolate import avg_pool, resize_bilinear
 from ..parallel import mesh
 from .layers import Conv2d, Dropout, LayerNorm2d, entering, gelu, row_parallel
@@ -154,13 +168,16 @@ class DeformableAttention(nn.Module):
         return (self.use_pe and not (self.dwc_pe or self.fixed_pe or self.log_cpb)
                 and not self.no_off and self.attn_drop == 0.0)
 
-    def runs_kernel(self) -> bool:
-        """The JAX package's gate (``deformable_attention.py:243-252`` there,
-        less its exact-padding clause): the continuous bias, offsets on, and
-        attention dropout 0 or eval. Then K1 (and K2 under grad) computes
-        the attention; else the composite."""
+    def runs_kernel(self, exact: bool = False) -> bool:
+        """The JAX package's gate (``deformable_attention.py:243-252``
+        there): the continuous bias, offsets on, attention dropout 0 or
+        eval, and not under exact padded inference (``exact``: the block's
+        map has per-sample extents, which K1 does not take; the composite
+        masks them). Then K1 (and K2 under grad) computes the attention;
+        else the composite."""
         return (self.use_pe and not (self.dwc_pe or self.fixed_pe or self.log_cpb)
-                and not self.no_off and (self.attn_drop == 0.0 or not self.training))
+                and not self.no_off and (self.attn_drop == 0.0 or not self.training)
+                and not exact)
 
     def forward(self, x: torch.Tensor, batch: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """x (B, H, W, C) -> (B, H, W, C); ``batch`` (first row, data
@@ -178,27 +195,55 @@ class DeformableAttention(nn.Module):
         def grouped(t):  # (B, H, W, cl) -> (B*g, H, W, Cg)
             return t.reshape(B, H, W, g, cg).permute(0, 3, 1, 2, 4).reshape(B * g, H, W, cg)
 
+        # exact padded inference: the samples' true extents at this map
+        ext_q = valid_extent.lookup((H, W))
         x = entering(x, ax)
         q = self.proj_q(x)
         q_g = grouped(q)
         offset = self.offset_proj(gelu(self.offset_ln(self.offset_dwc(q_g)))).float()
         Hk, Wk = offset.shape[1:3]
         Ns = Hk * Wk
+        exact = None
+        if ext_q is not None:
+            if self.no_off:
+                ext_kv = torch.div(ext_q, self.stride, rounding_mode="floor")
+            else:
+                k, s, p = self.offset_dwc.kernel_size[0], self.stride, self.offset_dwc.padding[0]
+                ext_kv = valid_extent.conv_out_extent(ext_q, k, s, p)
+            exact = (ext_q, ext_kv, (Hk, Wk))
         if self.no_off:
             # the net runs and its output is dropped, as in the JAX package
             offset = torch.zeros_like(offset)
         elif self.offset_range_factor >= 0:
-            rng = offset.new_tensor([1.0 / (Hk - 1.0), 1.0 / (Wk - 1.0)])
+            if exact is None:
+                rng = offset.new_tensor([1.0 / (Hk - 1.0), 1.0 / (Wk - 1.0)])
+            else:  # over each sample's true kv extent
+                rng = 1.0 / (ext_kv.float() - 1.0).clamp_min(1.0)
+                rng = valid_extent.repeat_groups(rng, B * g)[:, None, None, :]
             offset = torch.tanh(offset) * rng * self.offset_range_factor
-        pos = offset + reference_points(Hk, Wk, x.device)  # (B*g, Hk, Wk, 2), (y, x)
+        if exact is None:
+            ref = reference_points(Hk, Wk, x.device)
+        else:
+            ref = valid_extent.repeat_groups(_reference_points_ps(ext_kv, Hk, Wk), B * g)
+        pos = offset + ref  # (B*g, Hk, Wk, 2), (y, x)
         if self.offset_range_factor < 0:
             pos = pos.clamp(-1.0, 1.0)
+        if exact is not None:
+            # the features beyond the true extent read as the exact run's
+            # zeros padding; the positions, normalised over the true extent,
+            # rescaled for the sampler's padded map
+            x = valid_extent.mask_tensor(x, ext_q)
+            sc = (ext_q.float() - 1.0) / torch.tensor(
+                [max(H - 1.0, 1.0), max(W - 1.0, 1.0)], device=x.device)
+            grid = (pos + 1.0) * valid_extent.repeat_groups(sc, B * g)[:, None, None, :] - 1.0
+        else:
+            grid = pos
 
         if self.no_off:
             sampled = avg_pool(x, self.stride, self.stride).reshape(B, Ns, C)
         else:
             xl = x if ax is None else mesh.slice_of(x, 3, ax)
-            samp = grid_sample(grouped(xl), pos.flip(-1))  # grid in (x, y) order
+            samp = grid_sample(grouped(xl), grid.flip(-1))  # grid in (x, y) order
             sampled = samp.reshape(B, g, Ns, cg).permute(0, 2, 1, 3).reshape(B, Ns, cl)
             if ax is not None:  # every group's samples, for this rank's heads
                 sampled = mesh.gather_model(sampled.contiguous(), ax, -1, split_consumer=True)
@@ -210,9 +255,9 @@ class DeformableAttention(nn.Module):
         v = self.proj_v(sampled)
         pos = pos.reshape(B * g, Ns, 2)
 
-        if not self.runs_kernel():
-            return self.proj_drop(self.proj_out(self._composite(q, k, v, pos, H, W, batch)),
-                                  batch=batch)
+        if not self.runs_kernel(exact is not None):
+            out = self._composite(q, k, v, pos, H, W, batch, exact)
+            return self.proj_drop(self.proj_out(out), batch=batch)
 
         def by_group(t):  # (B, Ns, cl) -> (B*g, Ns, Cg)
             return t.reshape(B, Ns, g, cg).permute(0, 2, 1, 3).reshape(B * g, Ns, cg)
@@ -230,20 +275,27 @@ class DeformableAttention(nn.Module):
         out = out.reshape(B, g, H, W, cg).permute(0, 2, 3, 1, 4).reshape(B, H, W, cl)
         return self.proj_drop(row_parallel(self.proj_out, out, ax), batch=batch)
 
-    def _composite(self, q, k, v, pos, H: int, W: int, batch=None) -> torch.Tensor:
+    def _composite(self, q, k, v, pos, H: int, W: int, batch=None, exact=None) -> torch.Tensor:
         """The JAX package's composite (``deformable_attention.py:299-524``
         there) on q (B, H, W, C), k, v (B, Ns, C) and pos (B*g, Ns, 2): the
         products and the softmax in float32, P rounded to q's dtype for the
-        dropout and P·V, the output in q's dtype, (B, H, W, C)."""
+        dropout and P·V, the output in q's dtype, (B, H, W, C). ``exact``
+        (ext_q, ext_kv, (Hk, Wk)) under exact padded inference: the bias
+        at the true extents and the kv points beyond ``ext_kv`` out of the
+        softmax."""
         B, _, _, C = q.shape
         heads, Ns = self.n_heads, k.shape[1]
         hc = C // heads
         qh = q.reshape(B, H * W, heads, hc).float()
         kh = k.reshape(B, Ns, heads, hc).float()
         attn = torch.einsum("bmhc,bnhc->bhmn", qh, kh) * hc ** -0.5
-        bias = self._bias(pos, B, H, W)
+        bias = self._bias(pos, B, H, W, exact, q.dtype)
         if bias is not None:
             attn = attn + bias
+        if exact is not None:  # kv points beyond the true grid do not exist there
+            kv_mask = valid_extent.mask_for(exact[2], exact[1], torch.bool).reshape(B, 1, 1, Ns)
+            attn = torch.where(kv_mask, attn, torch.tensor(-1e30, dtype=attn.dtype,
+                                                           device=attn.device))
         p = self.attn_dropout(torch.softmax(attn, dim=-1).to(q.dtype), batch=batch)
         out = torch.einsum("bhmn,bnhc->bmhc", p.float(), v.reshape(B, Ns, heads, hc).float())
         out = out.reshape(B, H, W, C).to(q.dtype)
@@ -251,13 +303,23 @@ class DeformableAttention(nn.Module):
             out = out + self.rpe_dwc(q)
         return out
 
-    def _bias(self, pos: torch.Tensor, B: int, H: int, W: int) -> Optional[torch.Tensor]:
+    def _bias(self, pos: torch.Tensor, B: int, H: int, W: int, exact=None,
+              dtype=torch.float32) -> Optional[torch.Tensor]:
         """The mode's position bias, float32, broadcastable to (B, heads,
-        H*W, Ns); None for ``dwc_pe``, ``no_off`` and ``use_pe=False``."""
+        H*W, Ns); None for ``dwc_pe``, ``no_off`` and ``use_pe=False``.
+        Under exact padded inference (``exact``) at each sample's true
+        extents; ``dtype`` (the queries') is that of ``fixed_pe``'s
+        tap-weight products there, as the JAX package's."""
         g, heads = self.n_groups, self.n_heads
         h_g, Ns = heads // g, pos.shape[1]
+        if exact is not None:
+            qy, qx = _query_grid_ps(exact[0], H, W, g)
         if hasattr(self, "cpb_fc1"):  # log_cpb
-            qg = query_grid(H, W, pos.device).reshape(1, H * W, 1, 2)
+            if exact is None:
+                qg = query_grid(H, W, pos.device).reshape(1, H * W, 1, 2)
+            else:
+                qg = torch.stack(torch.broadcast_tensors(qy[:, :, None], qx[:, None, :]), dim=-1)
+                qg = qg.reshape(B * g, H * W, 1, 2)
             disp = (qg - pos[:, None]) * 4.0  # (B*g, H*W, Ns, 2)
             disp = torch.sign(disp) * torch.log2(disp.abs() + 1.0) / disp.new_tensor(math.log2(8.0))
             # float32, as flax's Dense promotes its bf16 weights to the
@@ -269,6 +331,8 @@ class DeformableAttention(nn.Module):
         if not hasattr(self, "rpe_table"):
             return None
         table = self.rpe_table
+        if self.fixed_pe and exact is not None:
+            return _fixed_pe_bias_ps(table, exact, H, W, dtype)
         if self.fixed_pe:
             # the reference's 2-d align-corners resize over the table's two
             # flat axes, in float32, the result in the table's dtype
@@ -276,4 +340,58 @@ class DeformableAttention(nn.Module):
                                    align_corners=True)
             return bias.permute(0, 3, 1, 2).to(table.dtype).float()  # (1, heads, H*W, Ns)
         th, tw = table.shape[1:]
-        return rpe_bias(pos, table.reshape(g, h_g, th, tw), H, W).reshape(B, heads, H * W, Ns)
+        table = table.reshape(g, h_g, th, tw)
+        bias = rpe_bias(pos, table, H, W) if exact is None else rpe_bias_at(pos, table, qy, qx)
+        return bias.reshape(B, heads, H * W, Ns)
+
+
+def _reference_points_ps(ext_kv: torch.Tensor, Hk: int, Wk: int) -> torch.Tensor:
+    """``reference_points`` over each sample's true kv extent ``ext_kv``
+    (B, 2) on the padded (Hk, Wk) grid: (B, Hk, Wk, 2)."""
+    hk = (ext_kv[:, 0].float() - 1.0).clamp_min(1.0)
+    wk = (ext_kv[:, 1].float() - 1.0).clamp_min(1.0)
+    dev = ext_kv.device
+    ys = (torch.arange(Hk, dtype=torch.float32, device=dev) + 0.5)[None, :] / hk[:, None] * 2.0 - 1.0
+    xs = (torch.arange(Wk, dtype=torch.float32, device=dev) + 0.5)[None, :] / wk[:, None] * 2.0 - 1.0
+    return torch.stack(torch.broadcast_tensors(ys[:, :, None], xs[:, None, :]), dim=-1)
+
+
+def _query_grid_ps(ext_q: torch.Tensor, H: int, W: int, g: int):
+    """The query grid's rows (B*g, H) and columns (B*g, W) over each
+    sample's true extent (corners of the extent at -1 and +1, as
+    ``query_grid``), repeated over its groups."""
+    hq = (ext_q[:, 0].float() - 1.0).clamp_min(1.0)
+    wq = (ext_q[:, 1].float() - 1.0).clamp_min(1.0)
+    dev = ext_q.device
+    qy = torch.arange(H, dtype=torch.float32, device=dev)[None, :] / hq[:, None] * 2.0 - 1.0
+    qx = torch.arange(W, dtype=torch.float32, device=dev)[None, :] / wq[:, None] * 2.0 - 1.0
+    return qy.repeat_interleave(g, dim=0), qx.repeat_interleave(g, dim=0)
+
+
+def _fixed_pe_bias_ps(table: torch.Tensor, exact, H: int, W: int, dtype) -> torch.Tensor:
+    """``fixed_pe``'s bias under exact padded inference (the JAX package's
+    ``deformable_attention.py:327-385``): the reference resizes the (q_hw,
+    kv_hw) table to the runtime (H*W, Ns) with a 2-d align-corners bilinear
+    interpolation, separable over the two flat row-major axes; in the exact
+    run those have per-sample lengths eh·ew and ekh·ekw, so each 1-d
+    interpolation is a per-sample tap-weight product: padded query (y, x)
+    is exact flat index y·ew + x, scaled by (q_hw - 1)/(eh·ew - 1). Invalid
+    queries alias valid rows (discarded downstream); invalid kv columns
+    leave the softmax. The weights in ``dtype``, the products summed in
+    float32, the first rounded to ``dtype``: (B, heads, H*W, Ns)."""
+    ext_q, ext_kv, (Hk, Wk) = exact
+    q_hw, kv_hw = table.shape[1:]
+    dev = ext_q.device
+
+    def weights(ext, rows, cols, size):
+        eh, ew = ext[:, 0].float(), ext[:, 1].float()
+        yy = torch.arange(rows, dtype=torch.float32, device=dev)
+        xx = torch.arange(cols, dtype=torch.float32, device=dev)
+        flat = (yy[None, :, None] * ew[:, None, None] + xx[None, None, :]).reshape(-1, rows * cols)
+        u = flat * (size - 1.0) / (eh * ew - 1.0).clamp_min(1.0)[:, None]
+        return lerp_weight_matrix(u, size, dtype).float()
+
+    w1 = weights(ext_q, H, W, q_hw)  # (B, H*W, q_hw)
+    w2 = weights(ext_kv, Hk, Wk, kv_hw)  # (B, Ns, kv_hw)
+    m1 = torch.einsum("bmp,hpq->bhmq", w1, table.to(dtype).float()).to(dtype).float()
+    return torch.einsum("bhmq,bnq->bhmn", m1, w2)

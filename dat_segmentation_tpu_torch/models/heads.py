@@ -3,10 +3,19 @@
 Counterpart of ``dat_segmentation_tpu/models/heads.py`` for the
 heads: ``ConvBNReLU``, ``UPerHead`` (with its PPM) and the auxiliary
 ``FCNHead`` of the UperNet presets, ``FPNNeck`` and ``FPNHead`` of the
-SemanticFPN ones, and the classifier's ``ClsHead``. Exact padded inference (the JAX package's
-``valid_extent`` paths) is not ported: eager PyTorch takes each image at
-its true shape. Dropout is elementwise and draws from the generator that
-``layers.use_generator`` hands it.
+SemanticFPN ones, and the classifier's ``ClsHead``. Dropout is
+elementwise and draws from the generator that ``layers.use_generator``
+hands it.
+
+Under exact padded inference (``ops/valid_extent.py``) the heads take the
+JAX package's extent forms (``heads.py:26-35, 83-121, 186-210, 240-290``
+there): the bilinear resizes run at the levels' true ratios whenever their
+extents are known; ``UPerHead``'s PPM pools over the true extent, its 1x1
+convs on the wholly valid pooled maps with masking suspended; ``FPNNeck``'s
+nearest top-down adds take the extent form; ``FPNHead`` tracks extents
+itself with the shared map suspended (an upsampled stride-32 map has true
+extent 2·e32, not the stride-16 map's e16, though their padded shapes
+agree), masking each level's input.
 
 Over the mesh's model axis (``parallel/model_axis.py``) each
 ``ConvBNReLU``, ``FPNNeck``'s laterals and output convs and ``ClsHead.fc``
@@ -19,6 +28,7 @@ on row shards, fetching their halos on this rank's channels.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence
 
@@ -26,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import valid_extent
 from ..ops.interpolate import adaptive_avg_pool, resize_bilinear, resize_nearest
 from ..parallel import mesh, spatial
 from ..parallel.spatial import Rows
@@ -40,6 +51,22 @@ def _rows_of(rows: RowsList, n: int) -> List[Optional[Rows]]:
 
 def _height(x: torch.Tensor, rows: Optional[Rows]) -> int:
     return x.shape[1] if rows is None else rows.H
+
+
+def _extents(feats: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+    """Each level's per-sample extents under exact padded inference (None
+    for a level without, and outside it)."""
+    return [valid_extent.lookup(f.shape[1:3]) for f in feats]
+
+
+def _resize(x: torch.Tensor, out_hw, src_ext, dst_ext, align_corners: bool = False,
+            rows: Optional[Rows] = None) -> torch.Tensor:
+    """The bilinear resize, or its form at the true extents when both are
+    known (exact padded inference)."""
+    if src_ext is not None and dst_ext is not None:
+        return valid_extent.resize_bilinear_extent(x, out_hw, src_ext, dst_ext,
+                                                   align_corners=align_corners)
+    return resize_bilinear(x, out_hw, align_corners=align_corners, rows=rows)
 
 
 def column(fn, x: torch.Tensor, axis) -> torch.Tensor:
@@ -104,18 +131,25 @@ class UPerHead(nn.Module):
         self.dropout = Dropout(dropout_ratio)
         self.cls_seg = nn.Linear(channels, num_classes)
 
-    def _up(self, x: torch.Tensor, hw, rows: Optional[Rows] = None) -> torch.Tensor:
-        return resize_bilinear(x, hw, align_corners=False, rows=rows)
-
     def forward(self, feats: Sequence[torch.Tensor], rows: RowsList = None) -> torch.Tensor:
         n = self.n
         rows = _rows_of(rows, n)
+        exts = _extents(feats)
         deep, r = feats[-1], rows[-1]
         whole = deep if r is None else spatial.gather_rows(deep, r)
         ppm = [deep]
         for j, scale in enumerate(self.pool_scales):
-            p = getattr(self, f"ppm_{j}")(adaptive_avg_pool(whole, (scale, scale)))
-            up = self._up(p, whole.shape[1:3])
+            ppm_j = getattr(self, f"ppm_{j}")
+            if exts[-1] is not None:
+                # bins over the true extent; the (scale, scale) map is wholly
+                # valid, so only the resize back up needs the true ratios
+                p = valid_extent.adaptive_avg_pool_extent(deep, (scale, scale), exts[-1])
+                full = torch.full_like(exts[-1], scale)
+                with valid_extent.suspend():
+                    p = ppm_j(p)
+            else:
+                p, full = ppm_j(adaptive_avg_pool(whole, (scale, scale))), None
+            up = _resize(p, whole.shape[1:3], full, exts[-1])
             ppm.append(up if r is None else spatial.keep_rows(up, r))
         laterals = [getattr(self, f"lateral_{i}")(feats[i], rows[i]) for i in range(n - 1)]
         laterals.append(self.ppm_bottleneck(torch.cat(ppm, dim=-1), r))
@@ -123,19 +157,22 @@ class UPerHead(nn.Module):
         def size(i):  # level i's global (H, W)
             return _height(laterals[i], rows[i]), laterals[i].shape[2]
 
+        def up(i, j):  # level i resized to level j
+            return _resize(laterals[i], size(j), exts[i], exts[j], rows=rows[i])
+
         fpn = [getattr(self, f"fpn_{i}") for i in range(n - 1)]
         if self.topdown == "mmseg":
             for i in range(n - 1, 0, -1):
-                laterals[i - 1] = laterals[i - 1] + self._up(laterals[i], size(i - 1), rows[i])
+                laterals[i - 1] = laterals[i - 1] + up(i, i - 1)
             outs = [fpn[i](laterals[i], rows[i]) for i in range(n - 1)] + [laterals[-1]]
         else:
             for i in range(n - 1, 0, -1):
-                up = self._up(laterals[i], size(i - 1), rows[i])
-                laterals[i - 1] = fpn[i - 1](laterals[i - 1] + up, rows[i - 1])
+                laterals[i - 1] = fpn[i - 1](laterals[i - 1] + up(i, i - 1), rows[i - 1])
             outs = laterals
 
         target = size(0)
-        outs = [outs[0]] + [self._up(o, target, rows[i + 1]) for i, o in enumerate(outs[1:])]
+        outs = [outs[0]] + [_resize(o, target, exts[i + 1], exts[0], rows=rows[i + 1])
+                            for i, o in enumerate(outs[1:])]
         x = self.fuse_bottleneck(torch.cat(outs, dim=-1), rows[0])
         return self.cls_seg(self.dropout(x, rows=rows[0]))
 
@@ -181,10 +218,15 @@ class FPNNeck(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor], rows: RowsList = None) -> List[torch.Tensor]:
         ax = self.model_axis
         rows = _rows_of(rows, self.n)
+        exts = _extents(feats)
         laterals = [column(getattr(self, f"lateral_{i}"), f, ax) for i, f in enumerate(feats)]
         for i in range(self.n - 1, 0, -1):
             hw = (_height(laterals[i - 1], rows[i - 1]), laterals[i - 1].shape[2])
-            laterals[i - 1] = laterals[i - 1] + resize_nearest(laterals[i], hw, rows[i])
+            if exts[i] is not None:
+                up = valid_extent.resize_nearest_extent(laterals[i], hw, exts[i], exts[i - 1])
+            else:
+                up = resize_nearest(laterals[i], hw, rows[i])
+            laterals[i - 1] = laterals[i - 1] + up
         return [column(lambda t, i=i: getattr(self, f"fpn_{i}")(t, rows[i]), lat, ax)
                 for i, lat in enumerate(laterals)]
 
@@ -219,23 +261,38 @@ class FPNHead(nn.Module):
         self.cls_seg = nn.Linear(channels, num_classes)
 
     def forward(self, feats: Sequence[torch.Tensor], rows: RowsList = None) -> torch.Tensor:
-        fs = self.feature_strides
+        fs, ac = self.feature_strides, self.align_corners
         rows = _rows_of(rows, len(feats))
-        out = None
-        for i, length in enumerate(self.head_lengths):
-            x, r = feats[i], rows[i]
-            for k in range(length):
-                x = getattr(self, f"scale_{i}_{k}")(x, r)
-                if fs[i] != fs[0]:
-                    h = _height(x, r) * 2
-                    x = resize_bilinear(x, (h, x.shape[2] * 2), align_corners=self.align_corners,
-                                        rows=r)
-                    r = None if r is None else r.at(h)
-            if out is None:
-                out = x
-            else:
-                hw = (_height(out, rows[0]), out.shape[2])
-                out = out + resize_bilinear(x, hw, align_corners=self.align_corners, rows=r)
+        exts = _extents(feats)
+        # exact padded inference tracks the extents here, the shared map
+        # suspended: an upsampled map lands on a padded shape registered
+        # at another true extent
+        exact = valid_extent.current() is not None and all(e is not None for e in exts)
+        out = out_ext = None
+        with valid_extent.suspend() if exact else contextlib.nullcontext():
+            for i, length in enumerate(self.head_lengths):
+                x, r, e = feats[i], rows[i], exts[i]
+                if exact:
+                    x = valid_extent.mask_tensor(x, e)
+                for k in range(length):
+                    x = getattr(self, f"scale_{i}_{k}")(x, r)
+                    if fs[i] != fs[0]:
+                        h = _height(x, r) * 2
+                        if exact:  # a 2x upsample: the true size doubles too
+                            x = valid_extent.resize_bilinear_extent(
+                                x, (h, x.shape[2] * 2), e, 2 * e, align_corners=ac)
+                            e = 2 * e
+                        else:
+                            x = resize_bilinear(x, (h, x.shape[2] * 2), align_corners=ac, rows=r)
+                        r = None if r is None else r.at(h)
+                if out is None:
+                    out, out_ext = x, e
+                elif exact:  # to level 0's true shape (the padded shapes agree)
+                    out = out + valid_extent.resize_bilinear_extent(
+                        x, out.shape[1:3], e, out_ext, align_corners=ac)
+                else:
+                    hw = (_height(out, rows[0]), out.shape[2])
+                    out = out + resize_bilinear(x, hw, align_corners=ac, rows=r)
         return self.cls_seg(self.dropout(out, rows=rows[0]))
 
 

@@ -24,6 +24,13 @@ coordinate's whole mask. Beside the model axis a split MLP runs on row
 shards of its hidden units: ``dwc`` fetches its halo on this rank's
 channels, the CMT BatchNorms take those channels' statistics over the
 same group, and the masks are cut from the whole rows and width.
+
+Under exact padded inference (``ops/valid_extent.py``) every ``Conv2d``
+on a whole map masks its input and output beyond the per-sample valid
+extent and registers its output's extent, as the JAX package's
+``conv2d`` (``models/layers.py:112-146`` there). Every spatial conv of the
+eval path is a ``Conv2d``: the stem, the downsampling convs, the LPUs,
+``offset_dwc``, ``rpe_dwc``, the MLPs' ``dwc`` and the heads' convs.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import valid_extent
 from ..parallel import mesh, spatial
 from ..parallel.mesh import all_reduce, is_distributed, process_shard_info
 from ..parallel.spatial import Rows
@@ -62,7 +70,11 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
         if rows is None:
-            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            ctx = valid_extent.current()
+            ext = None if ctx is None else ctx.get(x.shape[1:3])
+            if ext is None:
+                return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            return self._exact(x, ctx, ext)
         out = self.out_rows(rows)
         k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
 
@@ -74,6 +86,20 @@ class Conv2d(nn.Conv2d):
         y = F.conv2d(xs, self.weight, self.bias, self.stride, (0, self.padding[1]),
                      self.dilation, self.groups)
         return y[:, :, :out.n].permute(0, 2, 3, 1)
+
+    def _exact(self, x: torch.Tensor, ctx: valid_extent.ExtentMap,
+               ext: torch.Tensor) -> torch.Tensor:
+        """Under exact padded inference (``ops/valid_extent.py``), as the JAX
+        package's ``conv2d``: the input zeroed beyond its samples' extents,
+        so that windows at the true border read the zeros the exact run's
+        padding gives; the output's extent, by this conv's k/s/p,
+        registered for what follows; the output zeroed beyond it."""
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        ext_out = valid_extent.conv_out_extent(ext, k, s, p)
+        y = super().forward(valid_extent.mask_tensor(x, ext).permute(0, 3, 1, 2))
+        y = y.permute(0, 2, 3, 1)
+        ctx.register(y.shape[1:3], ext_out)
+        return valid_extent.mask_tensor(y, ext_out)
 
 
 class LayerNorm2d(nn.LayerNorm):

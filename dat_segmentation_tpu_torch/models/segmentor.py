@@ -13,6 +13,15 @@ Over the mesh's spatial axis both take a row shard of the image and its
 layout (``rows``, ``parallel/spatial.py``): a segmentor returns the row
 shards of its logits at the image's layout, a classifier its logits
 replicated on every spatial peer.
+
+``valid_hw`` ((B, 2) per-sample true image sizes) runs the segmentor's
+exact padded inference (``ops/valid_extent.py``, the JAX package's
+``segmentor.py:42-70``): the forward of a zero-padded batch equals, on
+each sample's valid region, the forward of that sample alone at its true
+shape. It returns stride-4 logits (``upsample=False``), which the caller
+slices to each sample's stride-4 extent before resizing. The JAX eval
+runs it outside any mesh, so it is refused on a row shard (``rows``) and
+on a model whose modules the mesh's model axis splits.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
+from ..ops import valid_extent
 from ..ops.interpolate import resize_bilinear
 from ..parallel.spatial import Rows
 
@@ -45,12 +55,28 @@ class EncoderDecoder(nn.Module):
         self.aux_in_index = aux_in_index
 
     def forward(
-        self, x: torch.Tensor, *, upsample: bool = True, rows: Optional[Rows] = None
+        self, x: torch.Tensor, *, upsample: bool = True, rows: Optional[Rows] = None,
+        valid_hw: Optional[torch.Tensor] = None,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """x (B, H, W, 3) -> logits (B, H, W, classes), or the head's
         stride-4 logits with ``upsample=False``; in training with an
         auxiliary head, ``(logits, aux)``. On a row shard of the image
-        (``rows``) the logits' row shards."""
+        (``rows``) the logits' row shards. ``valid_hw`` (B, 2): exact
+        padded inference of a zero-padded batch, stride-4 logits."""
+        if valid_hw is None:
+            return self._forward(x, upsample, rows)
+        if upsample:
+            raise ValueError("exact padded inference returns stride-4 logits; the caller "
+                             "slices them to the true extent and resizes (upsample=False)")
+        if rows is not None or any(getattr(m, "model_axis", None) is not None
+                                   for m in self.modules()):
+            raise ValueError("exact padded inference (valid_hw) runs outside the mesh: not "
+                             "on a row shard (rows) nor on a model split over the model axis")
+        valid_hw = torch.as_tensor(valid_hw, dtype=torch.int32, device=x.device)
+        with valid_extent.exact_extent(x.shape[1:3], valid_hw):
+            return self._forward(x, upsample, rows)
+
+    def _forward(self, x, upsample, rows):
         if rows is None:  # a registered head may take the features alone
             feats = self.backbone(x)
             fr, kw, aux_kw = [None] * len(feats), {}, {}

@@ -73,15 +73,23 @@ def rpe_bias(
     The table is sampled at 0.5 * (query - sample), through the tap-weight
     products of the JAX reference.
     """
+    hn, wn = hn or H, wn or W
+    return rpe_bias_at(pos, table, query_coords(H, hn, pos.device)[None],
+                       query_coords(W, wn, pos.device)[None])
+
+
+def rpe_bias_at(pos: torch.Tensor, table: torch.Tensor, qy: torch.Tensor,
+                qx: torch.Tensor) -> torch.Tensor:
+    """``rpe_bias`` at the normalised query rows ``qy`` (1 or BG, H) and
+    columns ``qx`` (1 or BG, W): per batch*group under exact padded
+    inference, whose query grid spans each sample's true extent."""
     BG, Ns, _ = pos.shape
     g, h_g, th, tw = table.shape
-    hn, wn = hn or H, wn or W
+    H, W = qy.shape[1], qx.shape[1]
     dt = torch.promote_types(pos.dtype, torch.float32)
     pos = pos.to(dt)
-    yg = query_coords(H, hn, pos.device).to(dt)
-    xg = query_coords(W, wn, pos.device).to(dt)
-    dy = (yg[None, :, None] - pos[..., 0][:, None, :]) * 0.5  # (BG, H, Ns)
-    dx = (xg[None, :, None] - pos[..., 1][:, None, :]) * 0.5  # (BG, W, Ns)
+    dy = (qy.to(dt)[:, :, None] - pos[..., 0][:, None, :]) * 0.5  # (BG, H, Ns)
+    dx = (qx.to(dt)[:, :, None] - pos[..., 1][:, None, :]) * 0.5  # (BG, W, Ns)
     fy = (dy + 1.0) * 0.5 * (th - 1)
     fx = (dx + 1.0) * 0.5 * (tw - 1)
     wy = lerp_weight_matrix(fy, th, dt).reshape(BG // g, g, H, Ns, th)

@@ -3,7 +3,8 @@ mIoU, on the card.
 
     python -m dat_segmentation_tpu_torch.tools.test fpn_tiny_80k_dp04_lr2 CKPT.pth \\
         --data-root /data/ade20k [--aug-test] [--mode slide] [--out r.json] \\
-        [--show-dir DIR] [--format-dir DIR] [--set key=value ...]
+        [--pad-bucket 32 [--no-exact]] [--show-dir DIR] [--format-dir DIR] \\
+        [--set key=value ...]
 
 The port's ``tools/test.py`` (the JAX package's ``tools/test.py:22-61``)
 for what it has: the config is a preset or an mmseg-style ``.py`` file,
@@ -29,12 +30,20 @@ convention); both from ``evaluate_dataset``'s ``on_pred``, in the one
 inference pass, named after the image, by ``data/image_io.py:write_png``
 (no cv2).
 
-The JAX CLI's command lines run here too. ``--eval mIoU`` names the one
-metric there is. ``--pad-bucket`` and ``--postproc-workers`` are taken and
-change nothing: with the JAX package's default exact path they do not
-change its result either, and the port runs each image at its true shape
-and resizes on the device. ``--no-exact`` (the JAX package's plain
-zero-pad path) is refused: the port has no such path.
+The JAX CLI's command lines run here too, to the JAX CLI's results.
+``--eval mIoU`` names the one metric there is. ``--pad-bucket N`` pads the
+whole-mode inputs to multiples of N and batches ``--batch-size`` of one
+padded shape a forward (``eval/evaluate.py``'s bucket batcher), through
+the exact padded forward (``ops/valid_extent.py``), whose result is the
+true-shape forward's. Unset or 1, each image runs at its true shape,
+which gives the result of the JAX CLI's default (bucket 32, exact); that
+is the default here, as it runs K1 on the card while the exact padded
+forward runs the attention's composite (the JAX gate). ``--no-exact`` is
+the JAX package's plain zero-pad path in whole mode: the padded forward's
+logits resized to the padded size and sliced; without ``--pad-bucket`` it
+takes the JAX CLI's default bucket, 32. Slide mode forwards a partial
+window at its true extent either way. ``--postproc-workers`` is taken and changes
+nothing: the port resizes and argmaxes on the device.
 """
 
 from __future__ import annotations
@@ -58,6 +67,9 @@ from ..utils.device import resolve_device
 from .train import apply_overrides, load_config
 
 
+JAX_PAD_BUCKET = 32  # the JAX CLI's --pad-bucket default
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="DAT segmentation evaluation (PyTorch port)")
     p.add_argument("config", help="preset name or python config file")
@@ -74,23 +86,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--shard", default=None, metavar="RANK/WORLD",
                    help="evaluate a shard (merge with merge_shard_results)")
     p.add_argument("--batch-size", type=int, default=4,
-                   help="whole-mode images a forward, of one input shape (1 = per image)")
+                   help="whole-mode inputs a forward, of one (padded) shape (1 = per image)")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
                    help="dotted config overrides (must match the checkpoint)")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--distributed", action="store_true",
                    help="join torchrun's process group: shard the images, sum the counts")
-    no_op = ("the JAX CLI's flag; changes nothing: the port runs each image at its true "
-             "shape, the result the JAX package's default exact path gives")
-    p.add_argument("--pad-bucket", type=int, default=None, help=no_op)
-    p.add_argument("--postproc-workers", type=int, default=None, help=no_op)
+    p.add_argument("--pad-bucket", type=int, default=None,
+                   help="whole-mode pad-to multiple, images of one padded shape batched "
+                        "(unset or 1: each image at its true shape, equal to the exact "
+                        "padded forward)")
+    p.add_argument("--postproc-workers", type=int, default=None,
+                   help="the JAX CLI's flag; changes nothing: the port resizes and argmaxes "
+                        "on the device")
     p.add_argument("--no-exact", action="store_true",
-                   help="refused: the port has no plain zero-pad path")
-    args = p.parse_args(argv)
-    if args.no_exact:
-        p.error("--no-exact: the port has no plain zero-pad path; it runs each image at its "
-                "true shape, which the JAX package's default exact path equals")
-    return args
+                   help="the plain zero-pad forward instead of the exact padded one "
+                        f"(bucket {JAX_PAD_BUCKET} unless --pad-bucket)")
+    return p.parse_args(argv)
+
+
+def pad_bucket(args) -> int:
+    """The whole-mode bucket of a command line: ``--pad-bucket``; unset,
+    1 (the true shape) or, with ``--no-exact``, the JAX CLI's default."""
+    if args.pad_bucket is not None:
+        return args.pad_bucket
+    return JAX_PAD_BUCKET if args.no_exact else 1
 
 
 def _png_writers(args, ds, num_classes: int):
@@ -135,7 +155,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     inferencer = SegInferencer(
         model, num_classes=cfg.model.num_classes, mode=args.mode or cfg.model.test_mode,
         crop_size=cfg.model.crop_size, stride=cfg.model.slide_stride,
-        slide_batch=args.batch_size, device=device,
+        slide_batch=args.batch_size, bucket=pad_bucket(args), exact=not args.no_exact,
+        device=device,
     )
     del model
     shard_info = tuple(map(int, args.shard.split("/"))) if args.shard else None

@@ -6,11 +6,12 @@ and the port's launchers, on the CPU.
   in the port's counterpart, with a value where it takes one, to the value
   the JAX parser gives (the JAX parsers are read by running their
   ``parse_args`` under a patched ``sys.argv``, never their ``main``).
-  ``--no-exact`` and a ``--platforms`` other than one of cpu, cuda and gpu
-  are refused with a message.
+  A ``--platforms`` other than one of cpu, cuda and gpu is refused with a
+  message.
 * The test CLI gives the same result dict with ``--eval mIoU --pad-bucket 1
   --postproc-workers 2`` as without them (a small FPN on
-  ``tests/data/ade20k_tiny``, ``--device cpu``).
+  ``tests/data/ade20k_tiny``, ``--device cpu``), and with ``--no-exact
+  --pad-bucket 32`` the JAX CLI's result dict for the same command line.
 * The port's ``tools/tb_export.py`` writes the JAX tool's event records on
   one JSONL, byte for byte but for the wall times.
 * ``tools/launch_multihost.sh`` and ``tools/launch_slurm.sh`` build their
@@ -20,6 +21,8 @@ and the port's launchers, on the CPU.
 
 import argparse
 import dataclasses
+import functools
+import importlib
 import importlib.util
 import json
 import os
@@ -32,14 +35,16 @@ import pytest
 import torch
 
 from dat_segmentation_tpu_torch import build_model, get_config
+from dat_segmentation_tpu_torch.data.ade20k import ADE20KDataset
 from dat_segmentation_tpu_torch.tools import convert as convert_cli
 from dat_segmentation_tpu_torch.tools import export as export_cli
 from dat_segmentation_tpu_torch.tools import tb_export
 from dat_segmentation_tpu_torch.tools import test as test_cli
 from dat_segmentation_tpu_torch.tools import train as train_cli
-from dat_segmentation_tpu_torch.tools.reference_schema import save_reference
+from dat_segmentation_tpu_torch.eval.inference import SegInferencer
+from dat_segmentation_tpu_torch.tools.reference_schema import save_reference, to_reference
 from dat_segmentation_tpu_torch.utils.tensorboard import _masked_crc
-from torch_port_helpers import small_fpn
+from torch_port_helpers import ShapeInit, jax_reference_keys, small_fpn
 
 ROOT = Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data" / "ade20k_tiny"
@@ -51,7 +56,8 @@ BASE = {"test": ["fpn_tiny_80k_dp04_lr2", "ckpt.pth", "--data-root", "data"],
         "train": ["fpn_tiny_80k_dp04_lr2", "--data-root", "data"],
         "export": ["fpn_tiny_80k_dp04_lr2", "random", "--output", "art"],
         "convert": ["fpn_tiny_80k_dp04_lr2", "x.pth", "out"]}
-REFUSED = {("test", "--no-exact")}
+REFUSED = set()  # (tool, option) pairs the port refuses: none since --no-exact runs
+MAX_FLIPPED = 1e-4  # share of the pixels whose class may flip at a near-tie, as test_torch_evaluate
 VALUES = {"--platforms": "cpu", "--shard": "0/2", "--shapes": "64x64,64x96"}
 
 
@@ -131,16 +137,76 @@ def test_every_jax_option_parses_in_the_port(tool, option, action, monkeypatch, 
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--no-exact"], "no plain zero-pad path"),
     (["--platforms", "tpu"], "one of cpu, cuda, gpu"),
     (["--platforms", "cpu,tpu"], "one of cpu, cuda, gpu"),
     (["--platforms", "cuda", "--device", "cpu"], "disagree"),
-], ids=["no_exact", "tpu", "two_platforms", "platform_and_device"])
+], ids=["tpu", "two_platforms", "platform_and_device"])
 def test_what_the_port_cannot_do_is_refused(argv, message, capsys):
-    tool = "test" if argv[0] == "--no-exact" else "export"
     with pytest.raises(SystemExit) as e:
-        PORT[tool].parse_args(BASE[tool] + argv)
+        PORT["export"].parse_args(BASE["export"] + argv)
     assert e.value.code == 2 and message in capsys.readouterr().err
+
+
+def test_no_exact_gives_the_jax_cli_result(tmp_path, monkeypatch):
+    """``--no-exact --pad-bucket 32`` (the JAX package's plain zero-pad path,
+    bucket-batched at the default batch of 4) on both CLIs: one
+    mmseg-schema .pth of a 150-class small FPN, the first three fixture
+    images at img_scale (128, 64) (64x64 inputs and a 64x85 one in a 64x96
+    bucket), float32 on both sides (each CLI's inferencer told so). The
+    result dicts are equal but for pixels whose class flips at a logit
+    near-tie: the counts differ by at most one a flipped pixel in ``inter``
+    and two in ``union``, and at most 1e-4 of the pixels flip."""
+    import jax.numpy as jnp
+
+    import dat_segmentation_tpu.eval as jax_eval
+    import dat_segmentation_tpu.models as jax_models
+    from dat_segmentation_tpu.configs import get_config as jax_get_config
+
+    def small(get_config):
+        cfg = get_config("fpn_tiny_80k_dp04_lr2")
+        return dataclasses.replace(cfg, model=small_fpn(get_config, num_classes=150),
+                                   data=dataclasses.replace(cfg.data, img_scale=(128, 64)))
+
+    port_cfg = small(get_config)
+    torch.manual_seed(7)
+    model = build_model(port_cfg.model, device="cpu")
+    pth = save_reference(model, port_cfg.model, tmp_path / "m.pth")
+    jax_pth = tmp_path / "m_jax.pth"
+    torch.save({"state_dict": jax_reference_keys(to_reference(model.state_dict(),
+                                                                port_cfg.model))}, jax_pth)
+    flags = ["--data-root", str(DATA), "--max-images", "3", "--no-exact", "--pad-bucket", "32"]
+
+    monkeypatch.setattr(test_cli, "load_config", lambda name: port_cfg)
+    monkeypatch.setattr(test_cli, "SegInferencer",
+                        functools.partial(SegInferencer, compute_dtype=torch.float32))
+    calls = []
+    monkeypatch.setattr(SegInferencer, "forward_batch", lambda self, x, valid_hw=None, _f=(
+        SegInferencer.forward_batch): calls.append((tuple(x.shape), valid_hw)) or _f(self, x, valid_hw))
+    got = test_cli.main(["fpn_tiny_80k_dp04_lr2", str(pth), *flags, "--device", "cpu"])
+    assert calls == [((4, 64, 64, 3), None), ((4, 64, 96, 3), None)], calls
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    jax_test_cli = importlib.import_module("tools.test")
+    jax_train_cli = importlib.import_module("tools.train")
+    build = jax_models.build_model
+    monkeypatch.setattr(jax_models, "build_model", lambda c: ShapeInit(build(c)))
+    monkeypatch.setattr(jax_train_cli, "load_config", lambda name: small(jax_get_config))
+    monkeypatch.setattr(jax_eval, "SegInferencer", functools.partial(
+        jax_eval.SegInferencer, compute_dtype=jnp.float32, transfer_dtype=jnp.float32))
+    out = tmp_path / "jax.json"
+    monkeypatch.setattr(sys, "argv", ["tools/test.py", "fpn_tiny_80k_dp04_lr2", str(jax_pth),
+                                      *flags, "--out", str(out)])
+    jax_test_cli.main()
+    ref = json.loads(out.read_text())
+
+    assert set(got) == set(ref) and got["num_images"] == ref["num_images"] == 3
+    ds = ADE20KDataset(DATA, "val")
+    pixels = sum(ds.load_raw(i)[1].size for i in range(3))
+    d_inter = sum(abs(a - b) for a, b in zip(got["inter"], ref["inter"]))
+    d_union = sum(abs(a - b) for a, b in zip(got["union"], ref["union"]))
+    assert d_inter <= MAX_FLIPPED * pixels and d_union <= 2 * MAX_FLIPPED * pixels, (
+        d_inter, d_union, pixels)
+    assert got["mIoU"] == pytest.approx(ref["mIoU"], abs=1e-3)
 
 
 @pytest.mark.parametrize("argv,device", [([], None), (["--platforms", "gpu"], "cuda"),

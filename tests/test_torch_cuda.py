@@ -284,6 +284,38 @@ def test_small_model_kernel_path_matches_plain_path(cuda):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.cuda
+def test_small_model_exact_padded_forward_on_the_card(cuda):
+    """Exact padded inference on the card: the small SemanticFPN (head width
+    32) on a 64x96 bucket holding a 52x76 and a 61x64 image, against each
+    image's true-shape forward on the card (K1) and the padded batch on the
+    CPU; the exact forward launches no K1 (the JAX gate), the true-shape
+    ones one a 'D' block."""
+    from dat_segmentation_tpu_torch.ops.valid_extent import stride4_extent
+
+    torch.manual_seed(0)
+    model = build_model(small_fpn(get_config, head_width=32), device=cuda).eval()
+    rng = np.random.RandomState(2)
+    shapes = ((52, 76), (61, 64))
+    imgs = [torch.tensor(rng.randn(h, w, 3), dtype=torch.float32) for h, w in shapes]
+    x = torch.zeros(2, 64, 96, 3)
+    for i, im in enumerate(imgs):
+        x[i, :im.shape[0], :im.shape[1]] = im
+    valid = torch.tensor(shapes, dtype=torch.int32)
+    before = deform_attn.launches
+    with torch.inference_mode():
+        got = model(x.to(cuda), upsample=False, valid_hw=valid.to(cuda)).cpu()
+        assert deform_attn.launches == before
+        ref = copy.deepcopy(model).cpu()(x, upsample=False, valid_hw=valid)
+        for i, im in enumerate(imgs):
+            eh, ew = (int(v) for v in stride4_extent(im.shape[:2], True))
+            true = model(im[None].to(cuda), upsample=False).cpu()[0]
+            assert true.shape[:2] == (eh, ew)
+            assert (got[i, :eh, :ew] - true).abs().max().item() <= 1e-4
+    assert deform_attn.launches == before + 2 * 4  # one per 'D' block, true shapes only
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
 def _small_upernet_step_card_vs_cpu(cuda, use_checkpoint, modes=("continuous",) * 4):
     """One float32 train step of the small UperNet (head width 32, its 'D'
     blocks in ``modes``) on the card and on the CPU; returns the card's

@@ -6,8 +6,11 @@ dataset discovery in both layouts, ``load_raw`` (the port decodes without
 cv2), the val transform, the PNG reader, and ``evaluate_dataset`` whole,
 with test-time augmentation, sharded and batched, against the JAX
 ``evaluate_dataset`` with ``SegInferencer(exact=True)``, float32 on both
-sides. One small SemanticFPN (150 classes) is built in both packages from
-one preset, its JAX variables drawn from a numpy seed and carried across.
+sides, and the bucket-batched ``evaluate_dataset`` (bucket 32, batch 2:
+whole, with TTA, and on the plain zero-pad path) against the JAX one at
+the same settings. One small SemanticFPN (150 classes) is built in both
+packages from one preset, its JAX variables drawn from a numpy seed and
+carried across.
 
 Class maps are equal except at argmax near-ties: both sides' logits agree
 within 1e-4 (``test_torch_eval.py``), so a pixel may flip only where the
@@ -312,6 +315,67 @@ def test_batched_eval_equals_per_image(pair):
                 logits.permute(0, 3, 1, 2), size=gt.shape, mode="bilinear",
                 align_corners=False).permute(0, 2, 3, 1)[0].numpy())
             assert (gaps[differ] <= LOGIT_TIE).all()
+        flipped, total = flipped + int(differ.sum()), total + pred.size
+    _check_counts(got, ref, flipped, total)
+
+
+@pytest.mark.parametrize("run", ["whole", "aug_test", "no_exact"])
+def test_bucketed_evaluate_matches_jax(pair, run, monkeypatch):
+    """``evaluate_dataset(batch_size=2)`` with both inferencers at bucket 32
+    (the JAX one's default): the bucket batcher on both sides. ``whole``:
+    the six images at (128, 64), in 64x64 and 64x96 buckets, each holding
+    partial inputs, through the exact padded forward; ``aug_test``: MS_RATIOS
+    with flip on image 2 alone (512x683; shard (2, 4)), whose inputs fill
+    four partial buckets and two full ones; ``no_exact``: ``whole`` on the
+    plain zero-pad path of both packages. Class maps as above (the TTA
+    inputs the JAX ones, as in the aug_test test); near-ties on the JAX
+    inferencer's own logits in that setting."""
+    jinf, pinf, _ = pair
+    exact = run != "no_exact"
+    assert jinf.bucket == 32
+    monkeypatch.setattr(jinf, "exact", exact)
+    monkeypatch.setattr(pinf, "exact", exact)
+    monkeypatch.setattr(pinf, "bucket", 32)
+    calls = []
+    forward = pinf.forward_batch
+    monkeypatch.setattr(pinf, "forward_batch", lambda x, valid_hw=None: calls.append(
+        (tuple(x.shape), valid_hw is not None)) or forward(x, valid_hw))
+    aug = run == "aug_test"
+    if aug:
+        def jax_inputs(raw_img, **kw):
+            for inp, do_flip in jinf.tta_inputs(raw_img, **kw):
+                yield torch.from_numpy(inp.copy()), do_flip
+
+        monkeypatch.setattr(pinf, "tta_inputs", jax_inputs)
+        kw = dict(img_scale=TTA_SCALE, aug_test=True, shard_info=(2, 4))
+    else:
+        kw = dict(img_scale=SCALE)
+    jax_preds, preds = {}, {}
+    ref = jax_evaluate_dataset(jinf, JaxADE20KDataset(ROOT, "val"), batch_size=2, verbose=False,
+                               on_pred=_collect(jax_preds), **kw)
+    got = evaluate_dataset(pinf, ADE20KDataset(ROOT, "val"), batch_size=2, verbose=False,
+                           on_pred=_collect(preds), **kw)
+    assert sorted(preds) == sorted(jax_preds) == ([2] if aug else list(range(6)))
+    assert all(shape[0] == 2 for shape, _ in calls)
+    assert any(v for _, v in calls) == exact  # valid_hw only where a bucket holds a partial input
+    assert len(calls) == (6 if aug else 4)
+    ds, flipped, total = ADE20KDataset(ROOT, "val"), 0, 0
+    for i, pred in preds.items():
+        differ = pred != jax_preds[i]
+        if differ.any():
+            raw, gt = ds.load_raw(i)
+            if aug:
+                acc = 0.0
+                for inp, do_flip in jinf.tta_inputs(raw, img_scale=TTA_SCALE,
+                                                    ratios=(0.5, 0.75, 1.0, 1.25, 1.5, 1.75),
+                                                    flip=True):
+                    logits = jinf.logits(inp)
+                    logits = logits[:, ::-1] if do_flip else logits
+                    acc = acc + _np_softmax(_resize_probs(logits, gt.shape))
+                assert (_top2_gap(acc / 12)[differ] <= PROB_TIE).all()
+            else:
+                gaps = _jax_logit_gaps(jinf, raw, gt.shape, SCALE)
+                assert (gaps[differ] <= LOGIT_TIE).all(), gaps[differ].max()
         flipped, total = flipped + int(differ.sum()), total + pred.size
     _check_counts(got, ref, flipped, total)
 

@@ -25,7 +25,6 @@ import dataclasses
 import functools
 import importlib
 import json
-import re
 import shutil
 import subprocess
 import sys
@@ -56,7 +55,8 @@ from dat_segmentation_tpu_torch.tools import test as test_cli
 from dat_segmentation_tpu_torch.tools import train as train_cli
 from dat_segmentation_tpu_torch.tools.reference_schema import save_reference, to_reference
 from dat_segmentation_tpu_torch.train.checkpoint import load_pretrained
-from torch_port_helpers import carry, random_variables, small_classifier, small_fpn
+from torch_port_helpers import (ShapeInit, carry, jax_reference_keys, random_variables,
+                                small_classifier, small_fpn)
 
 ROOT = Path(__file__).resolve().parent.parent
 ADE_TINY = ROOT / "tests" / "data" / "ade20k_tiny"
@@ -284,35 +284,6 @@ def test_export_and_convert_clis(fpn, tmp_path, monkeypatch, capsys):
     assert "palette" not in srv.meta  # 8 classes: no ADE20K names or colours
 
 
-class _ShapeInit:
-    """A JAX model whose ``init`` gives zeros of the variables' shapes
-    (traced, not compiled: eager init compiles op by op for half a
-    minute here). The JAX CLI overwrites every one of them with the
-    checkpoint (its report: nothing missing)."""
-
-    def __init__(self, model):
-        self._model = model
-
-    def init(self, *args, **kwargs):
-        shapes = jax.eval_shape(functools.partial(self._model.init, **kwargs), *args)
-        return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), shapes)
-
-    def __getattr__(self, name):
-        return getattr(self._model, name)
-
-
-def _jax_reference_keys(state):
-    """mmseg's FPNHead keys as the JAX converter reads them
-    (tests/test_torch_checkpoint.py: ``scale_heads.{i}.{2k}`` there,
-    ``.{k}`` here)."""
-    def rename(key):
-        m = re.match(r"decode_head\.scale_heads\.(\d+)\.(\d+)\.(.*)", key)
-        return key if m is None else (
-            f"decode_head.scale_heads.{m.group(1)}.{int(m.group(2)) // 2}.{m.group(3)}")
-
-    return {rename(k): v for k, v in state.items()}
-
-
 def test_show_and_format_dirs_match_the_jax_cli(tmp_path, monkeypatch):
     """Both CLIs on one mmseg-schema .pth of a 150-class small FPN, the
     first two fixture images at img_scale (128, 64), float32 on both sides
@@ -327,7 +298,7 @@ def test_show_and_format_dirs_match_the_jax_cli(tmp_path, monkeypatch):
     model = build_model(small.model, device="cpu")
     pth = save_reference(model, small.model, tmp_path / "m.pth")
     jax_pth = tmp_path / "m_jax.pth"
-    torch.save({"state_dict": _jax_reference_keys(to_reference(model.state_dict(),
+    torch.save({"state_dict": jax_reference_keys(to_reference(model.state_dict(),
                                                                 small.model))}, jax_pth)
     monkeypatch.setattr(test_cli, "load_config", lambda name: small)
     monkeypatch.setattr(test_cli, "SegInferencer",
@@ -341,7 +312,7 @@ def test_show_and_format_dirs_match_the_jax_cli(tmp_path, monkeypatch):
     jax_test_cli = importlib.import_module("tools.test")
     jax_train_cli = importlib.import_module("tools.train")
     build = jax_models.build_model
-    monkeypatch.setattr(jax_models, "build_model", lambda c: _ShapeInit(build(c)))
+    monkeypatch.setattr(jax_models, "build_model", lambda c: ShapeInit(build(c)))
     jax_small = dataclasses.replace(
         jax_get_config("fpn_tiny_80k_dp04_lr2"), model=small_fpn(jax_get_config, num_classes=150))
     jax_small = dataclasses.replace(jax_small, data=dataclasses.replace(jax_small.data,

@@ -10,6 +10,8 @@ machine without it.
 """
 
 import dataclasses
+import functools
+import re
 
 import numpy as np
 import torch
@@ -159,3 +161,35 @@ def jax_apply(module, variables, *args, **kwargs):
 def port_apply(module, *args, **kwargs):
     with torch.no_grad():
         return module(*(torch.from_numpy(np.asarray(a)) for a in args), **kwargs)
+
+
+class ShapeInit:
+    """A JAX model whose ``init`` gives zeros of the variables' shapes
+    (traced, not compiled: eager init compiles op by op for half a
+    minute here). The JAX test CLI overwrites every one of them with the
+    checkpoint (its report: nothing missing)."""
+
+    def __init__(self, model):
+        self._model = model
+
+    def init(self, *args, **kwargs):
+        import jax
+        import jax.numpy as jnp
+
+        shapes = jax.eval_shape(functools.partial(self._model.init, **kwargs), *args)
+        return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), shapes)
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+
+def jax_reference_keys(state):
+    """mmseg's FPNHead keys as the JAX converter reads them
+    (tests/test_torch_checkpoint.py: ``scale_heads.{i}.{2k}`` there,
+    ``.{k}`` here)."""
+    def rename(key):
+        m = re.match(r"decode_head\.scale_heads\.(\d+)\.(\d+)\.(.*)", key)
+        return key if m is None else (
+            f"decode_head.scale_heads.{m.group(1)}.{int(m.group(2)) // 2}.{m.group(3)}")
+
+    return {rename(k): v for k, v in state.items()}
