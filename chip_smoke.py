@@ -14,7 +14,8 @@ line each:
 1. device: the card's name and power limit (as nvidia-smi gives them),
    the torch, CUDA and nvcc versions.
 2. build: every CUDA source of the port, built at once (one nvcc each,
-   the attribution variants of K1 and K2 beside them), with the
+   the attribution variants of K1 and K2 beside them; K1's and K2's
+   checks of phase 3 run while K3's nvcc, the longest, finishes), with the
    registers, spills and shared memory ptxas and the launchers report;
    K1's and K2's resident blocks and warps an SM at each stage's table
    (bf16 must reach 16 warps for K1, 8 for K2); K3's tile, shared memory,
@@ -53,7 +54,8 @@ line each:
    port) and the least time the card could take; the forward at batch 16
    in bf16 (ms/img, img/s, peak memory), with ``kernel_impl`` 'auto' and
    'pallas' in turns, and profiles of where their device time goes.
-7. train_model: the full-width, full-depth DAT-T++ UperNet with its FCN
+7. train_model (run after 4, before 5): the full-width, full-depth
+   DAT-T++ UperNet with its FCN
    auxiliary head (preset upn_tiny_160k_dp03_lr6, 150 classes) from a
    fixed seed takes one float32 train step (TF32 off, drop path and
    dropout 0) on a 2x512x512 batch: the kernel path on the card against a
@@ -111,8 +113,10 @@ line each:
    entries 512x512 and 512x704, the artifact within 1e-3 relative of
    ``SegInferencer.forward_batch``), and with ``--no-portable`` on a
    ``'pallas'`` config (batch 1), each carrying its kernels' ``sm_90a``
-   libraries; both served in two fresh processes (beside the classifier's
-   exports) that import only ``dat_segmentation_tpu_torch.serving`` (no
+   libraries; each served in two fresh processes, started as soon as it
+   is written (beside the next export, the classifier's exports and the
+   mesh phases' processes, 17b-17d), that import only
+   ``dat_segmentation_tpu_torch.serving`` (no
    ``models`` module may be loaded there), each from a copy of the package
    without ``_build/``: once stripped of the libraries, so that the loader
    builds them with nvcc, and once as exported where nvcc cannot be found
@@ -182,24 +186,36 @@ line each:
    replicated, fsdp and fsdp with ``use_checkpoint`` (28 K1 and 14 K2
    launches a step, its first loss the fsdp step's); the train CLI under
    torchrun, started by ``tools/launch_multihost.sh`` (one node, one card).
+   Its gloo ranks, the torchrun CLI and the one-process references start
+   once K1 and K2 are built and run beside phases 3, 4 and 7 (which time
+   nothing; 7 runs before 5), done before phase 5; the NCCL rank runs in
+   its place, after 16.
 17b-17d run their legs in two spawns of gloo ranks on the one card, one of
-   two ranks and one of four (``axis_phases``), the one-process references
-   computed meanwhile; 17b and 17c at the backbone depths ``AXIS_DEPTHS``
-   (2, 2, 2, 2: 5 'D' blocks, 8 in all), 17d at the preset's.
+   two ranks and one of four, and the one-process references in a process
+   of their own, all started at once beside the export phase (10b) and
+   done before its times (``axis_start``); 17b and 17c at the backbone
+   depths ``AXIS_DEPTHS`` (2, 2, 2, 2: 5 'D' blocks, 8 in all), 17d at the
+   preset's.
 17b. model_axis: fsdp='model' (tensor parallelism, ``parallel/
    model_axis.py``), the flagship at full width (the recipe's drop path
    and dropout), float32, TF32 off, a global batch of two (scale_out's
-   rows 0 and 3): two ranks on {data: 1, model: 2} with 'auto', 'pallas'
-   and in float64, four on {data: 2, model: 2} with 'auto'; each step
+   rows 0 and 3): two ranks on {data: 1, model: 2} with 'auto', 'pallas',
+   in float64 and with the composite modes (``modes``: stage 0's
+   continuous bias, one offset group, on K1/K2, stages 1-3 in dwc_pe,
+   log_cpb and fixed_pe, split by offset group: ``AXIS_MODES``), four on
+   {data: 2, model: 2} with 'auto'; every leaf that the JAX rule shards
+   held as a split slice or as a slice gathered at use; each step
    against the one-process step: the loss, the parameters and the IoU
    counts at scale_out's gates, the gradients (gathered whole) reported in
    float32 and held in float64 (1e-9 globally, 1e-6 a leaf;
    ``AXIS_MESHES``' note says why), the ranks' gathered states equal, 5 K1
    + 5 K2 a step on each rank (+ 8 K3 with 'pallas'; the float64 leg runs
-   the attention's plain version), each
+   the attention's plain version; 1 K1 + 1 K2 with ``modes``), each
    attention call on the rank's rows and half the groups of a split stage
-   (1-3), each rank's parameter + AdamW bytes at most 0.60 of the whole,
-   peak memory beside the one-process step's. Parity and memory only:
+   (1-3), each rank's parameter + AdamW bytes at most 0.60 of the whole
+   and at most the JAX rule's share of the same model plus 0.005
+   (``jax_rule_share``, computed here: the card has no JAX), peak memory
+   beside the one-process step's. Parity and memory only:
    gloo carries the collectives through the host.
 17c. spatial_axis: each image's rows split over the mesh's spatial axis
    (``parallel/spatial.py``), against model_axis's one-process references:
@@ -227,7 +243,8 @@ line each:
    against the plain version on its inputs (K2 at each K1 launch's shapes
    on drawn inputs: FULL_MESH_LEGS' note), the halo rows each
    fetch adds on the split channels and the bytes exchanged, bytes and
-   peak memory a rank beside the one-process step's.
+   peak memory a rank beside the one-process step's, the bytes of each
+   fsdp='model' leg at most the JAX rule's share plus 0.005.
 18. pe_modes: the position-bias modes the JAX package runs in its
    composite. Each of dwc_pe, fixed_pe, log_cpb, no_off and no position
    bias on all four stages of the full flagship, float32, TF32 off: card
@@ -250,14 +267,17 @@ the card's name and power limit, and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import copy
 import itertools
 import json
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -445,6 +465,13 @@ def nvidia_smi_card() -> str:
 T_START = time.perf_counter()
 
 
+def mark(name: str) -> None:
+    """The phase starting now and the seconds since the start, on stderr: a
+    run stopped at a time limit shows where it was."""
+    print(f"chip_smoke: {name} at {time.perf_counter() - T_START:.1f} s", file=sys.stderr,
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -482,6 +509,7 @@ def main() -> int:
         return start.elapsed_time(end) / iters
 
     # ---- 1. device ----------------------------------------------------------
+    mark("1. device")
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout.strip().splitlines()
     try:
@@ -496,6 +524,7 @@ def main() -> int:
           "nvcc": nvcc[-1] if nvcc else None, "triton": has_triton})
 
     # ---- 2. build: one nvcc per source, all started together ----------------
+    mark("2. build")
     t0 = time.perf_counter()
     sources = [k["source"].rsplit("/", 1)[1] for k in KERNELS]
     builds = ([(src, ()) for src in sources] + [(da.SOURCE, d) for d in K1_VARIANTS.values()]
@@ -506,8 +535,110 @@ def main() -> int:
         cuda_build.build(*b)
         return time.perf_counter() - t
 
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        source_s = list(pool.map(build_timed, builds))
+    # K1's and K2's checks run while K3's nvcc, the longest, still runs
+    pool = concurrent.futures.ThreadPoolExecutor(len(builds))
+    futures = [pool.submit(build_timed, b) for b in builds]
+    k3_build = futures[sources.index(xb.SOURCE)]
+    for f in futures:
+        if f is not k3_build:
+            f.result()
+
+    # ---- 17. scale_out, started: its ranks, the torchrun CLI ('auto': K1
+    # and K2) and their references beside phases 3, 4 and 7, which time
+    # nothing ------------------------------------------------------------
+    mark("17. scale_out: started")
+    scale_run = scale_out_start(torch, np, dev)
+    atexit.register(scale_out_stop, scale_run)
+
+    # ---- stage geometry of the flagship at 512x512 ---------------------------
+    cfg = get_config(PRESET).model
+    bb = cfg.backbone
+    stages = stage_geometry(bb, IMG)
+    scale = 32 ** -0.5
+
+    def k1_inputs(B, g, h_g, Cg, H, W, Ns, th, dtype, pos_range=1.0, seed=SEED, **_):
+        rng = np.random.RandomState(seed)
+        arrs = [rng.randn(B * g, H, W, Cg) * 0.5, rng.randn(B * g, Ns, Cg) * 0.5,
+                rng.randn(B * g, Ns, Cg) * 0.5,
+                rng.uniform(-pos_range, pos_range, (B * g, Ns, 2)),
+                rng.randn(g, h_g, th, th) * 0.1]
+        t = [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrs]
+        return t[0].to(dtype), t[1].to(dtype), t[2].to(dtype), t[3], t[4].to(dtype)
+
+    # ---- 3. kernel_check ----------------------------------------------------
+    mark("3. kernel_check")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [dict(s, B=2, what=f"T++ stage {s['stage']}") for s in stages]
+    cases.append(dict(B=2, g=2, h_g=3, Cg=96, H=64, W=64, Ns=256, th=55,
+                      what="S++ stage 1 (h_g 3, Cg 96)"))
+    cases.append(dict(stages[2], B=2, pos_range=1.2, what="T++ stage 2, pos ~ U(-1.2, 1.2)"))
+    cases.append(dict(stages[1], B=2, pos_range=3.0,
+                      what="T++ stage 1, pos ~ U(-3, 3) (taps wholly outside the table)"))
+    cases.append(dict(B=2, g=2, h_g=2, Cg=64, H=32, W=32, Ns=49, th=55, hn=28, wn=28,
+                      what="queries padded 28 -> 32 (hn = wn = 28), Ns 49"))
+    cases += [dict(B=2, g=1, h_g=2, Cg=64, H=CROP // 4, W=CROP // 4, Ns=289, th=111,
+                   what="stage 0 of a 544x544 crop, Ns 289"),
+              dict(B=1, g=1, h_g=2, Cg=64, H=224, W=299, Ns=1064, th=111,
+                   what="stage 0 of a 896x1195 image, Ns 1064 (K1 in chunks)")]
+    max_err = max_lse_err = 0.0
+    for c in cases:
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            q, k, v, pos, table = k1_inputs(dtype=dtype, **c)
+            kw = dict(n_groups=c["g"], scale=scale, hn=c.get("hn", 0), wn=c.get("wn", 0))
+            with torch.inference_mode():
+                got = da.deform_attn(q, k, v, pos, table, **kw)
+                ref, ref_lse = da.deform_attn_reference(q, k, v, pos, table, return_lse=True,
+                                                        **kw)
+                # the launch a training forward makes: with the log-sum-exp
+                got_t, lse = da._fwd_kernel(q, k, v, pos, table, kw["n_groups"], scale,
+                                            kw["hn"], kw["wn"], with_lse=True)
+                torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse.float()).abs().max().item()
+            same = torch.equal(got, got_t)
+            max_err, max_lse_err = max(max_err, err), max(max_lse_err, lse_err)
+            emit({"phase": "kernel_check", "card": card, "kernel": "deform_attn_fwd",
+                  "case": c["what"], "dtype": str(dtype).split(".")[1],
+                  "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
+                  "samples_a_chunk": da.fwd_chunk(dtype, c["Ns"], c["th"], c["th"]),
+                  "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+                  "tol_lse": TOL_LSE, "serving_output_equals_training_launch": same})
+            check(err <= tol and got.shape == ref.shape,
+                  f"kernel_check {c['what']} {dtype}: {err} > {tol}")
+            check(lse_err <= TOL_LSE, f"kernel_check K1 lse {c['what']} {dtype}: {lse_err}")
+            check(same, f"kernel_check K1 {c['what']} {dtype}: the log-sum-exp launch moved "
+                        "the output")
+
+    # K2: all five gradients against autograd of the plain version
+    max_err_bwd = max_rel_bwd = 0.0
+    for c in cases:
+        for dtype, tol in ((torch.float32, TOL_BWD_F32), (torch.bfloat16, TOL_BWD_BF16)):
+            q, k, v, pos, table = k1_inputs(dtype=dtype, **c)
+            dout = torch.tensor(np.random.RandomState(SEED + 9).randn(*q.shape),
+                                dtype=torch.float32, device=dev).to(dtype)
+            kw = dict(n_groups=c["g"], scale=scale, hn=c.get("hn", 0), wn=c.get("wn", 0))
+            got = da.deform_attn_bwd(q, k, v, pos, table, dout, **kw)
+            ref = da.deform_attn_bwd_reference(q, k, v, pos, table, dout, **kw)
+            torch.cuda.synchronize()
+            errs, rel = {}, {}
+            for name, a, b in zip(GRADS, got, ref):
+                errs[name] = (a.float() - b.float()).abs().max().item()
+                rel[name] = errs[name] / max(b.float().abs().max().item(), 1e-12)
+            max_err_bwd = max(max_err_bwd, *errs.values())
+            max_rel_bwd = max(max_rel_bwd, *rel.values())
+            emit({"phase": "kernel_check", "card": card, "kernel": "deform_attn_bwd",
+                  "case": c["what"], "dtype": str(dtype).split(".")[1], "q": list(q.shape),
+                  "table": list(table.shape), "max_abs_err": errs, "max_rel_err": rel,
+                  "tol_rel": tol})
+            check(max(rel.values()) <= tol
+                  and all(a.shape == b.shape for a, b in zip(got, ref)),
+                  f"kernel_check K2 {c['what']} {dtype}: {rel} > {tol}")
+
+    # K3's build done: every source's line, the SASS of each
+    mark("2. build: K3's nvcc done")
+    source_s = [f.result() for f in futures]
+    pool.shutdown()
     build_s = time.perf_counter() - t0
     for src, own_s in zip(sources, source_s):
         log = cuda_build.build_log(src)
@@ -593,92 +724,10 @@ def main() -> int:
     check(all(t["tile"][0] > 0 and t["blocks_per_sm"] > 0 for t in k3_tiles),
           "build: a K3 width without a tile that fits the card")
 
-    # ---- stage geometry of the flagship at 512x512 ---------------------------
-    cfg = get_config(PRESET).model
-    bb = cfg.backbone
-    stages = stage_geometry(bb, IMG)
-    scale = 32 ** -0.5
     xb_bound = x_block_bound(cfg.backbone, stages, card)
     emit(xb_bound)
 
-    def k1_inputs(B, g, h_g, Cg, H, W, Ns, th, dtype, pos_range=1.0, seed=SEED, **_):
-        rng = np.random.RandomState(seed)
-        arrs = [rng.randn(B * g, H, W, Cg) * 0.5, rng.randn(B * g, Ns, Cg) * 0.5,
-                rng.randn(B * g, Ns, Cg) * 0.5,
-                rng.uniform(-pos_range, pos_range, (B * g, Ns, 2)),
-                rng.randn(g, h_g, th, th) * 0.1]
-        t = [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrs]
-        return t[0].to(dtype), t[1].to(dtype), t[2].to(dtype), t[3], t[4].to(dtype)
-
-    # ---- 3. kernel_check ----------------------------------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cases = [dict(s, B=2, what=f"T++ stage {s['stage']}") for s in stages]
-    cases.append(dict(B=2, g=2, h_g=3, Cg=96, H=64, W=64, Ns=256, th=55,
-                      what="S++ stage 1 (h_g 3, Cg 96)"))
-    cases.append(dict(stages[2], B=2, pos_range=1.2, what="T++ stage 2, pos ~ U(-1.2, 1.2)"))
-    cases.append(dict(stages[1], B=2, pos_range=3.0,
-                      what="T++ stage 1, pos ~ U(-3, 3) (taps wholly outside the table)"))
-    cases.append(dict(B=2, g=2, h_g=2, Cg=64, H=32, W=32, Ns=49, th=55, hn=28, wn=28,
-                      what="queries padded 28 -> 32 (hn = wn = 28), Ns 49"))
-    cases += [dict(B=2, g=1, h_g=2, Cg=64, H=CROP // 4, W=CROP // 4, Ns=289, th=111,
-                   what="stage 0 of a 544x544 crop, Ns 289"),
-              dict(B=1, g=1, h_g=2, Cg=64, H=224, W=299, Ns=1064, th=111,
-                   what="stage 0 of a 896x1195 image, Ns 1064 (K1 in chunks)")]
-    max_err = max_lse_err = 0.0
-    for c in cases:
-        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-            q, k, v, pos, table = k1_inputs(dtype=dtype, **c)
-            kw = dict(n_groups=c["g"], scale=scale, hn=c.get("hn", 0), wn=c.get("wn", 0))
-            with torch.inference_mode():
-                got = da.deform_attn(q, k, v, pos, table, **kw)
-                ref, ref_lse = da.deform_attn_reference(q, k, v, pos, table, return_lse=True,
-                                                        **kw)
-                # the launch a training forward makes: with the log-sum-exp
-                got_t, lse = da._fwd_kernel(q, k, v, pos, table, kw["n_groups"], scale,
-                                            kw["hn"], kw["wn"], with_lse=True)
-                torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            lse_err = (lse - ref_lse.float()).abs().max().item()
-            same = torch.equal(got, got_t)
-            max_err, max_lse_err = max(max_err, err), max(max_lse_err, lse_err)
-            emit({"phase": "kernel_check", "card": card, "kernel": "deform_attn_fwd",
-                  "case": c["what"], "dtype": str(dtype).split(".")[1],
-                  "q": list(q.shape), "k": list(k.shape), "table": list(table.shape),
-                  "samples_a_chunk": da.fwd_chunk(dtype, c["Ns"], c["th"], c["th"]),
-                  "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
-                  "tol_lse": TOL_LSE, "serving_output_equals_training_launch": same})
-            check(err <= tol and got.shape == ref.shape,
-                  f"kernel_check {c['what']} {dtype}: {err} > {tol}")
-            check(lse_err <= TOL_LSE, f"kernel_check K1 lse {c['what']} {dtype}: {lse_err}")
-            check(same, f"kernel_check K1 {c['what']} {dtype}: the log-sum-exp launch moved "
-                        "the output")
-
-    # K2: all five gradients against autograd of the plain version
-    max_err_bwd = max_rel_bwd = 0.0
-    for c in cases:
-        for dtype, tol in ((torch.float32, TOL_BWD_F32), (torch.bfloat16, TOL_BWD_BF16)):
-            q, k, v, pos, table = k1_inputs(dtype=dtype, **c)
-            dout = torch.tensor(np.random.RandomState(SEED + 9).randn(*q.shape),
-                                dtype=torch.float32, device=dev).to(dtype)
-            kw = dict(n_groups=c["g"], scale=scale, hn=c.get("hn", 0), wn=c.get("wn", 0))
-            got = da.deform_attn_bwd(q, k, v, pos, table, dout, **kw)
-            ref = da.deform_attn_bwd_reference(q, k, v, pos, table, dout, **kw)
-            torch.cuda.synchronize()
-            errs, rel = {}, {}
-            for name, a, b in zip(GRADS, got, ref):
-                errs[name] = (a.float() - b.float()).abs().max().item()
-                rel[name] = errs[name] / max(b.float().abs().max().item(), 1e-12)
-            max_err_bwd = max(max_err_bwd, *errs.values())
-            max_rel_bwd = max(max_rel_bwd, *rel.values())
-            emit({"phase": "kernel_check", "card": card, "kernel": "deform_attn_bwd",
-                  "case": c["what"], "dtype": str(dtype).split(".")[1], "q": list(q.shape),
-                  "table": list(table.shape), "max_abs_err": errs, "max_rel_err": rel,
-                  "tol_rel": tol})
-            check(max(rel.values()) <= tol
-                  and all(a.shape == b.shape for a, b in zip(got, ref)),
-                  f"kernel_check K2 {c['what']} {dtype}: {rel} > {tol}")
-
+    mark("3. kernel_check: K3")
     # K3: both modes at the four T++ stage shapes (batch 2), the four S++
     # widths, the four B++ widths in both modes, no LPU, a rectangular image,
     # sides that are not multiples of the tile, windows 3, 5 and 9; each
@@ -722,6 +771,7 @@ def main() -> int:
             check(same, f"kernel_check K3 {c['what']} {dtype}: two launches differ")
 
     # ---- 4. model: kernel path on the card vs the plain path on the CPU ------
+    mark("4. model")
     torch.manual_seed(SEED)
     model = build_model(cfg, device=dev)
     image = torch.tensor(np.random.RandomState(SEED + 1).randn(1, IMG, IMG, 3),
@@ -772,7 +822,95 @@ def main() -> int:
           f"model f32 pallas: launches (K3, K1) {fused_launches}, want {(n_x, n_d)}")
     del cpu_fused
 
+    # ---- 7. train_model: one float32 step, kernel path vs plain path ---------
+    mark("7. train_model")
+    from dat_segmentation_tpu_torch import create_train_state, make_train_step
+
+    ucfg = get_config(TRAIN_PRESET)
+    mc = ucfg.model
+
+    def no_warmup(model_cfg):
+        return replace(ucfg, model=model_cfg, schedule=replace(ucfg.schedule, warmup_iters=0))
+
+    def seg_batch(B, seed, device, size=IMG):
+        rng = np.random.RandomState(seed)
+        label = rng.randint(0, mc.num_classes, (B, size, size))
+        label[rng.rand(B, size, size) < 0.05] = 255
+        return {"image": torch.tensor(rng.randn(B, size, size, 3), dtype=torch.float32,
+                                      device=device),
+                "label": torch.tensor(label, dtype=torch.long, device=device)}
+
+    quiet = replace(
+        mc, backbone=replace(mc.backbone, drop_path_rate=0.0),
+        decode_head=replace(mc.decode_head, kwargs={**mc.decode_head.kwargs, "dropout_ratio": 0.0}),
+        auxiliary_head=replace(mc.auxiliary_head,
+                               kwargs={**mc.auxiliary_head.kwargs, "dropout_ratio": 0.0}),
+    )
+    for impl in ("auto", "pallas"):
+        qcfg = replace(quiet, backbone=replace(quiet.backbone, kernel_impl=impl))
+        torch.manual_seed(SEED)
+        gmodel = build_model(qcfg, device=dev)
+        cmodel = copy.deepcopy(gmodel).cpu()
+        b2 = seg_batch(2, SEED + 4, "cpu")
+        runs = {}
+        for where, m in (("card", gmodel), ("cpu", cmodel)):
+            st = create_train_state(m, no_warmup(qcfg))
+            stp = make_train_step(m, aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
+                                  compute_dtype=torch.float32)
+            da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
+            t0 = time.perf_counter()
+            _, met = stp(st, b2)
+            if where == "card":
+                torch.cuda.synchronize()
+            runs[where] = dict(metrics={k: v.cpu() for k, v in met.items()},
+                               seconds=time.perf_counter() - t0,
+                               launches=(da.deform_attn.launches, da.deform_attn_bwd.launches),
+                               k3=xb.x_block_fwd.launches)
+        gm, cm = runs["card"]["metrics"], runs["cpu"]["metrics"]
+        loss_rel = abs(gm["loss"].item() - cm["loss"].item()) / abs(cm["loss"].item())
+        grad_rel, worst, off, per_param, gsq = grad_compare(gmodel, cmodel)
+        bn_err = max((b.cpu() - cb).abs().max().item()
+                     for (n, b), (_, cb) in zip(gmodel.named_buffers(), cmodel.named_buffers())
+                     if n.endswith(("running_mean", "running_var")))
+        iou_diff = int((gm["inter"] - cm["inter"]).abs().sum() + (gm["union"] - cm["union"]).abs().sum())
+        pixels = b2["label"].numel()
+        n_d = sum(s["launches_per_forward"] for s in stages)
+        emit({"phase": "train_model", "card": card, "preset": TRAIN_PRESET, "dtype": "float32",
+              "kernel_impl": impl, "x_block_fwd_launches": runs["card"]["k3"],
+              "tf32": False, "batch": list(b2["image"].shape), "drop_path": 0.0, "dropout": 0.0,
+              "loss_card": gm["loss"].item(), "loss_cpu": cm["loss"].item(), "loss_rel_err": loss_rel,
+              "grad_rel_err": grad_rel, "worst_param": worst[2],
+              "worst_param_rel_err": worst[0] / max(worst[1], 1e-30),
+              "worst_param_grad_norm": worst[1], "grad_norm_total": gsq ** 0.5,
+              "largest_grad_errs": [{"param": n, "abs": d, "norm": g}
+                                    for d, g, n in sorted(per_param, reverse=True)[:6]],
+              "bn_stats_max_abs_err": bn_err, "iou_counts_equal": iou_diff == 0,
+              "iou_count_abs_diff": iou_diff, "pixels": pixels,
+              "launches": {"deform_attn_fwd": runs["card"]["launches"][0],
+                           "deform_attn_bwd": runs["card"]["launches"][1]},
+              "card_step_s": runs["card"]["seconds"], "cpu_step_s": runs["cpu"]["seconds"],
+              "beside": "scale_out's ranks and torchrun CLI",
+              "tol": {"loss": TOL_TRAIN_LOSS, "grad": TOL_GRAD, "grad_param": TOL_GRAD_PARAM,
+                      "bn": TOL_BN}})
+        check(loss_rel <= TOL_TRAIN_LOSS, f"train_model {impl}: loss rel err {loss_rel} > {TOL_TRAIN_LOSS}")
+        check(grad_rel <= TOL_GRAD, f"train_model {impl}: grad rel err {grad_rel} > {TOL_GRAD}")
+        check(not off, f"train_model {impl}: gradients beyond {TOL_GRAD_PARAM}: {off}")
+        check(bn_err <= TOL_BN, f"train_model {impl}: BN statistics off by {bn_err} > {TOL_BN}")
+        # argmax near-ties may flip under float32 rounding: a few pixels, never more
+        check(iou_diff <= 1e-4 * pixels, f"train_model {impl}: IoU counts differ by {iou_diff}")
+        check(runs["card"]["launches"] == (n_d, n_d),
+              f"train_model {impl}: launches {runs['card']['launches']}, want ({n_d}, {n_d})")
+        check(runs["card"]["k3"] == (n_x if impl == "pallas" else 0),
+              f"train_model {impl}: {runs['card']['k3']} K3 launches")
+        del gmodel, cmodel, runs
+        torch.cuda.empty_cache()
+
+    # ---- 17. scale_out's processes done before anything is timed -----------
+    mark("17. scale_out: waiting for its processes")
+    scale_out_wait(scale_run)
+
     # ---- 5. serve: the main path, counts set to 0 just before ---------------
+    mark("5. serve")
     server = SegInferencer(model, num_classes=cfg.num_classes, device=dev)
     rng = np.random.RandomState(SEED + 2)
     requests = [rng.randn(SERVE_BATCH, IMG, IMG, 3).astype(np.float32)
@@ -875,6 +1013,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. times -------------------------------------------------------------
+    mark("6. times")
     def k1_stage_time(s, B):
         """K1 at one stage's shapes, batch B, bf16: ms (and its attribution
         build's), the plain version's, one SDPA with the bias prebuilt, and
@@ -1033,88 +1172,8 @@ def main() -> int:
     del server, model, pserver, pmodel, servers, x16
     torch.cuda.empty_cache()
 
-    # ---- 7. train_model: one float32 step, kernel path vs plain path ---------
-    from dat_segmentation_tpu_torch import create_train_state, make_train_step
-
-    ucfg = get_config(TRAIN_PRESET)
-    mc = ucfg.model
-
-    def no_warmup(model_cfg):
-        return replace(ucfg, model=model_cfg, schedule=replace(ucfg.schedule, warmup_iters=0))
-
-    def seg_batch(B, seed, device, size=IMG):
-        rng = np.random.RandomState(seed)
-        label = rng.randint(0, mc.num_classes, (B, size, size))
-        label[rng.rand(B, size, size) < 0.05] = 255
-        return {"image": torch.tensor(rng.randn(B, size, size, 3), dtype=torch.float32,
-                                      device=device),
-                "label": torch.tensor(label, dtype=torch.long, device=device)}
-
-    quiet = replace(
-        mc, backbone=replace(mc.backbone, drop_path_rate=0.0),
-        decode_head=replace(mc.decode_head, kwargs={**mc.decode_head.kwargs, "dropout_ratio": 0.0}),
-        auxiliary_head=replace(mc.auxiliary_head,
-                               kwargs={**mc.auxiliary_head.kwargs, "dropout_ratio": 0.0}),
-    )
-    for impl in ("auto", "pallas"):
-        qcfg = replace(quiet, backbone=replace(quiet.backbone, kernel_impl=impl))
-        torch.manual_seed(SEED)
-        gmodel = build_model(qcfg, device=dev)
-        cmodel = copy.deepcopy(gmodel).cpu()
-        b2 = seg_batch(2, SEED + 4, "cpu")
-        runs = {}
-        for where, m in (("card", gmodel), ("cpu", cmodel)):
-            st = create_train_state(m, no_warmup(qcfg))
-            stp = make_train_step(m, aux_weight=mc.aux_loss_weight, num_classes=mc.num_classes,
-                                  compute_dtype=torch.float32)
-            da.deform_attn.launches = da.deform_attn_bwd.launches = xb.x_block_fwd.launches = 0
-            t0 = time.perf_counter()
-            _, met = stp(st, b2)
-            if where == "card":
-                torch.cuda.synchronize()
-            runs[where] = dict(metrics={k: v.cpu() for k, v in met.items()},
-                               seconds=time.perf_counter() - t0,
-                               launches=(da.deform_attn.launches, da.deform_attn_bwd.launches),
-                               k3=xb.x_block_fwd.launches)
-        gm, cm = runs["card"]["metrics"], runs["cpu"]["metrics"]
-        loss_rel = abs(gm["loss"].item() - cm["loss"].item()) / abs(cm["loss"].item())
-        grad_rel, worst, off, per_param, gsq = grad_compare(gmodel, cmodel)
-        bn_err = max((b.cpu() - cb).abs().max().item()
-                     for (n, b), (_, cb) in zip(gmodel.named_buffers(), cmodel.named_buffers())
-                     if n.endswith(("running_mean", "running_var")))
-        iou_diff = int((gm["inter"] - cm["inter"]).abs().sum() + (gm["union"] - cm["union"]).abs().sum())
-        pixels = b2["label"].numel()
-        n_d = sum(s["launches_per_forward"] for s in stages)
-        emit({"phase": "train_model", "card": card, "preset": TRAIN_PRESET, "dtype": "float32",
-              "kernel_impl": impl, "x_block_fwd_launches": runs["card"]["k3"],
-              "tf32": False, "batch": list(b2["image"].shape), "drop_path": 0.0, "dropout": 0.0,
-              "loss_card": gm["loss"].item(), "loss_cpu": cm["loss"].item(), "loss_rel_err": loss_rel,
-              "grad_rel_err": grad_rel, "worst_param": worst[2],
-              "worst_param_rel_err": worst[0] / max(worst[1], 1e-30),
-              "worst_param_grad_norm": worst[1], "grad_norm_total": gsq ** 0.5,
-              "largest_grad_errs": [{"param": n, "abs": d, "norm": g}
-                                    for d, g, n in sorted(per_param, reverse=True)[:6]],
-              "bn_stats_max_abs_err": bn_err, "iou_counts_equal": iou_diff == 0,
-              "iou_count_abs_diff": iou_diff, "pixels": pixels,
-              "launches": {"deform_attn_fwd": runs["card"]["launches"][0],
-                           "deform_attn_bwd": runs["card"]["launches"][1]},
-              "card_step_s": runs["card"]["seconds"], "cpu_step_s": runs["cpu"]["seconds"],
-              "tol": {"loss": TOL_TRAIN_LOSS, "grad": TOL_GRAD, "grad_param": TOL_GRAD_PARAM,
-                      "bn": TOL_BN}})
-        check(loss_rel <= TOL_TRAIN_LOSS, f"train_model {impl}: loss rel err {loss_rel} > {TOL_TRAIN_LOSS}")
-        check(grad_rel <= TOL_GRAD, f"train_model {impl}: grad rel err {grad_rel} > {TOL_GRAD}")
-        check(not off, f"train_model {impl}: gradients beyond {TOL_GRAD_PARAM}: {off}")
-        check(bn_err <= TOL_BN, f"train_model {impl}: BN statistics off by {bn_err} > {TOL_BN}")
-        # argmax near-ties may flip under float32 rounding: a few pixels, never more
-        check(iou_diff <= 1e-4 * pixels, f"train_model {impl}: IoU counts differ by {iou_diff}")
-        check(runs["card"]["launches"] == (n_d, n_d),
-              f"train_model {impl}: launches {runs['card']['launches']}, want ({n_d}, {n_d})")
-        check(runs["card"]["k3"] == (n_x if impl == "pallas" else 0),
-              f"train_model {impl}: {runs['card']['k3']} K3 launches")
-        del gmodel, cmodel, runs
-        torch.cuda.empty_cache()
-
     # ---- 8. train: the main path, counts set to 0 just before ----------------
+    mark("8. train")
     cfg_train = no_warmup(mc)
     torch.manual_seed(SEED)
     model = build_model(mc, device=dev)
@@ -1252,6 +1311,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. train times: K2 per stage, the step, its profile ------------------
+    mark("9. train times")
     btot = {}
     for s in stages:
         row = k2_stage_time(s, TIME_BATCH)
@@ -1291,6 +1351,7 @@ def main() -> int:
           "peak_mem_gib": speak})
 
     # ---- 10. eval: ADE20K val to mIoU through the port's test CLI ----------
+    mark("10. eval")
     import shutil
     import tempfile
 
@@ -1298,34 +1359,44 @@ def main() -> int:
     eval_launches, eval_ckpt = eval_phase(torch, np, card, dev, get_config(PRESET), n_d, work)
 
     # ---- 10c. exact_eval: exact padded inference, bucket-batched eval ---------
+    mark("10c. exact_eval")
     exact_launches = exact_eval_phase(torch, np, card, dev, eval_ckpt, n_d, timed)
 
-    # ---- 10b. export: torch.export artifacts, served without the model code --
-    export_launches = export_phase(torch, np, card, dev, eval_ckpt, work, n_d, n_x, timed)
-    shutil.rmtree(work, ignore_errors=True)
-
-    # ---- 11. train_loop: the seg trainer through the train CLI --------------
+    # ---- 10b. export: torch.export artifacts, served without the model code;
+    # 17b-d's processes beside it, up to its times --------------------------
+    mark("10b. export, 17b-d's processes beside it")
     del steps, step, state, model, pstep, pstate, pmodel, b16
     torch.cuda.empty_cache()
+    refs = Path(tempfile.mkdtemp(prefix="axis_refs_"))
+    axis_run = axis_start(torch, np, refs)
+    try:
+        export_launches = export_phase(torch, np, card, dev, eval_ckpt, work, n_d, n_x, timed,
+                                       settle=lambda: axis_wait(axis_run))
+        shutil.rmtree(work, ignore_errors=True)
+        # ---- 17b-d. model_axis, spatial_axis, full_mesh: the mesh's axes -------
+        mark("17b-d. model_axis, spatial_axis, full_mesh")
+        axis_launches, spatial_launches, full_launches = axis_phases(
+            torch, card, axis_run, n_d, n_x)
+    finally:
+        axis_kill(axis_run)
+        shutil.rmtree(refs, ignore_errors=True)
+
+    # ---- 11. train_loop: the seg trainer through the train CLI --------------
+    mark("11. train_loop")
     loop_launches = train_loop_phase(torch, np, card, n_d, n_x)
 
     # ---- 12-16. the classifier slice ----------------------------------------
+    mark("12-16. the classifier slice")
     cls_launches = cls_phases(torch, np, card, dev, dict(
         timed=timed, k1_inputs=k1_inputs, k1_stage_time=k1_stage_time,
         k2_stage_time=k2_stage_time, add_stage=add_stage))
 
     # ---- 17. scale_out: the step over processes --------------------------------
-    scale_launches = scale_out_phase(torch, np, card, dev, n_d, timed)
-
-    # ---- 17b-d. model_axis, spatial_axis, full_mesh: the mesh's axes -----------
-    refs = Path(tempfile.mkdtemp(prefix="axis_refs_"))
-    try:
-        axis_launches, spatial_launches, full_launches = axis_phases(
-            torch, np, card, dev, n_d, n_x, refs)
-    finally:
-        shutil.rmtree(refs, ignore_errors=True)
+    mark("17. scale_out")
+    scale_launches = scale_out_phase(torch, np, card, dev, n_d, timed, scale_run)
 
     # ---- 18. pe_modes: the other position-bias modes --------------------------
+    mark("18. pe_modes")
     pe_launches = pe_modes_phase(torch, np, card, dev, timed)
 
     # ---- kernels line, card, verdict ----------------------------------------
@@ -1343,6 +1414,7 @@ def main() -> int:
                               **cls_launches["deform_attn_fwd"],
                               "scale_out_rank0": scale_launches["deform_attn_fwd"],
                               "model_axis_rank0": axis_launches["deform_attn_fwd"],
+                              "model_axis_modes_rank0": axis_launches["modes"]["deform_attn_fwd"],
                               "spatial_rank0": spatial_launches["deform_attn_fwd"],
                               "full_mesh_rank0": full_launches["deform_attn_fwd"],
                               "pe_modes_mixed_serve": pe_launches["serve"],
@@ -1359,6 +1431,8 @@ def main() -> int:
                                 **cls_launches["deform_attn_bwd"],
                                 "scale_out_rank0": scale_launches["deform_attn_bwd"],
                                 "model_axis_rank0": axis_launches["deform_attn_bwd"],
+                                "model_axis_modes_rank0":
+                                    axis_launches["modes"]["deform_attn_bwd"],
                                 "spatial_rank0": spatial_launches["deform_attn_bwd"],
                                 "full_mesh_rank0": full_launches["deform_attn_bwd"],
                                 "pe_modes_mixed_train": pe_launches["train"]["deform_attn_bwd"]})
@@ -1906,15 +1980,16 @@ def fresh_serve(root: Path, spec: dict, env: dict):
     return served, proc
 
 
-def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
+def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed, settle=None):
     """10b. export: the flagship through ``tools/export.py --check`` from the
     eval phase's ``.pth`` (bf16, batch 16, entries 512x512 and 512x704, the
     second holding the 512x683 raw image), and with ``--no-portable`` on a
     ``'pallas'`` config (512x512, batch 1, ``--platforms cuda``), each
-    carrying its kernels' libraries; both artifacts served in two fresh
-    processes that import only ``serving`` (``export_worker``, run one after
-    the other while this process exports the classifier: K1's and K3's
-    launches a forward), each from a copy of the package without ``_build/``:
+    carrying its kernels' libraries; each artifact served in two fresh
+    processes that import only ``serving`` (``export_worker``, started as
+    soon as it is written, while this process exports the next one and
+    the classifier: K1's and K3's launches a forward), each from a copy of
+    the package without ``_build/``:
     once without the libraries, built at load by nvcc, and once as exported,
     where nvcc cannot be found and nothing may be built (logits and class
     maps bit for bit the first's; the seconds of the kernels' libraries
@@ -1923,8 +1998,10 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
     ``SegInferencer.forward_batch`` and ``predict_semseg`` against the live
     class maps; the classifier exported at 224² (batches 1 and 128) against
     the live ``DatClassifier``; the artifact's and the live model's ms a
-    batch of 16, in turns. Returns the launches of the forwards served
-    without nvcc (portable: K1; 'pallas': K3)."""
+    batch of 16, in turns, after ``settle()`` (the work beside this phase
+    done: every second before it may have shared the card and the cores).
+    Returns the launches of the forwards served without nvcc (portable:
+    K1; 'pallas': K3)."""
     import dataclasses
     import os
     import shutil
@@ -1946,6 +2023,26 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
             "pallas": ([f"{IMG}x{IMG}"], 1, ["--no-portable", "--platforms", "cuda", "--set",
                                              "model.backbone.kernel_impl=pallas"])}
     entry = {key: f"seg_{IMG}x{IMG}_b{b}" for key, (_, b, _) in runs.items()}
+    # the fresh processes: each artifact without the model code, from a copy
+    # of the package without _build/, in two processes started as soon as
+    # the artifact is written (the next export and the classifier's run
+    # meanwhile). "built": the artifact without its kernel libraries, whose
+    # kernels the loader builds at load (nvcc); "carried": the artifact as
+    # exported, where nvcc cannot be found (no directory of PATH holds it,
+    # CUDA_HOME an empty directory)
+    rng = np.random.RandomState(SEED + 11)
+    x16 = rng.randn(TIME_BATCH, IMG, IMG, 3).astype(np.float32)
+    inputs = {"portable": x16, "pallas": x16[:1]}
+    raw = rng.randint(0, 256, (*PREDICT_HW, 3)).astype(np.uint8)
+    np.save(work / "raw.npy", raw)
+    pkg = Path(cuda_build.CSRC).parent
+    empty = work / "empty_cuda_home"
+    empty.mkdir()
+    path = [d for d in os.environ.get("PATH", "").split(":") if d and not (Path(d) / "nvcc").exists()]
+    envs = {"built": dict(os.environ),
+            "carried": dict(os.environ, CUDA_HOME=str(empty), PATH=":".join(path))}
+    pool = concurrent.futures.ThreadPoolExecutor(len(envs) * len(runs))
+    art_bytes, roots, specs, fresh, t_fresh = {}, {}, {}, {}, None
     for key, (shapes, batch, extra) in runs.items():
         t0 = time.perf_counter()
         device = [] if "--platforms" in extra else ["--device", str(dev)]
@@ -1958,24 +2055,10 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
               "cli_wall_s": time.perf_counter() - t0, "tol_rel": EXPORT_TOL_REL})
         for name, e in summary["entries"].items():
             check(e["kernels"] == want_k, f"export {key} {name}: kernels {e['kernels']}, want {want_k}")
-
-    # the fresh processes: the artifacts without the model code, each from a
-    # copy of the package without _build/, one after the other in the
-    # background. "built": each artifact without its kernel libraries, whose
-    # kernels the loader builds at load (nvcc); "carried": the artifacts as
-    # exported, where nvcc cannot be found (no directory of PATH holds it,
-    # CUDA_HOME an empty directory)
-    rng = np.random.RandomState(SEED + 11)
-    x16 = rng.randn(TIME_BATCH, IMG, IMG, 3).astype(np.float32)
-    inputs = {"portable": x16, "pallas": x16[:1]}
-    raw = rng.randint(0, 256, (*PREDICT_HW, 3)).astype(np.uint8)
-    np.save(work / "raw.npy", raw)
-    art_bytes, bare = {}, {}
-    for key, d in arts.items():
+        d = arts[key]
         np.save(work / f"x_{key}.npy", inputs[key])
         meta = json.loads((d / "meta.json").read_text())
         libs = meta.pop("kernel_libraries", [])
-        want_k = ["dat::deform_attn_fwd"] + (["dat::x_block_fwd"] if key == "pallas" else [])
         check([lib["op"] for lib in libs] == want_k
               and all(lib["digest"] == cuda_build.digest(lib["source"])
                       and lib["arch"] == cuda_build.ARCH for lib in libs),
@@ -1984,29 +2067,22 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
         kernels = sum(f.stat().st_size for f in (d / "kernels").glob("*"))
         art_bytes[key] = {"with_kernels": total, "without_kernels": total - kernels,
                           "kernels": {lib["op"]: lib["bytes"] for lib in libs}}
-        bare[key] = work / f"{d.name}_bare"
-        shutil.copytree(d, bare[key], ignore=shutil.ignore_patterns("kernels", "meta.json"),
+        bare = work / f"{d.name}_bare"
+        shutil.copytree(d, bare, ignore=shutil.ignore_patterns("kernels", "meta.json"),
                         copy_function=os.link)
-        (bare[key] / "meta.json").write_text(json.dumps(meta))
-    pkg = Path(cuda_build.CSRC).parent
-    empty = work / "empty_cuda_home"
-    empty.mkdir()
-    path = [d for d in os.environ.get("PATH", "").split(":") if d and not (Path(d) / "nvcc").exists()]
-    envs = {"built": dict(os.environ),
-            "carried": dict(os.environ, CUDA_HOME=str(empty), PATH=":".join(path))}
-    roots, specs = {}, {}
-    for mode in envs:
-        roots[mode] = root = work / f"fresh_{mode}"
-        shutil.copytree(pkg, root / pkg.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        shutil.copy(Path(__file__).resolve(), root / "chip_smoke.py")
-        jobs = {key: {"dir": str(arts[key] if mode == "carried" else bare[key]),
-                      "entry": entry[key], "input": str(work / f"x_{key}.npy"),
-                      "logits": str(root / f"y_{key}.npy")} for key in arts}
-        jobs["portable"].update(raw=str(work / "raw.npy"), map=str(root / "map.npy"))
-        specs[mode] = {"jobs": jobs}
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    t_fresh = time.perf_counter()
-    fresh = {mode: pool.submit(fresh_serve, roots[mode], specs[mode], envs[mode]) for mode in envs}
+        (bare / "meta.json").write_text(json.dumps(meta))
+        mark(f"10b. export: the fresh processes of {key}")
+        t_fresh = t_fresh or time.perf_counter()
+        for mode in envs:
+            roots[mode, key] = root = work / f"fresh_{mode}_{key}"
+            shutil.copytree(pkg, root / pkg.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+            shutil.copy(Path(__file__).resolve(), root / "chip_smoke.py")
+            job = {"dir": str(d if mode == "carried" else bare), "entry": entry[key],
+                   "input": str(work / f"x_{key}.npy"), "logits": str(root / f"y_{key}.npy")}
+            if key == "portable":
+                job.update(raw=str(work / "raw.npy"), map=str(root / "map.npy"))
+            specs[mode, key] = {"jobs": {key: job}}
+            fresh[mode, key] = pool.submit(fresh_serve, root, specs[mode, key], envs[mode])
 
     # meanwhile, the classifier: batch 1 and the cls phase's batch, 224²
     ccfg = get_config(CLS_PRESET).model
@@ -2047,49 +2123,54 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
         merge_pretrained(m, state, verbose=False)
         lives[key] = SegInferencer(m, num_classes=cfg.num_classes, device=dev)
         del m
-    results = {mode: f.result() for mode, f in fresh.items()}
+    results = {mk: f.result() for mk, f in fresh.items()}
     pool.shutdown()
     fresh_s = time.perf_counter() - t_fresh
-    served = {}
-    for mode, (out, proc) in results.items():
-        check(proc.returncode == 0,
-              f"export fresh process ({mode}): rc {proc.returncode}: {proc.stderr[-2000:]}")
-        served[mode] = out or {}
-        modules = served[mode].get("modules", [])
+    served = {}  # (mode, artifact) -> the fresh process's line
+    for (mode, key), (out, proc) in results.items():
+        what = f"export fresh process ({mode} {key})"
+        check(proc.returncode == 0, f"{what}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+        served[mode, key] = got = out or {}
+        modules = got.get("modules", [])
         model_code = [m for m in modules if m.startswith("dat_segmentation_tpu_torch.models")
                       or m.split(".")[0] == "dat_segmentation_tpu"]
-        check(bool(modules) and not model_code, f"export fresh process ({mode}) imported {model_code}")
-        check(served[mode].get("package", "").startswith(str(roots[mode].resolve())),
-              f"export fresh process ({mode}): the package from {served[mode].get('package')}")
-    built, carried = served["built"], served["carried"]
-    check(built.get("nvcc") is not None and bool(built.get("build_files")),
-          f"export built: nvcc {built.get('nvcc')}, built {built.get('build_files')}")
-    check(carried.get("nvcc") is None and carried.get("build_files") == [],
-          f"export carried: nvcc {carried.get('nvcc')}, _build/ holds {carried.get('build_files')}")
+        check(bool(modules) and not model_code, f"{what} imported {model_code}")
+        check(got.get("package", "").startswith(str(roots[mode, key].resolve())),
+              f"{what}: the package from {got.get('package')}")
+        if mode == "built":
+            check(got.get("nvcc") is not None and bool(got.get("build_files")),
+                  f"{what}: nvcc {got.get('nvcc')}, built {got.get('build_files')}")
+        else:
+            check(got.get("nvcc") is None and got.get("build_files") == [],
+                  f"{what}: nvcc {got.get('nvcc')}, _build/ holds {got.get('build_files')}")
     launches = {}
     for key in arts:
         want = lives[key].forward_batch(inputs[key])
-        y = {mode: np.load(specs[mode]["jobs"][key]["logits"]) if served[mode] else None
-             for mode in served}
-        got = torch.from_numpy(y["built"]).to(dev) if served["built"] else want + 1
+        y = {mode: np.load(specs[mode, key]["jobs"][key]["logits"]) if served[mode, key] else None
+             for mode in envs}
+        got = torch.from_numpy(y["built"]).to(dev) if y["built"] is not None else want + 1
         rel = float((got - want).abs().max() / want.abs().max())
-        n = {mode: served[mode].get(key, {}).get("launches", {}) for mode in served}
+        n = {mode: served[mode, key].get(key, {}).get("launches", {}) for mode in envs}
         launches[key] = n["carried"]
         want_n = {"deform_attn_fwd": n_d, "x_block_fwd": n_x if key == "pallas" else 0}
         same = y["built"] is not None and y["carried"] is not None and np.array_equal(
             y["built"], y["carried"])
+        carried = served["carried", key]
         emit({"phase": "export", "card": card, "part": f"served {key}", "entry": entry[key],
               "fresh_processes_s_beside_the_classifier": fresh_s,
-              "kernel_libraries_s": {mode: served[mode].get(key, {}).get("kernels_s")
-                                     for mode in served},
-              "first_call_s": {mode: served[mode].get(key, {}).get("first_call_s")
-                               for mode in served},
+              "fresh_processes": "one an artifact and mode, each started once its artifact "
+                                 "was written",
+              "beside_all": "the mesh phases' processes (17b-17d)" if settle else None,
+              "kernel_libraries_s": {mode: served[mode, key].get(key, {}).get("kernels_s")
+                                     for mode in envs},
+              "first_call_s": {mode: served[mode, key].get(key, {}).get("first_call_s")
+                               for mode in envs},
               "launches_per_forward": n, "want": want_n, "rel_vs_forward_batch": rel,
               "bit_equal_forward_batch": bool(torch.equal(got, want)),
               "bit_equal_built_carried": bool(same), "artifact_bytes": art_bytes[key],
               "carried_nvcc": carried.get("nvcc"), "carried_build_files": carried.get("build_files"),
               "tol_rel": EXPORT_TOL_REL})
-        for mode in served:
+        for mode in envs:
             check(n[mode] == want_n, f"export served {key} ({mode}): launches {n[mode]}, want {want_n}")
         check(rel <= EXPORT_TOL_REL, f"export served {key}: rel {rel} vs forward_batch")
         check(same, f"export served {key}: the carried libraries' logits differ from the built ones'")
@@ -2109,26 +2190,32 @@ def export_phase(torch, np, card, dev, ckpt, work, n_d, n_x, timed):
         same = resize_bilinear(live.forward_batch(padded)[:1], (eh, ew))[0, :h, :w]
         same = same.argmax(-1).to(torch.int32).cpu().numpy()
     whole = live.predict(raw)
-    maps = {mode: np.load(roots[mode] / "map.npy") if served[mode]
-            else np.full((h, w), -1, np.int32) for mode in served}
+    maps = {mode: np.load(roots[mode, "portable"] / "map.npy") if served[mode, "portable"]
+            else np.full((h, w), -1, np.int32) for mode in envs}
     got_map = maps["built"]
     share_padded = float((got_map != same).mean())
     share_whole = float((got_map != whole).mean())
-    map_entry = built.get("portable", {}).get("map_entry")
+    map_entry = served["built", "portable"].get("portable", {}).get("map_entry")
     emit({"phase": "export", "card": card, "part": "predict_semseg", "raw_hw": list(PREDICT_HW),
           "entry": map_entry, "share_differing_live_padded": share_padded,
           "equal_live_padded": share_padded == 0.0,
           "share_differing_live_whole_true_shape": share_whole,
           "tol_share_padded": EVAL_BATCH_SHARE, "equal_carried_built": bool(
               np.array_equal(maps["carried"], got_map)),
-          "modules_of_the_fresh_processes": {m: served[m].get("modules") for m in served}})
+          "modules_of_the_fresh_processes": {f"{m} {k}": got.get("modules")
+                                             for (m, k), got in served.items()}})
     check(map_entry == f"seg_{eh}x{ew}_b{TIME_BATCH}", f"export predict_semseg: entry {map_entry}")
     check(np.array_equal(maps["carried"], got_map),
           "export predict_semseg: the carried libraries' class map differs from the built one's")
     check(share_padded <= EVAL_BATCH_SHARE,
           f"export predict_semseg: {share_padded} of pixels differ from the live padded forward")
 
-    # the artifact and the live model at batch 16, in turns
+    # the artifact and the live model at batch 16, in turns, once the work
+    # beside this phase is done
+    if settle is not None:
+        mark("10b. export: waiting for the work beside it")
+        settle()
+    mark("10b. export: its times")
     srv = ServingModel.load(arts["portable"])
     xt = torch.from_numpy(x16).to(dev)
     fns = {"artifact": lambda: srv(entry["portable"], xt), "live": lambda: live.forward_batch(xt)}
@@ -2543,6 +2630,7 @@ def cls_phases(torch, np, card, dev, h):
             return MixupDraws(**CLS_DRAWS)
 
     # ---- 12. cls_kernel_check: K1 and K2 at the classifier's four stages ----
+    mark("12. cls_kernel_check")
     t0 = time.perf_counter()
     for s in stages:
         for dtype, tol, btol in ((torch.float32, TOL_F32, TOL_BWD_F32),
@@ -2583,6 +2671,7 @@ def cls_phases(torch, np, card, dev, h):
     emit({"phase": "cls_kernel_check", "card": card, "seconds": time.perf_counter() - t0})
 
     # ---- 13. cls_model: float32, TF32 off, card against CPU -----------------
+    mark("13. cls_model")
     quiet = replace(mc, backbone=replace(mc.backbone, drop_path_rate=0.0))
     rng = np.random.RandomState(SEED + 11)
     image = torch.tensor(rng.randn(CLS_MODEL_BATCH, CLS_IMG, CLS_IMG, 3), dtype=torch.float32)
@@ -2655,6 +2744,7 @@ def cls_phases(torch, np, card, dev, h):
     torch.cuda.empty_cache()
 
     # ---- 14. cls_serve: the bf16 forward and metric step at batch 128 -------
+    mark("14. cls_serve")
     torch.manual_seed(SEED)
     models = {impl: build_model(with_impl(mc, impl), device=dev) for impl in ("auto", "pallas")}
     models["pallas"].load_state_dict(models["auto"].state_dict())
@@ -2712,6 +2802,7 @@ def cls_phases(torch, np, card, dev, h):
     torch.cuda.empty_cache()
 
     # ---- 15. cls_train: the preset as it is, bf16, batch 128 ----------------
+    mark("15. cls_train")
     ncfg = replace(tcfg, schedule=replace(tcfg.schedule, warmup_iters=0))
     torch.manual_seed(SEED)
     steps = {}
@@ -2809,6 +2900,7 @@ def cls_phases(torch, np, card, dev, h):
     torch.cuda.empty_cache()
 
     # ---- 16. cls_loop: the classifier trainer through the train CLI ---------
+    mark("16. cls_loop")
     loop = cls_loop_phase(torch, np, card, n_d, reset, counts)
     emit({"phase": "cls_phases", "card": card, "seconds": time.perf_counter() - t_phase})
     out = {name: {} for name in ("deform_attn_fwd", "deform_attn_bwd", "x_block_fwd")}
@@ -3193,11 +3285,26 @@ def scale_rank(rank, world, tmp):
 
 
 def free_port() -> int:
+    """A localhost port that is free now, the first below the kernel's
+    ephemeral range (``ip_local_port_range``; it may start as low as
+    16000): a port from the range (a bind to port 0) is also handed to
+    other sockets' connects and binds, so it can be taken before torchrun
+    binds it (EADDRINUSE); below the range only an explicit bind takes a
+    port."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    for port in range(low - 1, 1023, -1):
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError(f"no free localhost port below {low}")
 
 
 def fixture_layout(root, copies):
@@ -3216,14 +3323,15 @@ def fixture_layout(root, copies):
     return root
 
 
-def scale_out_phase(torch, np, card, dev, n_d, timed):
-    """17. scale_out (see the module docstring). Returns K1's and K2's
-    launches in rank 0's step of the two-rank run (counts set to 0 just
-    before, in that process)."""
+def scale_out_start(torch, np, dev):
+    """17. scale_out, started early (``main`` runs phases that time nothing
+    beside it): the fixture's splits, two gloo ranks (``scale_rank``), the
+    train CLI under torchrun by the launcher (one NCCL rank), and here the
+    one-process references the ranks wait for (the eval and the float32
+    step on the whole global batch). Returns the run's state for
+    ``scale_out_wait``, ``scale_out_stop`` and ``scale_out_phase``."""
     import os
-    import shutil
     import tempfile
-    from dataclasses import replace
 
     import torch.multiprocessing as mp
 
@@ -3231,53 +3339,132 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
     from dat_segmentation_tpu_torch import make_train_step
     from dat_segmentation_tpu_torch.data.ade20k import ADE20KDataset
     from dat_segmentation_tpu_torch.eval.evaluate import evaluate_dataset
+
+    # float32 parity against the gloo ranks (which turn TF32 off too)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = {"t0": time.perf_counter(), "tmp": Path(tempfile.mkdtemp(prefix="scale_out_")),
+           "ctx": None, "cli": None, "cli_rc": None, "cli_s": None, "waited_s": None}
+    tmp = run["tmp"]
+    try:
+        fixture_layout(tmp / "data", LOOP_COPIES)
+        torch.cuda.empty_cache()
+        run["ctx"] = mp.start_processes(scale_rank, args=(2, str(tmp)), nprocs=2,
+                                        start_method="spawn", join=False)
+        # the train CLI under torchrun, one NCCL rank, by the launcher
+        cmd = ["bash", LAUNCHER, TRAIN_PRESET, str(tmp / "data"), "--work-dir",
+               str(tmp / "torchrun"), "--max-iters", str(SCALE_TORCHRUN_ITERS), "--set",
+               *SCALE_SETS]
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "NODE_RANK", "MASTER_ADDR"):
+            env.pop(k, None)
+        # the launcher runs python3 from PATH: this interpreter's
+        env.update(NNODES="1", GPUS_PER_NODE="1", MASTER_PORT=str(free_port()),
+                   PATH=f"{Path(sys.executable).parent}:{env.get('PATH', '')}")
+        t_cli = time.perf_counter()
+        with open(tmp / "torchrun.err", "w") as err:
+            cli = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=err, env=env,
+                                   cwd=Path(__file__).resolve().parent, start_new_session=True)
+        run.update(cmd=cmd, cli=cli)
+
+        def watch():  # the CLI's exit code and seconds, when it ends
+            run["cli_rc"] = cli.wait()
+            run["cli_s"] = time.perf_counter() - t_cli
+
+        run["cli_watch"] = threading.Thread(target=watch, daemon=True)
+        run["cli_watch"].start()
+        run["t_cli"] = t_cli
+        # the one-process step on the whole global batch (no group), meanwhile
+        cfg = scale_cfg()
+        mc = cfg.model
+        torch.manual_seed(SEED)
+        model = build_model(mc, device=dev)
+        inf = SegInferencer(model, num_classes=mc.num_classes, compute_dtype=torch.float32,
+                            device=dev)
+        run["one_eval"] = evaluate_dataset(inf, ADE20KDataset(str(tmp / "data"), "val"),
+                                           num_classes=mc.num_classes, verbose=False)
+        del inf
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, aux_weight=mc.aux_loss_weight,
+                               num_classes=mc.num_classes, compute_dtype=torch.float32)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in scale_batch(np, mc).items()}
+        _, met = step(state, batch)
+        torch.save({"loss": met["loss"], "inter": met["inter"], "union": met["union"],
+                    "grads": {n: p.grad for n, p in model.named_parameters()
+                              if p.grad is not None},
+                    "params": dict(model.named_parameters())}, tmp / "ref.pt")
+        (tmp / "ref.done").touch()
+        run["one_loss"] = met["loss"].item()
+        del model, state, step, batch, met
+        torch.cuda.empty_cache()
+    except BaseException:
+        scale_out_stop(run)
+        raise
+    return run
+
+
+def scale_out_stop(run) -> None:
+    """Kill what of ``scale_out_start``'s run still runs and remove its
+    files; again at once."""
+    import os
+    import shutil
+
+    if run["ctx"] is not None:
+        for p in run["ctx"].processes:
+            if p.is_alive():
+                p.kill()
+    cli = run["cli"]
+    if cli is not None and cli.poll() is None:
+        os.killpg(cli.pid, signal.SIGKILL)
+        cli.wait()
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+
+
+def scale_out_wait(run) -> None:
+    """Wait for ``scale_out_start``'s gloo ranks (killed, and a
+    ``TimeoutError``, 600 s after the start) and its torchrun CLI (killed
+    400 s after its start); at once if done."""
+    import os
+
+    if run["waited_s"] is not None:
+        return
+    try:
+        end = run["t0"] + 600
+        while not run["ctx"].join(timeout=5):
+            if time.perf_counter() > end:
+                raise TimeoutError("scale_out: the two ranks still run after 600 s")
+        run["cli_watch"].join(timeout=max(1.0, 400 - (time.perf_counter() - run["t_cli"])))
+        if run["cli_watch"].is_alive():
+            os.killpg(run["cli"].pid, signal.SIGKILL)
+            run["cli_watch"].join()
+    except BaseException:
+        scale_out_stop(run)
+        raise
+    run["waited_s"] = time.perf_counter() - run["t0"]
+
+
+def scale_out_phase(torch, np, card, dev, n_d, timed, started):
+    """17. scale_out (see the module docstring) on ``scale_out_start``'s
+    run: its lines and gates, then the NCCL rank in this process. Returns
+    K1's and K2's launches in rank 0's step of the two-rank run (counts set
+    to 0 just before, in that process)."""
+    import os
+    from dataclasses import replace
+
+    from dat_segmentation_tpu_torch import build_model, create_train_state, make_train_step
     from dat_segmentation_tpu_torch.ops import deform_attn as da
     from dat_segmentation_tpu_torch.parallel import destroy_distributed, init_distributed
     from dat_segmentation_tpu_torch.parallel import mesh
 
-    # float32 parity against the gloo ranks (which turn TF32 off too): set here,
-    # so that the phase holds when it runs alone
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
-    tmp = Path(tempfile.mkdtemp(prefix="scale_out_"))
+    tmp = started["tmp"]
     try:
-        fixture_layout(tmp / "data", LOOP_COPIES)
-        torch.cuda.empty_cache()
-        ctx = mp.start_processes(scale_rank, args=(2, str(tmp)), nprocs=2, start_method="spawn",
-                                 join=False)
-        try:
-            # the one-process step on the whole global batch (no group), meanwhile
-            cfg = scale_cfg()
-            mc = cfg.model
-            torch.manual_seed(SEED)
-            model = build_model(mc, device=dev)
-            inf = SegInferencer(model, num_classes=mc.num_classes, compute_dtype=torch.float32,
-                                device=dev)
-            one_eval = evaluate_dataset(inf, ADE20KDataset(str(tmp / "data"), "val"),
-                                        num_classes=mc.num_classes, verbose=False)
-            del inf
-            state = create_train_state(model, cfg)
-            step = make_train_step(model, aux_weight=mc.aux_loss_weight,
-                                   num_classes=mc.num_classes, compute_dtype=torch.float32)
-            batch = {k: torch.as_tensor(v).to(dev) for k, v in scale_batch(np, mc).items()}
-            _, met = step(state, batch)
-            torch.save({"loss": met["loss"], "inter": met["inter"], "union": met["union"],
-                        "grads": {n: p.grad for n, p in model.named_parameters()
-                                  if p.grad is not None},
-                        "params": dict(model.named_parameters())}, tmp / "ref.pt")
-            (tmp / "ref.done").touch()
-            one_loss = met["loss"].item()
-            del model, state, step, batch, met
-            torch.cuda.empty_cache()
-            end = time.time() + 600
-            while not ctx.join(timeout=10):
-                if time.time() > end:
-                    raise TimeoutError("scale_out: the two ranks still run after 600 s")
-        except BaseException:
-            for p in ctx.processes:
-                p.kill()
-            raise
+        scale_out_wait(started)
+        cfg = scale_cfg()
+        mc = cfg.model
+        one_eval, one_loss = started["one_eval"], started["one_loss"]
         ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
         r0, r1 = ranks
         rel = [r["vs_one_process"] for r in ranks]
@@ -3332,6 +3519,25 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
                                and r["eval"]["union"] == one_eval["union"] for r in ranks],
               "seconds": [r["eval"]["seconds"] for r in ranks]})
 
+        rc, cli_s, cmd = started["cli_rc"], started["cli_s"], started["cmd"]
+        run_dir = tmp / "torchrun" / TRAIN_PRESET
+        log = (run_dir / "train.log").read_text() if (run_dir / "train.log").exists() else ""
+        losses = [float(x) for x in re.findall(r"loss=([-0-9.naif]+)", log)]
+        names = sorted(p.name for p in run_dir.glob("ckpt_*")) if run_dir.exists() else []
+        emit({"phase": "scale_out", "card": card, "part": "torchrun train CLI, one NCCL rank",
+              "command": "NNODES=1 GPUS_PER_NODE=1 " + " ".join(cmd[:3]) + " ...",
+              "rc": rc, "seconds": cli_s, "beside": "the gloo ranks and phases 3-4, 7",
+              "losses": losses,
+              "checkpoints": names, "val_lines": [ln for ln in log.splitlines() if "val mIoU" in ln],
+              "stderr_tail": (tmp / "torchrun.err").read_text()[-1500:] if rc else ""})
+        check(rc == 0, f"scale_out: torchrun train CLI rc {rc}")
+        check(len(losses) == SCALE_TORCHRUN_ITERS and all(np.isfinite(losses)),
+              f"scale_out: torchrun losses {losses}")
+        check({"ckpt_2", "ckpt_4", "ckpt_best"} <= set(names),
+              f"scale_out: torchrun checkpoints {names}")
+        check(any("val mIoU" in ln for ln in log.splitlines()), "scale_out: no in-run val")
+
+        mark("17. scale_out: one NCCL rank")
         # -- one NCCL rank in this process: fsdp against replicated, the cost
         # of the machinery against the plain step, the gradient all-reduce --
         def join():
@@ -3468,46 +3674,23 @@ def scale_out_phase(torch, np, card, dev, n_d, timed):
                                       "loss_step1_fsdp": fsdp_loss, "loss_rel": ck_rel},
               "note": "world 1: NCCL reduces over one card; NCCL across cards is unmeasured"})
 
-        # -- the train CLI under torchrun, one NCCL rank, by the launcher ------
-        work = tmp / "torchrun"
-        cmd = ["bash", LAUNCHER, TRAIN_PRESET, str(tmp / "data"), "--work-dir", str(work),
-               "--max-iters", str(SCALE_TORCHRUN_ITERS), "--set", *SCALE_SETS]
-        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
-        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "NODE_RANK", "MASTER_ADDR"):
-            env.pop(k, None)
-        # the launcher runs python3 from PATH: this interpreter's
-        env.update(NNODES="1", GPUS_PER_NODE="1", MASTER_PORT=str(free_port()),
-                   PATH=f"{Path(sys.executable).parent}:{env.get('PATH', '')}")
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=400, env=env,
-                              cwd=Path(__file__).resolve().parent)
-        cli_s = time.perf_counter() - t0
-        run_dir = work / TRAIN_PRESET
-        log = (run_dir / "train.log").read_text() if (run_dir / "train.log").exists() else ""
-        losses = [float(x) for x in re.findall(r"loss=([-0-9.naif]+)", log)]
-        names = sorted(p.name for p in run_dir.glob("ckpt_*")) if run_dir.exists() else []
-        emit({"phase": "scale_out", "card": card, "part": "torchrun train CLI, one NCCL rank",
-              "command": "NNODES=1 GPUS_PER_NODE=1 " + " ".join(cmd[:3]) + " ...",
-              "rc": proc.returncode,
-              "seconds": cli_s, "losses": losses, "checkpoints": names,
-              "val_lines": [ln for ln in log.splitlines() if "val mIoU" in ln],
-              "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})
-        check(proc.returncode == 0, f"scale_out: torchrun train CLI rc {proc.returncode}")
-        check(len(losses) == SCALE_TORCHRUN_ITERS and all(np.isfinite(losses)),
-              f"scale_out: torchrun losses {losses}")
-        check({"ckpt_2", "ckpt_4", "ckpt_best"} <= set(names),
-              f"scale_out: torchrun checkpoints {names}")
-        check(any("val mIoU" in ln for ln in log.splitlines()), "scale_out: no in-run val")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    emit({"phase": "scale_out", "card": card, "seconds": time.perf_counter() - t_phase})
+        scale_out_stop(started)
+    emit({"phase": "scale_out", "card": card, "seconds": time.perf_counter() - t_phase,
+          "started_s_before": t_phase - started["t0"],
+          "ranks_and_cli_s_to_the_wait": started["waited_s"]})
     return r0["step"]["launches"]
 
 
 # ---- 17b. model_axis: tensor parallelism over the mesh's model axis ----------
 AXIS_ROWS = (0, SCALE_BATCH - 1)  # scale_batch's rows: data coordinate 1's 90% ignored
-AXIS_MESHES = (({"data": 1, "model": 2}, ("auto", "pallas", "float64")),
+AXIS_MESHES = (({"data": 1, "model": 2}, ("auto", "pallas", "float64", "modes")),
                ({"data": 2, "model": 2}, ("auto",)))
+# the modes leg's position-bias mode a stage: stage 0's continuous bias (one
+# offset group: whole, K1 and K2), the composite on stages 1-3, split by group
+AXIS_MODES = ("continuous", "dwc_pe", "log_cpb", "fixed_pe")
+JAX_MIN_SIZE = 2 ** 14  # the JAX fsdp_sharding's min_size
+JAX_SHARE_SLACK = 0.005  # a rank's bytes share may exceed the JAX rule's by this much
 # The model and spatial axis phases run the flagship at full width and this
 # depth (every stage with both block kinds, every split of the attention:
 # 5 'D' blocks, 8 in all), against one-process references at the same
@@ -3530,6 +3713,21 @@ TOL_AXIS_F64_GRAD = 1e-9
 TOL_AXIS_F64_LEAF = 1e-6
 
 
+def jax_rule_share(model, size):
+    """The share of ``model``'s parameter bytes that one device holds under
+    the JAX package's ``fsdp_sharding`` over an axis of ``size`` (a leaf of
+    ``JAX_MIN_SIZE`` elements or more with a dim that divides by ``size``
+    sharded, the rest replicated): computed here, as the card has no JAX.
+    AdamW's moments follow their parameters, so it is their share too."""
+    whole = held = 0
+    for p in model.parameters():
+        nbytes = p.numel() * p.element_size()
+        shard = p.numel() >= JAX_MIN_SIZE and any(d % size == 0 for d in p.shape)
+        whole += nbytes
+        held += nbytes / size if shard else nbytes
+    return held / whole
+
+
 def axis_batch(np, mc):
     """The split steps' global batch of two: one row of each of scale_batch's
     halves."""
@@ -3540,10 +3738,17 @@ def mesh_leg(name, fsdp, mesh, check=False, depths=None):
     """A leg of the mesh phases: the step ``name`` on ``mesh`` with ``fsdp``
     at the backbone's ``depths`` (None: the preset's). 'pallas' runs K3,
     'float64' the step in float64 with the attention's plain version,
-    'ckpt' and 'fsdp_ckpt' ``use_checkpoint``; ``check``: ``mesh_rank``'s."""
+    'ckpt' and 'fsdp_ckpt' ``use_checkpoint``, 'modes' the stages in
+    ``AXIS_MODES``; ``check``: ``mesh_rank``'s."""
     return {"key": f"{name} {mesh_tag(mesh)}", "name": name, "mesh": mesh, "fsdp": fsdp,
             "impl": "pallas" if name == "pallas" else "auto", "depths": depths,
-            "ckpt": name in ("ckpt", "fsdp_ckpt"), "check": check}
+            "ckpt": name in ("ckpt", "fsdp_ckpt"), "check": check,
+            "modes": AXIS_MODES if name == "modes" else None}
+
+
+def ref_impl(leg):
+    """The one-process reference (``axis_refs``' impl) a leg is held to."""
+    return leg["name"] if leg["name"] in ("float64", "modes") else leg["impl"]
 
 
 def mesh_tag(mesh):
@@ -3570,8 +3775,8 @@ def mesh_rank(rank, world, tmp, tag, legs):
     ('pallas') against the plain version on its inputs, and a K2 launch at
     each K1 launch's shapes on drawn inputs (FULL_MESH_LEGS' note; not
     counted among the launches). The result to ``tmp/<tag>rank<r>.pt``.
-    Spawned by ``run_ranks`` for the model_axis, spatial_axis and full_mesh
-    phases (``axis_phases``)."""
+    Spawned by ``axis_start`` for the model_axis, spatial_axis and full_mesh
+    phases."""
     import collections
     import gc
     import hashlib
@@ -3659,6 +3864,8 @@ def mesh_rank(rank, world, tmp, tag, legs):
         cfg = scale_cfg(leg["depths"])
         mc = replace(cfg.model, backbone=replace(cfg.model.backbone, kernel_impl=impl,
                                                  use_checkpoint=leg["ckpt"]))
+        if leg["modes"]:
+            mc = with_modes(mc, leg["modes"])
         cfg = replace(cfg, model=mc, fsdp=fsdp, mesh_shape=leg["mesh"])
         real_attn = da.deform_attn_reference if f64 else route
         torch.manual_seed(SEED)
@@ -3698,7 +3905,7 @@ def mesh_rank(rank, world, tmp, tag, legs):
                "param_bytes": nbytes(model.parameters()),
                "adamw_bytes": nbytes([t for s in state.optimizer.state.values()
                                       for t in s.values() if torch.is_tensor(t) and t.ndim])}
-        path = ref_path(tmp, "float64" if f64 else impl, leg["depths"])
+        path = ref_path(tmp, ref_impl(leg), leg["depths"])
         end = time.time() + 300
         while not path.with_suffix(".done").exists():
             if time.time() > end:
@@ -3759,13 +3966,15 @@ def mesh_rank(rank, world, tmp, tag, legs):
     torch.save(out, tmp / f"{tag}rank{rank}.pt")
 
 
-def axis_refs(torch, np, dev, tmp, depths=None):
+def axis_refs(torch, np, dev, tmp, depths=None, modes=False):
     """The one-process float32 ('auto', 'pallas') and float64 steps of the
-    flagship at ``depths`` (None: the preset's) on ``axis_batch``, each
-    written to ``ref_path`` (then ``.done``) for the mesh phases' ranks;
-    returns per impl the
-    loss, peak memory, parameter and AdamW bytes and the model axis plan's
-    parameter share at Y = 2; and under "auto_one_image" the peak of the
+    flagship at ``depths`` (None: the preset's) on ``axis_batch``, with
+    ``modes`` also the float32 step with the stages in ``AXIS_MODES``
+    ('modes'), each written to ``ref_path`` (then ``.done``) for the mesh
+    phases' ranks; returns per impl the
+    loss, peak memory, parameter and AdamW bytes, the model axis plan's
+    parameter share at Y = 2 and the JAX rule's (``jax_rule_share``); and
+    under "auto_one_image" the peak of the
     'auto' step on the batch's first image alone (the pixels a rank of
     {data: 1, spatial: 2} holds). A peak leaves out what this process held
     before (earlier phases' tensors), as a rank's fresh process holds
@@ -3783,9 +3992,12 @@ def axis_refs(torch, np, dev, tmp, depths=None):
     whole = {}
     held = torch.cuda.memory_allocated()
     batch = {k: torch.as_tensor(v).to(dev) for k, v in axis_batch(np, mc).items()}
-    for impl in ("auto", "pallas", "float64"):
+    for impl in ("auto", "pallas", "float64") + (("modes",) if modes else ()):
         f64 = impl == "float64"
-        pmc = replace(mc, backbone=replace(mc.backbone, kernel_impl="auto" if f64 else impl))
+        pmc = replace(mc, backbone=replace(mc.backbone,
+                                           kernel_impl="pallas" if impl == "pallas" else "auto"))
+        if impl == "modes":
+            pmc = with_modes(pmc, AXIS_MODES)
         torch.manual_seed(SEED)
         model = build_model(pmc, device=dev)
         if f64:
@@ -3820,6 +4032,7 @@ def axis_refs(torch, np, dev, tmp, depths=None):
         whole[impl]["plan_param_share"] = sum(
             p.numel() * p.element_size() / (2 if plan[n].dim is not None else 1)
             for n, p in model.named_parameters()) / whole[impl]["param_bytes"]
+        whole[impl]["jax_param_share"] = jax_rule_share(model, 2)
         del model, state, step, met
         torch.cuda.empty_cache()
     torch.manual_seed(SEED)
@@ -3837,42 +4050,34 @@ def axis_refs(torch, np, dev, tmp, depths=None):
     return whole
 
 
-def run_ranks(torch, tmp, fn, tag, world, legs, meanwhile=None, limit=600):
-    """Start ``world`` gloo ranks of ``fn(rank, world, tmp, tag, legs)`` on
-    the card, run ``meanwhile()`` here while they start, wait for them (a
-    ``TimeoutError`` after ``limit`` s) and load their results; returns
-    (``meanwhile``'s result, the ranks' results)."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.start_processes(fn, args=(world, str(tmp), tag, legs), nprocs=world,
-                             start_method="spawn", join=False)
-    try:
-        got = meanwhile() if meanwhile is not None else None
-        end = time.time() + limit
-        while not ctx.join(timeout=5):
-            if time.time() > end:
-                raise TimeoutError(f"{tag}: the {world} ranks still run after {limit} s")
-    except BaseException:
-        for p in ctx.processes:
-            p.kill()
-        raise
-    return got, [torch.load(tmp / f"{tag}rank{r}.pt", weights_only=False) for r in range(world)]
-
-
-def axis_phases(torch, np, card, dev, n_d, n_x, tmp):
-    """17b-17d: the legs of the model_axis, spatial_axis and full_mesh phases
-    in one spawn of ranks per world size (two and four; a spawn's first leg
-    costs a process start and the kernels' first loads), the one-process
-    references computed here meanwhile (``axis_refs``, at ``AXIS_DEPTHS``
-    and at the preset's depth); then each phase's lines and gates
-    (``n_d``, ``n_x``: K1 and K3 launches a step at the preset's depth).
-    Returns rank 0's launches of each phase."""
-    from dataclasses import replace
+def axis_refs_process(rank, tmp, plan):
+    """``axis_refs`` at each (depths, modes) of ``plan`` in turn, in a
+    process of its own (spawned by ``axis_start``), so that the ranks'
+    references are written while the main process works on; the figures
+    it returns to ``tmp/whole.pt``."""
+    import numpy as np
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cut = replace(scale_cfg().model.backbone, depths=AXIS_DEPTHS)
-    cut_d = sum(spec[:n].count("D") for spec, n in zip(cut.stage_spec, cut.depths))
+    tmp = Path(tmp)
+    whole = {d: axis_refs(torch, np, torch.device("cuda"), tmp, d, modes) for d, modes in plan}
+    torch.save(whole, tmp / "whole.pt")
+
+
+def axis_start(torch, np, tmp):
+    """17b-17d, started: the legs of the model_axis, spatial_axis and
+    full_mesh phases in one spawn of gloo ranks per world size (two and
+    four; a spawn's first leg costs a process start and the kernels' first
+    loads) and the one-process references in a process of their own
+    (``axis_refs_process``: at ``AXIS_DEPTHS``, then at the preset's depth,
+    the ranks waiting for each), all started at once. ``main`` runs the
+    export phase's work beside them, up to its times (``axis_wait``).
+    Returns the run's state for ``axis_wait`` and ``axis_phases``."""
+    from dataclasses import replace
+
+    import torch.multiprocessing as mp
+
     legs = [mesh_leg(name, "model", shape, depths=AXIS_DEPTHS)
             for shape, names in AXIS_MESHES for name in names]
     legs += [mesh_leg(name, name == "fsdp_ckpt", shape, depths=AXIS_DEPTHS)
@@ -3881,21 +4086,83 @@ def axis_phases(torch, np, card, dev, n_d, n_x, tmp):
     by_world = {}
     for leg in legs:
         by_world.setdefault(int(np.prod(list(leg["mesh"].values()))), []).append(leg)
-    results, whole = {}, {}
+    plan = [(d, any(leg["modes"] and leg["depths"] == d for leg in legs))
+            for d in sorted({leg["depths"] for leg in legs}, key=lambda d: d is None)]
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = {"refs": mp.start_processes(axis_refs_process, args=(str(tmp), plan), nprocs=1,
+                                        start_method="spawn", join=False)}
     for world, group in sorted(by_world.items()):
-        t0 = time.perf_counter()
-        needed = {leg["depths"] for leg in group} - set(whole)
-        refs, ranks = run_ranks(torch, tmp, mesh_rank, f"w{world}", world, group, lambda: {
-            d: axis_refs(torch, np, dev, tmp, d) for d in needed})
-        whole.update(refs)
+        procs[f"w{world}"] = mp.start_processes(mesh_rank, args=(world, str(tmp), f"w{world}", group),
+                                                nprocs=world, start_method="spawn", join=False)
+    cut = replace(scale_cfg().model.backbone, depths=AXIS_DEPTHS)
+    run = {"tmp": tmp, "by_world": by_world, "procs": procs, "t0": t0, "done_s": None,
+           "cut_d": sum(spec[:n].count("D") for spec, n in zip(cut.stage_spec, cut.depths)),
+           "used_gib_max": 0.0, "ended_s": None, "stop": threading.Event()}
+
+    def sample():  # the card's memory in use by every process, and when they end
+        while not run["stop"].wait(0.5):
+            free, total = torch.cuda.mem_get_info()
+            run["used_gib_max"] = max(run["used_gib_max"], (total - free) / 2 ** 30)
+            if run["ended_s"] is None and not any(p.is_alive() for ctx in procs.values()
+                                                  for p in ctx.processes):
+                run["ended_s"] = time.perf_counter() - t0
+
+    run["sampler"] = threading.Thread(target=sample, daemon=True)
+    run["sampler"].start()
+    return run
+
+
+def axis_kill(run) -> None:
+    """Kill every process of ``axis_start``'s run that still runs."""
+    run["stop"].set()
+    for ctx in run["procs"].values():
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def axis_wait(run, limit=600) -> None:
+    """Wait for every process of ``axis_start``'s run (killed, and a
+    ``TimeoutError``, ``limit`` s after the start); at once if done."""
+    if run["done_s"] is not None:
+        return
+    end = run["t0"] + limit
+    try:
+        for name, ctx in run["procs"].items():
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > end:
+                    raise TimeoutError(f"{name}: still running {limit} s after the start")
+    except BaseException:
+        axis_kill(run)
+        raise
+    run["done_s"] = time.perf_counter() - run["t0"]
+    run["stop"].set()
+    run["sampler"].join()
+
+
+def axis_phases(torch, card, run, n_d, n_x):
+    """17b-17d: once ``axis_start``'s processes are done, each phase's lines
+    and gates (``n_d``, ``n_x``: K1 and K3 launches a step at the preset's
+    depth). Returns rank 0's launches of each phase."""
+    axis_wait(run)
+    tmp = run["tmp"]
+    whole = torch.load(tmp / "whole.pt", weights_only=False)
+    results = {}
+    for world, group in sorted(run["by_world"].items()):
+        ranks = [torch.load(tmp / f"w{world}rank{r}.pt", weights_only=False) for r in range(world)]
         results.update({leg["key"]: [r[leg["key"]] for r in ranks] for leg in group})
         emit({"phase": "axis_ranks", "card": card, "ranks": world,
-              "legs": [leg["key"] for leg in group], "seconds": time.perf_counter() - t0,
+              "legs": [leg["key"] for leg in group],
+              "beside": "the export phase, up to its times, and the other spawn",
+              "seconds_all_processes": run["ended_s"] or run["done_s"],
+              "seconds_to_the_wait": run["done_s"],
+              "card_used_gib_max_beside_the_export": run["used_gib_max"],
               "joined_s": [r["joined_at"] - ranks[0]["joined_at"] for r in ranks],
               "leg_s_rank0": {leg["key"]: {k: ranks[0][leg["key"]][k]
                                            for k in ("setup_s", "seconds", "compare_s")}
                               for leg in group}})
+    cut_d = run["cut_d"]
     return (model_axis_report(card, whole[AXIS_DEPTHS], results, cut_d, sum(AXIS_DEPTHS)),
             spatial_axis_report(card, whole[AXIS_DEPTHS], results, cut_d, sum(AXIS_DEPTHS)),
             full_mesh_report(card, whole[None], results, n_d, n_x))
@@ -3905,9 +4172,14 @@ def model_axis_report(card, whole, results, n_d, n_x):
     """17b. model_axis (see the module docstring): its legs' lines and gates
     against ``whole`` (``axis_refs``' figures at ``AXIS_DEPTHS``; ``n_d``,
     ``n_x`` its launches a step). Returns rank 0's K1, K2 and K3 launches in
-    the {data: 1, model: 2} steps ('pallas' for K3)."""
-    geo = {s["H"]: s for s in stage_geometry(scale_cfg().model.backbone, IMG)}
+    the {data: 1, model: 2} steps ('pallas' for K3), and under "modes" the
+    modes leg's."""
+    bb = scale_cfg().model.backbone
+    geo = {s["H"]: s for s in stage_geometry(bb, IMG)}
     pixels = len(AXIS_ROWS) * IMG * IMG
+    # the modes leg's K1 blocks: the 'D' blocks of its continuous stages
+    modes_d = sum(spec[:n].count("D") for spec, n, m in zip(bb.stage_spec, AXIS_DEPTHS, AXIS_MODES)
+                  if m == "continuous")
     for shape, impls in AXIS_MESHES:
         tag = mesh_tag(shape)
         for impl in impls:
@@ -3916,7 +4188,8 @@ def model_axis_report(card, whole, results, n_d, n_x):
             w = whole[impl]
             local_bytes = [r["param_bytes"] + r["adamw_bytes"] for r in rows]
             emit({"phase": "model_axis", "card": card, "mesh": shape, "fsdp": "model",
-                  "kernel_impl": impl, "preset": TRAIN_PRESET,
+                  "kernel_impl": "auto" if impl == "modes" else impl, "leg": impl,
+                  "modes": AXIS_MODES if impl == "modes" else None, "preset": TRAIN_PRESET,
                   "dtype": "float64" if impl == "float64" else "float32", "tf32": False,
                   "backend": "gloo (ranks on one card)", "global_batch": len(AXIS_ROWS),
                   "depths": AXIS_DEPTHS, "devices": [r["device"] for r in rows],
@@ -3935,7 +4208,8 @@ def model_axis_report(card, whole, results, n_d, n_x):
                                                         for b in local_bytes],
                                      "whole": {"param": w["param_bytes"],
                                                "adamw": w["adamw_bytes"]},
-                                     "plan_param_share": w["plan_param_share"]},
+                                     "plan_param_share": w["plan_param_share"],
+                                     "jax_rule_share": w["jax_param_share"]},
                   "peak_gib_per_rank": [r["peak_gib"] for r in rows],
                   "peak_gib_one_process": w["peak_gib"],
                   "step_s": [r["seconds"] for r in rows],
@@ -3960,24 +4234,30 @@ def model_axis_report(card, whole, results, n_d, n_x):
                       f"{what}: params rel err {x['params_rel_err']} > {TOL_GRAD}")
                 check(x["iou_count_abs_diff"] <= 1e-4 * pixels,
                       f"{what}: IoU counts differ by {x['iou_count_abs_diff']}")
-                k1 = 0 if impl == "float64" else n_d  # the plain version in float64
+                # the plain version in float64; the continuous blocks only with modes
+                k1 = {"float64": 0, "modes": modes_d}.get(impl, n_d)
                 want = {"deform_attn_fwd": k1, "deform_attn_bwd": k1,
                         "x_block_fwd": n_x if impl == "pallas" else 0}
                 check(row["launches"] == want, f"{what}: launches {row['launches']}, want {want}")
                 # each K1 call on this rank's rows and, where the stage splits, half its groups
                 groups = [(len(AXIS_ROWS) // X * geo[h]["g"] // (2 if geo[h]["g"] % 2 == 0 else 1),
                            h) for _, h in row["k1_calls"]]
-                check(row["k1_calls"] == groups and len(groups) == n_d,
+                check(row["k1_calls"] == groups
+                      and len(groups) == (modes_d if impl == "modes" else n_d),
                       f"{what}: K1 calls (B·g, H) {row['k1_calls']}, want {groups}")
                 share = (row["param_bytes"] + row["adamw_bytes"]) / (
                     w["param_bytes"] + w["adamw_bytes"])
                 check(share <= AXIS_MAX_SHARE, f"{what}: bytes share {share} > {AXIS_MAX_SHARE}")
+                check(share <= w["jax_param_share"] + JAX_SHARE_SLACK,
+                      f"{what}: bytes share {share} > the JAX rule's "
+                      f"{w['jax_param_share']} + {JAX_SHARE_SLACK}")
             check(len({r["state_sha256"] for r in rows}) == 1,
                   f"model_axis {tag} {impl}: the ranks' gathered states differ")
     tag = mesh_tag(AXIS_MESHES[0][0])
     return {"deform_attn_fwd": results[f"auto {tag}"][0]["launches"]["deform_attn_fwd"],
             "deform_attn_bwd": results[f"auto {tag}"][0]["launches"]["deform_attn_bwd"],
-            "x_block_fwd": results[f"pallas {tag}"][0]["launches"]["x_block_fwd"]}
+            "x_block_fwd": results[f"pallas {tag}"][0]["launches"]["x_block_fwd"],
+            "modes": results[f"modes {tag}"][0]["launches"]}
 
 
 # ---- 17c. spatial_axis: each image's rows over the mesh's spatial axis -------
@@ -4126,7 +4406,8 @@ def full_mesh_report(card, whole, results, n_d, n_x):
               "bytes_per_rank": {"param": [r["param_bytes"] for r in rows],
                                  "adamw": [r["adamw_bytes"] for r in rows],
                                  "share_of_whole": [b / (w["param_bytes"] + w["adamw_bytes"])
-                                                    for b in local_bytes]},
+                                                    for b in local_bytes],
+                                 "jax_rule_share": w["jax_param_share"]},
               "peak_gib_per_rank": [r["peak_gib"] for r in rows],
               "peak_gib_one_process": w["peak_gib"],
               "peak_share_of_one_process": [r["peak_gib"] / w["peak_gib"] for r in rows],
@@ -4180,6 +4461,10 @@ def full_mesh_report(card, whole, results, n_d, n_x):
                   f"{what}: K1 calls (B·g, H) {row['k1_calls']}, want {groups}")
             share = local_bytes[r] / (w["param_bytes"] + w["adamw_bytes"])
             check(share <= AXIS_MAX_SHARE, f"{what}: bytes share {share} > {AXIS_MAX_SHARE}")
+            if fsdp == "model":
+                check(share <= w["jax_param_share"] + JAX_SHARE_SLACK,
+                      f"{what}: bytes share {share} > the JAX rule's "
+                      f"{w['jax_param_share']} + {JAX_SHARE_SLACK}")
         if fsdp == "spatial":  # shards: the model peers of a spatial coordinate agree
             check(all(len({rows[r]["state_sha256"] for r in range(len(rows)) if r % S == s}) == 1
                       for s in range(S)),

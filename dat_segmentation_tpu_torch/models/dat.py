@@ -25,8 +25,10 @@ never makes the kernel refuse it. Then an 'X' block is one kernel (its LPU
 included, so the separate LPU is skipped) and a 'D' block's second half
 (LN + ConvMLP) is another, in MLP-only mode. Over the mesh's model axis
 (``parallel/model_axis.py``) K3 takes the MLP's weights gathered from the
-peers' slices (``ConvMlp.whole_weights``), replicated compute whose
-backward gives each peer its slice of the weights' gradient. Any other ``kernel_impl``
+peers' slices (``ConvMlp.whole_weights``) and an X block's ``conv_attn``
+whole (``layers.whole_param``: at the B++ widths it is held as a slice),
+replicated compute whose backward gives each peer its slice of the
+weights' gradient. Any other ``kernel_impl``
 ('xla', 'auto', 'gather') is the unfused chain, as the JAX package runs
 on every backend but the TPU. The JAX package's TPU switch
 ``DAT_TPU_XBLOCK`` has no counterpart; its exact-extent clause is kept:
@@ -79,7 +81,7 @@ from ..parallel.mesh import is_sharded
 from ..parallel.spatial import Rows
 from .deformable_attention import DeformableAttention
 from .layers import (CmtConvMlp, Conv2d, ConvMlp, DropPath, Dropout, LayerNorm2d, LayerScale,
-                     Mlp, gelu)
+                     Mlp, gelu, whole_param)
 
 
 class TransformerStage(nn.Module):
@@ -196,7 +198,7 @@ class TransformerStage(nn.Module):
         halo = int(self.use_lpu) + self.window_size // 2 + 1  # LPU, window, the MLP's dw3
         return self._on_slab(lambda t: fused_x_block(
             t, None if lpu is None else lpu.weight, None if lpu is None else lpu.bias,
-            conv.weight, conv.bias, ln.weight, ln.bias, *mlp.whole_weights(),
+            whole_param(conv, "weight"), conv.bias, ln.weight, ln.bias, *mlp.whole_weights(),
             self.window_size, self.use_lpu,
         ), x, rows, halo)
 

@@ -35,11 +35,15 @@ the softmax in float32, attention dropout on the caller's generator, ·v,
 then ``dwc_pe``'s term. That split is the JAX design: a failing K1 build
 or launch raises, and never drops to the composite.
 
-Over the mesh's model axis (``parallel/model_axis.py``) a block that runs
-K1 splits by offset group: this rank's groups' queries, offsets, samples
-and K1 launch (on B·g/Y groups), the sampled features of every group
-gathered for ``proj_k``/``proj_v`` (this rank's heads), ``proj_out``'s
-partial sums all-reduced; the composite's blocks stay whole.
+Over the mesh's model axis (``parallel/model_axis.py``) a block whose
+offset groups divide by Y splits by offset group, in every mode: this
+rank's groups' queries, offsets and samples, the sampled features of every
+group gathered for ``proj_k``/``proj_v`` (this rank's heads; ``no_off``'s
+pooled features hold every channel already), then K1 (on B·g/Y groups) or
+the composite on this rank's heads (``rpe_table`` split by head,
+``rpe_dwc`` by channel, ``log_cpb``'s MLP whole and evaluated for this
+rank's groups, attention dropout on this rank's heads of the whole mask),
+``proj_out``'s partial sums all-reduced.
 
 Over the mesh's spatial axis the stage runs this module on whole maps of
 part of the data coordinate's batch (``models/dat.py:TransformerStage.
@@ -162,12 +166,6 @@ class DeformableAttention(nn.Module):
             if hasattr(self, "rpe_table"):
                 nn.init.trunc_normal_(self.rpe_table, std=0.01, a=-0.02, b=0.02)
 
-    def splits_by_group(self) -> bool:
-        """The kernel's modes in training (``runs_kernel`` with the module in
-        training): the blocks the model axis splits by offset group."""
-        return (self.use_pe and not (self.dwc_pe or self.fixed_pe or self.log_cpb)
-                and not self.no_off and self.attn_drop == 0.0)
-
     def runs_kernel(self, exact: bool = False) -> bool:
         """The JAX package's gate (``deformable_attention.py:243-252``
         there): the continuous bias, offsets on, attention dropout 0 or
@@ -239,7 +237,7 @@ class DeformableAttention(nn.Module):
         else:
             grid = pos
 
-        if self.no_off:
+        if self.no_off:  # every channel: no gather
             sampled = avg_pool(x, self.stride, self.stride).reshape(B, Ns, C)
         else:
             xl = x if ax is None else mesh.slice_of(x, 3, ax)
@@ -257,7 +255,7 @@ class DeformableAttention(nn.Module):
 
         if not self.runs_kernel(exact is not None):
             out = self._composite(q, k, v, pos, H, W, batch, exact)
-            return self.proj_drop(self.proj_out(out), batch=batch)
+            return self.proj_drop(row_parallel(self.proj_out, out, ax), batch=batch)
 
         def by_group(t):  # (B, Ns, cl) -> (B*g, Ns, Cg)
             return t.reshape(B, Ns, g, cg).permute(0, 2, 1, 3).reshape(B * g, Ns, cg)
@@ -282,9 +280,11 @@ class DeformableAttention(nn.Module):
         dropout and P·V, the output in q's dtype, (B, H, W, C). ``exact``
         (ext_q, ext_kv, (Hk, Wk)) under exact padded inference: the bias
         at the true extents and the kv points beyond ``ext_kv`` out of the
-        softmax."""
+        softmax. Over the model axis C and g are this rank's, and so are
+        the heads and the dropout mask's."""
         B, _, _, C = q.shape
-        heads, Ns = self.n_heads, k.shape[1]
+        ax = self.model_axis
+        heads, Ns = self.n_heads // (1 if ax is None else ax.size), k.shape[1]
         hc = C // heads
         qh = q.reshape(B, H * W, heads, hc).float()
         kh = k.reshape(B, Ns, heads, hc).float()
@@ -296,7 +296,8 @@ class DeformableAttention(nn.Module):
             kv_mask = valid_extent.mask_for(exact[2], exact[1], torch.bool).reshape(B, 1, 1, Ns)
             attn = torch.where(kv_mask, attn, torch.tensor(-1e30, dtype=attn.dtype,
                                                            device=attn.device))
-        p = self.attn_dropout(torch.softmax(attn, dim=-1).to(q.dtype), batch=batch)
+        p = self.attn_dropout(torch.softmax(attn, dim=-1).to(q.dtype), ax, batch=batch,
+                              channel_dim=1)
         out = torch.einsum("bhmn,bnhc->bmhc", p.float(), v.reshape(B, Ns, heads, hc).float())
         out = out.reshape(B, H, W, C).to(q.dtype)
         if hasattr(self, "rpe_dwc"):
@@ -306,11 +307,13 @@ class DeformableAttention(nn.Module):
     def _bias(self, pos: torch.Tensor, B: int, H: int, W: int, exact=None,
               dtype=torch.float32) -> Optional[torch.Tensor]:
         """The mode's position bias, float32, broadcastable to (B, heads,
-        H*W, Ns); None for ``dwc_pe``, ``no_off`` and ``use_pe=False``.
-        Under exact padded inference (``exact``) at each sample's true
-        extents; ``dtype`` (the queries') is that of ``fixed_pe``'s
-        tap-weight products there, as the JAX package's."""
-        g, heads = self.n_groups, self.n_heads
+        H*W, Ns) (this rank's groups and heads over the model axis); None
+        for ``dwc_pe``, ``no_off`` and ``use_pe=False``. Under exact padded
+        inference (``exact``) at each sample's true extents; ``dtype`` (the
+        queries') is that of ``fixed_pe``'s tap-weight products there, as
+        the JAX package's."""
+        parts = 1 if self.model_axis is None else self.model_axis.size
+        g, heads = self.n_groups // parts, self.n_heads // parts
         h_g, Ns = heads // g, pos.shape[1]
         if exact is not None:
             qy, qx = _query_grid_ps(exact[0], H, W, g)

@@ -23,7 +23,10 @@ rank's model coordinate) and ``Dropout`` keeps its rows of the data
 coordinate's whole mask. Beside the model axis a split MLP runs on row
 shards of its hidden units: ``dwc`` fetches its halo on this rank's
 channels, the CMT BatchNorms take those channels' statistics over the
-same group, and the masks are cut from the whole rows and width.
+same group, and the masks are cut from the whole rows and width. A
+module owning a parameter held as a slice over the model axis (the JAX
+layout of a leaf no split rule covers) gathers it for each call
+(``gather_at_use``), before a row shard's halo exchange.
 
 Under exact padded inference (``ops/valid_extent.py``) every ``Conv2d``
 on a whole map masks its input and output beyond the per-sample valid
@@ -230,8 +233,8 @@ class Dropout(nn.Module):
         return tuple(x.shape)
 
     def forward(self, x: torch.Tensor, channels: Optional[mesh.ModelAxis] = None,
-                rows: Optional[Rows] = None,
-                batch: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                rows: Optional[Rows] = None, batch: Optional[Tuple[int, int]] = None,
+                channel_dim: int = -1) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.generator is None:
@@ -242,12 +245,15 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         shape = list(self.mask_shape(x))
         rank, world = process_shard_info()
-        parts = 1 if channels is None or shape[-1] == 1 else channels.size
+        cdim = channel_dim % len(shape)
+        # drop path's mask broadcasts over the channels: one for every slice
+        parts = 1 if channels is None or shape[cdim] != x.shape[cdim] else channels.size
         first, B = batch if batch is not None else (0, shape[0])
         # inside a process group: the global batch's mask (the generator is
         # seeded alike on every process), this process's rows of it (and
-        # its channels, its image rows)
-        whole = [B * world] + shape[1:-1] + [shape[-1] * parts]
+        # its channels along ``channel_dim``, its image rows)
+        whole = [B * world] + shape[1:]
+        whole[cdim] *= parts
         if rows is not None and self.rows_in_mask:
             whole[1] = rows.H
         mask = torch.empty(whole, device=x.device)
@@ -257,7 +263,7 @@ class Dropout(nn.Module):
         if rows is not None and self.rows_in_mask:
             mask = mask[:, rows.lo:rows.hi]
         if parts > 1:
-            mask = mesh.slice_of(mask, -1 % mask.ndim, channels)
+            mask = mesh.slice_of(mask, cdim, channels)
         return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
 
 
@@ -304,6 +310,50 @@ def row_parallel(linear: nn.Linear, x: torch.Tensor,
 def entering(x: torch.Tensor, axis: Optional[mesh.ModelAxis]) -> torch.Tensor:
     """``x`` as it enters a module split over ``axis`` (``copy_to_model``)."""
     return x if axis is None else mesh.copy_to_model(x, axis)
+
+
+def gather_at_use(module: nn.Module, leaves) -> None:
+    """Make ``module`` gather the parameters ``leaves`` (name -> (axis, dim,
+    partial)), of which this rank holds a slice along ``dim``, for each of
+    its calls: a forward pre-hook puts the peers' slices joined
+    (``mesh.gather_model``) in the slice's place, so the module computes on
+    the whole parameter, and a forward hook puts the slice back. The
+    state_dict keeps its names and the slices. What reads the whole
+    parameter is replicated compute, so the backward takes this rank's
+    slice of the gradient; a ``partial`` leaf's gradient, a part on each
+    peer, is summed over the peers first. Under ``torch.func.
+    functional_call`` the hooks gather the tensor the call swapped in (a
+    cast copy, a checkpoint's saved slice), so a recompute gathers again.
+    ``whole_param`` gives the whole outside the module's call."""
+    module.gathered_at_use = dict(leaves)
+    module.register_forward_pre_hook(_gather_leaves)
+    module.register_forward_hook(_restore_slices, always_call=True)
+
+
+def _gather_leaves(module, args):
+    module._held_slices = {}
+    for leaf, (axis, dim, partial) in module.gathered_at_use.items():
+        t = module._parameters[leaf]
+        module._held_slices[leaf] = t
+        module._parameters[leaf] = mesh.gather_model(t, axis, dim, split_consumer=partial)
+
+
+def _restore_slices(module, args, out):
+    for leaf, t in module.__dict__.pop("_held_slices", {}).items():
+        module._parameters[leaf] = t
+
+
+def whole_param(module: nn.Module, leaf: str) -> torch.Tensor:
+    """``module``'s parameter ``leaf`` whole: gathered over the model axis
+    where this rank holds a slice of it and the module's own call has not
+    (``gather_at_use``), as it is otherwise (K3 reads its blocks' weights
+    without calling their modules)."""
+    t = getattr(module, leaf)
+    spec = getattr(module, "gathered_at_use", {}).get(leaf)
+    if spec is None or leaf in getattr(module, "_held_slices", {}):
+        return t
+    axis, dim, partial = spec
+    return mesh.gather_model(t, axis, dim, split_consumer=partial)
 
 
 class Mlp(nn.Module):
@@ -353,6 +403,9 @@ class ConvMlp(nn.Module):
         ws = (self.fc1.weight, self.fc1.bias, self.dwc.weight, self.dwc.bias, self.fc2.weight)
         if ax is not None:
             ws = tuple(mesh.gather_model(w, ax, d) for w, d in zip(ws, (0, 0, 0, 0, 1)))
+        else:  # unsplit (Y does not divide the hidden width): a weight may still be held
+            ws = (whole_param(self.fc1, "weight"), ws[1], whole_param(self.dwc, "weight"), ws[3],
+                  whole_param(self.fc2, "weight"))
         return ws + (self.fc2.bias,)
 
 

@@ -55,17 +55,21 @@ losses take the global batch over the data group (see
 ``parallel/mesh.py``); after the backward the step sums the float32
 gradients over the data group in buckets (FSDP2 reduce-scatters them
 itself), and under the model axis the gradients of the whole leaves that
-split compute reads (the offset nets) over the model group too, and on
-any mesh with a model axis the other whole leaves' gradients are set to
-model rank 0's (the peers compute them alike, but K2's float32 atomics
-round them otherwise on each), so that the peers' replicas stay equal bit
-for bit; so ``grad_norm``, the clip and ``update_ratio`` read the global
-gradient (over the model axis: the split leaves' squares summed over the
-peers, the whole ones once; under FSDP2 the shards' squares over the
-shards' group, ``mesh.shard_group``), and the metrics are global on every
-process: ``loss`` and ``acc1`` over the global batch, ``inter``/``union``
-summed in int64 over the data group. Not wrapping the model in
-``DistributedDataParallel`` is deliberate: the cast forward's
+split compute reads (the offset nets, ``log_cpb``'s MLP) over the model
+group too, and on any mesh with a model axis the gradients of the leaves
+that stay whole (those the JAX rule keeps whole too: below its 2^14
+elements or with no dim that divides by Y; every leaf where the model
+axis does not split the model) are set to model rank 0's (the peers
+compute them alike, but K2's float32 atomics round them otherwise on
+each), so that the peers' replicas stay equal bit for bit; a leaf held as
+a slice (``parallel/model_axis.py``) has one owner of each slice and takes
+no such rule. So ``grad_norm``, the clip and ``update_ratio`` read the
+global gradient (over the model axis: the split and held leaves' squares
+summed over the peers, the whole ones once; under FSDP2 the shards'
+squares over the shards' group, ``mesh.shard_group``), and the metrics
+are global on every process: ``loss`` and ``acc1`` over the global batch,
+``inter``/``union`` summed in int64 over the data group. Not wrapping the
+model in ``DistributedDataParallel`` is deliberate: the cast forward's
 ``functional_call`` bypasses DDP's ``forward``, so its reducer would never
 run. The gradient reduction runs after the backward, not beside it
 (ROADMAP.md, Queue 2). The metric step's ``[hits1, hits5, total]`` are
@@ -225,13 +229,15 @@ def make_train_step(
     # gradient shards are parts (over 'spatial', FSDP2's HSDP sums both axes)
     spatial_parts = sharded and lay.spatial > 1 and model.fsdp_axis == "data"
     axis = mesh.model_axis_of(model)
-    # over the model axis: the split leaves, and the whole ones split compute reads
+    # over the model axis: the split leaves (and those held as slices), and
+    # the whole ones split compute reads
     split = None if axis is None else [n in model.model_axis_dims for n in names]
     partial = [] if axis is None else [p for n, p in zip(names, plist)
                                        if n in model.model_axis_partial]
-    # the other whole leaves (every leaf of a model the model axis does not
-    # split): each model peer computed the same gradient, but a kernel's
-    # float32 atomics (K2) may round it otherwise on each
+    # the leaves that stay whole (those the JAX rule keeps whole too; every
+    # leaf of a model the model axis does not split): each model peer
+    # computed the same gradient, but a kernel's float32 atomics (K2) may
+    # round it otherwise on each
     peers = mesh.layout().model_group if distributed else None
     whole = [p for n, p in zip(names, plist) if axis is None or (
         n not in model.model_axis_dims and n not in model.model_axis_partial)]

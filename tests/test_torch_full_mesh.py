@@ -109,7 +109,8 @@ def _jax_eval(variables, image):
 
 def _dwc_model():
     """The tiny UperNet with stage 1's attention in ``dwc_pe`` (a composite
-    block, whole under the model axis although its two groups divide)."""
+    block, split by offset group under the model axis: its two groups
+    divide by 2)."""
     return with_modes(W.tiny_seg(get_config).model, ("continuous", "dwc_pe", "continuous",
                                                      "continuous"))
 
@@ -386,10 +387,11 @@ def test_k3_and_use_checkpoint_on_the_full_mesh(runs):
 
 
 def test_composite_block_whole_on_gathered_rows(runs):
-    """Stage 1 in ``dwc_pe`` (a composite block: whole under the model axis,
-    no K1) with three images a data coordinate, which S = 2 does not
-    divide: each peer gathers every row for the attention and keeps its
-    own. The step equals one process's."""
+    """Stage 1 in ``dwc_pe`` (a composite block, no K1: split by offset
+    group under the model axis, ``rpe_dwc`` by channel) with three images a
+    data coordinate, which S = 2 does not divide: each peer gathers every
+    row for the attention and keeps its own. The step equals one
+    process's."""
     (want,) = runs["one"]["dwc"]["steps"]
     for r, rank in enumerate(runs["ranks"]):
         (got,) = rank["dwc"]["steps"]

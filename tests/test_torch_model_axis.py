@@ -5,10 +5,14 @@ the same mesh with ``fsdp='model'``.
 One module fixture starts four ranks (``tests/torch_parallel_worker.py``,
 no JAX; rank d·2 + m is data coordinate d, model coordinate m) and, while
 they run, computes the one-process references in this process (no process
-group) and the JAX step on a ``{"data": 2, "model": 2}`` mesh of the
-virtual CPU devices, its state placed with ``shard_state(fsdp='model')``.
+group) and the JAX steps (the tiny UperNet's and ``MODES_A``'s) on a
+``{"data": 2, "model": 2}`` mesh of the virtual CPU devices, their states
+placed with ``shard_state(fsdp='model')``.
 The tiny UperNet has offset groups (1, 2, 2, 4): stage 0's attention stays
-whole at Y = 2 and stages 1 and 3 split by group (stage 2 is an X block).
+whole at Y = 2 (its ``rpe_table`` held as a slice and gathered at use, as
+the down convs: the JAX layout) and stages 1 and 3 split by group (stage 2
+is an X block). Two more tiny UperNets with a 'D' block on every stage put
+each position-bias mode on a split stage (``MODES_A``, ``MODES_B``).
 Drop path and the heads' dropout are on (and in one step the backbone's
 dropout, on the MLPs' split hidden units too), and data coordinate 1's
 labels are 90% ignored. The tolerances are ``tests/test_torch_parallel.py``'s
@@ -26,6 +30,8 @@ the port's one-process step instead, which ``tests/test_torch_parallel.py``
 holds to the JAX ``{"data": 2}`` step.
 """
 
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -45,26 +51,58 @@ from dat_segmentation_tpu.parallel.mesh import fsdp_sharding, shard_batch, shard
 from dat_segmentation_tpu.train import make_optimizer as jax_make_optimizer
 from dat_segmentation_tpu.train import schedules as jsched
 from dat_segmentation_tpu_torch import build_model, get_config
+from dat_segmentation_tpu_torch.configs import list_configs
 from dat_segmentation_tpu_torch.parallel import resolve_mesh
 from dat_segmentation_tpu_torch.parallel.mesh import mesh_sizes, rank_grid
-from dat_segmentation_tpu_torch.parallel.model_axis import model_axis_plan
+from dat_segmentation_tpu_torch.parallel.model_axis import HELD, model_axis_plan
 from dat_segmentation_tpu_torch.train import trainer_seg
 from dat_segmentation_tpu_torch.train.checkpoint import CheckpointManager
 from dat_segmentation_tpu_torch.utils.convert import convert_variables
 from test_torch_parallel import (DRAWS, VALID, _assert_counts_close, _assert_step_equal,
                                  _grad_scale, _layout)
-from torch_port_helpers import random_variables
+from torch_port_helpers import random_variables, with_modes
 
 MESH = {"data": 2, "model": 2}
 WORLD = 4
 DROP_RATE = 0.1  # the backbone's dropout: the MLPs' masks on split hidden units
+# every position-bias mode on a split stage (offset groups 2, 2, 4 at Y = 2),
+# the continuous bias on stage 0 (one group: whole); fixed_pe on stage 2,
+# where its table's resize has exact scales at 64² (tests/test_torch_pe_modes.py)
+MODES_A = ("continuous", "dwc_pe", "fixed_pe", "log_cpb")
+MODES_B = ("continuous", "no_off", "no_pe", "continuous")
+MODES_ATTN_DROP = 0.1  # MODES_B's: the continuous bias's blocks run the composite too
+# the plan's configurations: the presets, upn_tiny with each composite mode
+# on every stage, and upn_tiny with attention dropout
+PLAN_MODELS = tuple(list_configs()) + tuple(
+    f"upn_tiny_160k_dp03_lr6:{m}" for m in ("dwc_pe", "fixed_pe", "log_cpb", "no_off", "no_pe",
+                                             "attn_drop"))
 
 
-def _jax_tp_step(variables, batch):
+def _modes_model(get_config_fn, modes, attn_drop=0.0, drop=0.0):
+    """The tiny UperNet with a 'D' block on every stage, stage i's in
+    ``modes[i]``, attention dropout ``attn_drop``, drop path and the heads'
+    dropout ``drop``; either package's config."""
+    cfg = W.tiny_seg(get_config_fn, drop=drop).model
+    bb = dataclasses.replace(cfg.backbone, stage_spec=(("D",),) * 4, attn_drop_rate=attn_drop)
+    return with_modes(dataclasses.replace(cfg, backbone=bb), modes)
+
+
+def _held_k3_model():
+    """The tiny UperNet with stage 1 an X block 256 wide with a 9x9 window
+    (K3's gate holds at its 8² at 64²): its ``conv_attn`` (256·81 elements)
+    is held as a slice, which K3 reads gathered."""
+    cfg = W.tiny_seg(get_config, drop=0.0).model
+    bb = dataclasses.replace(cfg.backbone, dims=(16, 256, 64, 128), window_sizes=(7, 9, 7, 7),
+                             stage_spec=(("D",), ("X",), ("X",), ("D",)))
+    return dataclasses.replace(cfg, backbone=bb)
+
+
+def _jax_tp_step(variables, batch, model_cfg=None):
     """The JAX step on {"data": 2, "model": 2} with fsdp='model' from
-    ``variables``: metrics, final state in the port's names."""
+    ``variables`` (of the tiny UperNet or ``model_cfg``): metrics, final
+    state in the port's names."""
     jcfg = W.tiny_seg(jax_get_config, drop=0.0)
-    jmodel = jax_build_model(jcfg.model)
+    jmodel = jax_build_model(jcfg.model if model_cfg is None else model_cfg)
     sched = jsched.warmup_poly_schedule(W.LR, 20, warmup_iters=0, warmup_ratio=1e-6, power=1.0)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     tx = jax_make_optimizer(sched, params, weight_decay=0.01,
@@ -96,6 +134,15 @@ def runs(tmp_path_factory):
     variables = random_variables(jax_build_model(jcfg.model), np.zeros((1, 64, 64, 3), np.float32),
                                  seed=3, train=False)
     torch.save(convert_variables(variables), jax_w)
+    modes_a = _modes_model(get_config, MODES_A)
+    modes_b = _modes_model(get_config, MODES_B, attn_drop=MODES_ATTN_DROP, drop=0.1)
+    jax_a = _modes_model(jax_get_config, MODES_A)
+    variables_a = random_variables(jax_build_model(jax_a), np.zeros((1, 64, 64, 3), np.float32),
+                                   seed=4, train=False)
+    a_w, b_w, k3_w = tmp / "modes_a.pt", tmp / "modes_b.pt", tmp / "held_k3.pt"
+    torch.save(convert_variables(variables_a), a_w)
+    torch.save(build_model(modes_b, device="cpu").state_dict(), b_w)
+    torch.save(build_model(_held_k3_model(), device="cpu").state_dict(), k3_w)
     batches = W.seg_batches()
     rng = np.random.RandomState(5)
     cls_batch = {"image": rng.randn(4, 64, 64, 3).astype(np.float32),
@@ -105,7 +152,14 @@ def runs(tmp_path_factory):
     dropout = dict(weights=seg_w, batches=batches[:1], drop_rate=DROP_RATE)
     pallas = dict(weights=seg_w, batches=batches[:1], kernel_impl="pallas")
     tp = dict(mesh_shape=MESH, fsdp="model")
+    on_a = dict(weights=a_w, model_cfg=modes_a, batches=batches[:1], round_trip=True, groups=True)
+    on_b = dict(weights=b_w, model_cfg=modes_b, batches=batches[:1], groups=True)
+    held_k3 = dict(weights=k3_w, model_cfg=_held_k3_model(), batches=batches[:1],
+                   kernel_impl="pallas")
     tasks = [
+        ("held_k3", "seg_steps", dict(held_k3, **tp)),
+        ("modes_a", "seg_steps", dict(on_a, **tp)),
+        ("modes_b", "seg_steps", dict(on_b, **tp)),
         ("tp", "seg_steps", dict(seg, groups=True, **tp)),
         ("tp_dropout", "seg_steps", dict(dropout, **tp)),
         ("tp_jax", "seg_steps", dict(weights=jax_w, batches=batches[:1], drop=0.0, **tp)),
@@ -128,9 +182,13 @@ def runs(tmp_path_factory):
             "cls": W.cls_steps(0, 1, weights=cls_w, batch=cls_batch, draws=list(DRAWS),
                                valid=VALID),
             "train": W.train(0, 1, root=data, work=tmp / "w0", max_iters=2, drop=0.0),
+            "modes_a": W.seg_steps(0, 1, **on_a),
+            "modes_b": W.seg_steps(0, 1, **on_b),
+            "held_k3": W.seg_steps(0, 1, **held_k3),
         }}
         one_proc_done.touch()  # the ranks resume from its ckpt_2
         out["jax"] = _jax_tp_step(variables, batches[0])
+        out["jax_a"] = _jax_tp_step(variables_a, batches[0], jax_a)
     except BaseException:
         for p in ctx.processes:
             p.kill()
@@ -181,10 +239,12 @@ def test_resolve_mesh_axes_and_refusals():
 
 def test_plan_of_the_full_width_upernet_leaves_each_rank_half():
     """``model_axis_plan`` on the full-width ``upn_tiny_160k_dp03_lr6`` (no
-    processes) leaves each of two model ranks at most 0.60 of the parameter
-    bytes, beside the JAX rule's share (``fsdp_sharding`` over 'model', its
-    2^14 minimum); every 3x3 conv of the heads is split, the whole leaves are
-    named with their bytes, and every split dim divides by 2."""
+    processes) leaves each of two model ranks at most the JAX rule's share
+    of the parameter bytes (``fsdp_sharding`` over 'model', its 2^14
+    minimum; both under 0.60); every 3x3 conv of the heads is split, stage
+    0's one-group ``rpe_table`` and the down convs are held as slices, the
+    whole leaves are named with their bytes, and every split dim divides
+    by 2."""
     model = build_model(get_config("upn_tiny_160k_dp03_lr6").model, device="cpu")
     plan = model_axis_plan(model, 2)
     params = dict(model.named_parameters())
@@ -200,7 +260,7 @@ def test_plan_of_the_full_width_upernet_leaves_each_rank_half():
           f"{jax_local / total:.4f}); whole leaves, largest first:")
     for nbytes, name, why in whole[:12]:
         print(f"  {nbytes:>9} {name}: {why}")
-    assert local / total <= 0.60 and jax_local / total <= 0.60
+    assert local <= jax_local and jax_local / total <= 0.60
     for name, entry in plan.items():
         t = model.state_dict()[name]
         if entry.dim is not None:
@@ -208,6 +268,8 @@ def test_plan_of_the_full_width_upernet_leaves_each_rank_half():
         if name.startswith("decode_head") and t.ndim == 4 and t.shape[-1] == 3:
             assert entry.dim == 0, name
     assert plan["backbone.stage_0.attn_1.proj_q.weight"].dim is None  # one offset group
+    assert plan["backbone.stage_0.attn_1.rpe_table"].reason == HELD
+    assert plan["backbone.down_conv_0.weight"].gathered
     assert plan["backbone.stage_3.attn_1.proj_out.weight"].dim == 1
     assert plan["backbone.stage_3.attn_1.offset_proj.weight"].partial
 
@@ -294,6 +356,136 @@ def test_model_axis_step_equals_jax_step_on_the_same_mesh(runs):
                 assert rel <= 1e-4, (name, rel)
 
 
+def _plan_model(name):
+    preset, _, variant = name.partition(":")
+    mc = get_config(preset).model
+    if variant == "attn_drop":
+        return dataclasses.replace(mc, backbone=dataclasses.replace(mc.backbone,
+                                                                    attn_drop_rate=0.1))
+    return with_modes(mc, (variant,) * 4) if variant else mc
+
+
+@pytest.mark.parametrize("name", PLAN_MODELS)
+def test_plan_holds_every_leaf_the_jax_rule_shards(name):
+    """``model_axis_plan`` at full width (built on the meta device, no
+    processes) at Y = 2 and 4: every leaf that the JAX ``fsdp_sharding(...,
+    axis='model')`` shards has a plan dim, which divides by Y, and a rank's
+    parameter bytes are at most the JAX rule's share; each split attention
+    block's tables and ``rpe_dwc`` split with its groups, ``log_cpb``'s MLP
+    whole and ``partial``."""
+    with torch.device("meta"):
+        model = build_model(_plan_model(name), device="meta")
+    params = dict(model.named_parameters())
+    total = sum(p.numel() for p in params.values())
+    for Y in (2, 4):
+        plan = model_axis_plan(model, Y)
+        jmesh = make_mesh({"model": Y}, devices=jax.devices("cpu")[:Y])
+        for n, t in model.state_dict(keep_vars=True).items():
+            if any(fsdp_sharding(jmesh, t, axis="model").spec):
+                assert plan[n].dim is not None, (name, Y, n, plan[n])
+            if plan[n].dim is not None:
+                assert t.shape[plan[n].dim] % Y == 0, (name, Y, n)
+        local = sum(p.numel() / (Y if plan[n].dim is not None else 1) for n, p in params.items())
+        jax_local = sum(p.numel() / (Y if any(fsdp_sharding(jmesh, p, axis="model").spec) else 1)
+                        for p in params.values())
+        assert local <= jax_local, (name, Y, local / total, jax_local / total)
+        for prefix, mod in model.named_modules():
+            if type(mod).__name__ == "DeformableAttention" and mod.n_groups % Y == 0:
+                for leaf in ("proj_q.weight", "proj_out.weight", "rpe_table", "rpe_dwc.weight"):
+                    e = plan.get(f"{prefix}.{leaf}")
+                    assert e is None or (e.dim is not None and not e.gathered), (prefix, leaf)
+                for leaf in ("cpb_fc1.weight", "cpb_fc2.weight", "offset_proj.weight"):
+                    e = plan.get(f"{prefix}.{leaf}")
+                    assert e is None or (e.partial and e.dim is None), (prefix, leaf)
+
+
+@pytest.mark.parametrize("key", ["modes_a", "modes_b"])
+def test_composite_modes_split_by_group_equal_one_process(runs, key):
+    """A step of the tiny UperNets with every position-bias mode on a split
+    stage (``MODES_A``: dwc_pe, fixed_pe, log_cpb; ``MODES_B``: no_off, no
+    PE and the continuous bias under attention dropout 0.1, with drop path
+    and the heads' dropout) over {data: 2, model: 2} with fsdp='model'
+    equals the one-process step (loss, every gradient, parameter and BN
+    statistic, grad norm, IoU counts), and the four ranks' gathered states
+    agree bit for bit. Each rank holds half of each split block's
+    projections and tables (``rpe_table`` by head, ``rpe_dwc`` by channel)
+    and all of ``log_cpb``'s MLP; only stage 0's continuous bias in
+    ``MODES_A`` takes K1's route (whole: one group), on the rank's rows."""
+    (want,) = runs["one"][key]["steps"]
+    model = build_model(_modes_model(get_config, MODES_A if key == "modes_a" else MODES_B),
+                        device="cpu")
+    plan = model_axis_plan(model, 2)
+    shapes = {n: tuple(t.shape) for n, t in model.state_dict().items()}
+    for rank in runs["ranks"]:
+        (got,) = rank[key]["steps"]
+        _assert_step_equal(got, want, key)
+        _assert_counts_close(got["metrics"], want["metrics"])
+        np.testing.assert_allclose(got["metrics"]["grad_norm"], want["metrics"]["grad_norm"],
+                                   rtol=1e-4)
+        assert rank[key]["groups"] == [(b // 2, h) for b, h in runs["one"][key]["groups"]]
+        local = rank[key]["local"]["leaves"]
+        for stage in (1, 2, 3):
+            for leaf in ("proj_q.weight", "rpe_table", "rpe_dwc.weight"):
+                name = f"backbone.stage_{stage}.attn_0.{leaf}"
+                if name in shapes:
+                    assert local[name][0] * 2 == shapes[name][0] and plan[name].dim == 0, name
+            fc = f"backbone.stage_{stage}.attn_0.cpb_fc2.weight"
+            if fc in shapes:
+                assert local[fc] == shapes[fc] and plan[fc].partial, fc
+    _assert_ranks_equal(runs["ranks"], key)
+    assert runs["one"][key]["groups"] == ([(4, 16)] if key == "modes_a" else [])
+
+
+def test_composite_modes_split_by_group_equal_jax_step(runs):
+    """``MODES_A``'s step over {data: 2, model: 2} with fsdp='model' against
+    the JAX ``make_train_step`` on the same mesh from the same variables:
+    loss, BN statistics and every parameter whose gradient is not noise
+    (not the grad norm: the module docstring says why)."""
+    metrics, want = runs["jax_a"]
+    for rank in runs["ranks"]:
+        (got,) = rank["modes_a"]["steps"]
+        np.testing.assert_allclose(got["metrics"]["loss"], metrics["loss"], rtol=1e-5)
+        total = _grad_scale(got["grads"])
+        for name, w in want.items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            g = got["state"][name]
+            if name.endswith(("running_mean", "running_var")):
+                np.testing.assert_allclose(g, w.numpy(), rtol=1e-4, atol=1e-6, err_msg=name)
+            elif np.linalg.norm(got["grads"][name]) > 1e-6 * total:
+                rel = np.linalg.norm(g - w.numpy()) / np.linalg.norm(w.numpy())
+                assert rel <= 1e-4, (name, rel)
+
+
+def test_held_leaves_and_moments_round_trip_into_one_process(runs):
+    """The leaves held as slices (the JAX layout: the down convs, stage 0's
+    one-group ``rpe_table``) hold half along their plan dim, as do their
+    AdamW moments; ``full_state`` gathers every moment into the one-process
+    format, equal to the one-process step's moments (the gradients' rule),
+    and ``load_full_state`` of that state into a fresh split model and
+    optimizer gives back each rank's parameters and moments bit for bit."""
+    model = build_model(_modes_model(get_config, MODES_A), device="cpu")
+    plan = model_axis_plan(model, 2)
+    held = {n for n, e in plan.items() if e.gathered}
+    assert {"backbone.down_conv_1.weight", "backbone.down_conv_2.weight",
+            "backbone.stage_0.attn_0.rpe_table"} <= held
+    one = runs["one"]["modes_a"]["moments"]
+    total = {k: _grad_scale({n: m[k] for n, m in one.items()}) for k in ("exp_avg", "exp_avg_sq")}
+    for rank in runs["ranks"]:
+        got = rank["modes_a"]
+        assert got["reloaded_equal"]
+        for name in held:
+            whole = tuple(model.state_dict()[name].shape)
+            half = tuple(d // 2 if i == plan[name].dim else d for i, d in enumerate(whole))
+            assert got["local"]["leaves"][name] == half == got["local"]["moments"][name], name
+        assert set(got["moments"]) == set(one)
+        for name, m in one.items():
+            for k, w in m.items():
+                assert got["moments"][name][k].shape == w.shape, (name, k)
+                assert (np.linalg.norm(got["moments"][name][k] - w)
+                        <= 1e-4 * np.linalg.norm(w) + 1e-6 * total[k]), (name, k)
+
+
 def test_fsdp_over_data_on_the_two_axis_mesh_equals_one_process(runs):
     """fsdp=True on {data: 2, model: 2}: FSDP2 over each data group, the
     model peers computing the same thing; the step equals the one-process
@@ -327,6 +519,23 @@ def test_k3_on_gathered_weights_over_model_axis(runs):
         assert len(got["k3_whole_contiguous"]) == len(one["k3_whole_contiguous"])
         for i, (a, want) in enumerate(zip(got["steps"], one["steps"])):
             _assert_step_equal(a, want, f"step {i}", first_step=i == 0)
+
+
+def test_k3_reads_a_held_conv_attn_whole(runs):
+    """``kernel_impl='pallas'`` where an X block's ``conv_attn`` is held as a
+    slice (``_held_k3_model``): K3 (its plain version here) reads it
+    gathered whole and contiguous (``layers.whole_param``: K3 calls no
+    module), and the split step equals the one-process 'pallas' step."""
+    plan = model_axis_plan(build_model(_held_k3_model(), device="cpu"), 2)
+    assert plan["backbone.stage_1.conv_attn_0.weight"].gathered
+    one = runs["one"]["held_k3"]
+    assert one["k3_whole_contiguous"]
+    for rank in runs["ranks"]:
+        got = rank["held_k3"]
+        assert all(got["k3_whole_contiguous"])
+        assert len(got["k3_whole_contiguous"]) == len(one["k3_whole_contiguous"])
+        (a,), (want,) = got["steps"], one["steps"]
+        _assert_step_equal(a, want, "held conv_attn under K3")
 
 
 def test_cls_step_with_mixup_over_model_axis(runs):

@@ -181,7 +181,7 @@ def local_shapes(model, state):
 
 def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kernel_impl="auto",
               use_checkpoint=False, model_cfg=None, device="cpu", mesh_shape=None, drop_rate=0.0,
-              groups=False):
+              groups=False, round_trip=False):
     """Steps of the tiny UperNet (or ``model_cfg``) from ``weights`` on this
     data coordinate's rows of each global batch on the mesh ``mesh_shape``,
     on ``device``, with ``use_checkpoint`` as given: per step the metrics,
@@ -191,7 +191,12 @@ def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kerne
     shape of the largest parameter and of its AdamW moment, with
     ``fsdp='model'`` every leaf's and moment's local shape; and whether
     K3's weights came whole and contiguous; with ``groups``, (B·g, H) of
-    each deformable-attention call of the first step."""
+    each deformable-attention call of the first step; with ``round_trip``,
+    the AdamW moments after the steps in the one-process format
+    (``full_state``) by parameter name, and whether a fresh model and
+    optimizer made as these were and given that state
+    (``load_full_state``) hold this rank's parameters and moments bit for
+    bit."""
     from dat_segmentation_tpu_torch import create_train_state, get_config, make_train_step
     from dat_segmentation_tpu_torch.configs.schema import replace
     from dat_segmentation_tpu_torch.models import deformable_attention as dattn
@@ -246,6 +251,8 @@ def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kerne
     res = {"steps": out, "k3_whole_contiguous": seen}
     if groups:
         res["groups"] = calls[:len(calls) // len(batches)]
+    if round_trip:
+        res.update(_round_trip(model, state, cfg, weights, device))
     if fsdp == "model":
         res["local"] = local_shapes(model, state)
     elif fsdp:
@@ -255,6 +262,25 @@ def seg_steps(rank, world, *, weights=None, batches, drop=0.1, fsdp=False, kerne
                           "local": tuple(mesh.local(p).shape),
                           "moment_local": tuple(mesh.local(moment).shape)}
     return res
+
+
+def _round_trip(model, state, cfg, weights, device):
+    from dat_segmentation_tpu_torch import create_train_state
+    from dat_segmentation_tpu_torch.parallel import mesh
+
+    names = mesh._param_names(model, state.optimizer)
+    msd, osd = mesh.full_state(model, state.optimizer, everywhere=True)
+    moments = {names[i]: {k: v.detach().cpu().numpy().copy() for k, v in s.items()
+                          if k in ("exp_avg", "exp_avg_sq")} for i, s in osd["state"].items()}
+    fresh = _model(cfg, weights, device)
+    again = create_train_state(fresh, cfg)
+    mesh.load_full_state(fresh, msd, again.optimizer, osd)
+    held = dict(model.named_parameters())
+    same = all(torch.equal(p, held[n]) for n, p in fresh.named_parameters())
+    for p, q in zip(fresh.parameters(), model.parameters()):
+        a, b = again.optimizer.state[p], state.optimizer.state[q]
+        same = same and all(torch.equal(a[k], b[k]) for k in ("exp_avg", "exp_avg_sq"))
+    return {"moments": moments, "reloaded_equal": same}
 
 
 class FixedDraws:
