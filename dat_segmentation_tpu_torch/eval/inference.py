@@ -41,6 +41,7 @@ import torch.nn as nn
 from ..data.ade20k import IMG_NORM_MEAN, IMG_NORM_STD, IMG_SCALE
 from ..ops.interpolate import resize_bilinear, resize_uint8_linear
 from ..ops.valid_extent import stride4_extent
+from ..utils import profiling
 from ..utils.device import resolve_device
 
 MS_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)  # tools/test.py --aug-test
@@ -127,11 +128,12 @@ class SegInferencer:
         sizes of zero-padded images) with ``exact``: the exact padded
         forward, whose rows and columns beyond each sample's stride-4
         extent (``_ext4``) are invalid; else the plain forward."""
-        x = torch.as_tensor(images).to(self.device, self.compute_dtype, non_blocking=True)
-        if valid_hw is not None and self.exact:
-            valid = torch.as_tensor(np.asarray(valid_hw), dtype=torch.int32).to(self.device)
-            return self.model(x, upsample=False, valid_hw=valid).float()
-        return self.model(x, upsample=False).float()
+        with profiling.span("dat.serve"):
+            x = torch.as_tensor(images).to(self.device, self.compute_dtype, non_blocking=True)
+            if valid_hw is not None and self.exact:
+                valid = torch.as_tensor(np.asarray(valid_hw), dtype=torch.int32).to(self.device)
+                return self.model(x, upsample=False, valid_hw=valid).float()
+            return self.model(x, upsample=False).float()
 
     def _padded(self, imgs: Sequence[torch.Tensor], hw, batch: Optional[int] = None):
         """Images zero-padded to ``hw`` in a batch of ``batch`` (the empty

@@ -84,6 +84,7 @@ from ..ops.deform_attn import deform_attn, query_coords, rpe_bias, rpe_bias_at
 from ..ops.grid_sample import grid_sample, lerp_weight_matrix
 from ..ops.interpolate import avg_pool, resize_bilinear
 from ..parallel import mesh
+from ..utils import profiling
 from .layers import Conv2d, Dropout, LayerNorm2d, entering, gelu, row_parallel
 
 
@@ -180,6 +181,10 @@ class DeformableAttention(nn.Module):
     def forward(self, x: torch.Tensor, batch: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """x (B, H, W, C) -> (B, H, W, C); ``batch`` (first row, data
         coordinate's batch size): x holds those batch rows of it."""
+        with profiling.span("dat.attention"):
+            return self._attend(x, batch)
+
+    def _attend(self, x: torch.Tensor, batch: Optional[Tuple[int, int]]) -> torch.Tensor:
         B, H, W, C = x.shape
         ax = self.model_axis
         parts = 1 if ax is None else ax.size
@@ -254,6 +259,7 @@ class DeformableAttention(nn.Module):
         pos = pos.reshape(B * g, Ns, 2)
 
         if not self.runs_kernel(exact is not None):
+            profiling.count("attn.composite")
             out = self._composite(q, k, v, pos, H, W, batch, exact)
             return self.proj_drop(row_parallel(self.proj_out, out, ax), batch=batch)
 

@@ -34,6 +34,7 @@ import torch.nn as nn
 from ..ops import valid_extent
 from ..ops.interpolate import resize_bilinear
 from ..parallel.spatial import Rows
+from ..utils import profiling
 
 
 class EncoderDecoder(nn.Module):
@@ -77,23 +78,25 @@ class EncoderDecoder(nn.Module):
             return self._forward(x, upsample, rows)
 
     def _forward(self, x, upsample, rows):
-        if rows is None:  # a registered head may take the features alone
-            feats = self.backbone(x)
-            fr, kw, aux_kw = [None] * len(feats), {}, {}
-        else:
-            feats, fr = self.backbone(x, rows)
-            kw, aux_kw = {"rows": fr}, {"rows": fr[self.aux_in_index]}
+        with profiling.span("dat.backbone"):
+            if rows is None:  # a registered head may take the features alone
+                feats = self.backbone(x)
+                fr, kw, aux_kw = [None] * len(feats), {}, {}
+            else:
+                feats, fr = self.backbone(x, rows)
+                kw, aux_kw = {"rows": fr}, {"rows": fr[self.aux_in_index]}
         hw = (x.shape[1] if rows is None else rows.H, x.shape[2])
-        head_feats = self.neck(feats, **kw) if self.neck is not None else feats
-        logits = self.decode_head(head_feats, **kw)
-        if upsample:
-            logits = resize_bilinear(logits, hw, align_corners=self.align_corners, rows=fr[0])
-        if self.training and self.auxiliary_head is not None:
-            i = self.aux_in_index
-            aux = self.auxiliary_head(feats[i], **aux_kw)
-            aux = resize_bilinear(aux, hw, align_corners=self.align_corners, rows=fr[i])
-            return logits, aux
-        return logits
+        with profiling.span("dat.heads"):
+            head_feats = self.neck(feats, **kw) if self.neck is not None else feats
+            logits = self.decode_head(head_feats, **kw)
+            if upsample:
+                logits = resize_bilinear(logits, hw, align_corners=self.align_corners, rows=fr[0])
+            if self.training and self.auxiliary_head is not None:
+                i = self.aux_in_index
+                aux = self.auxiliary_head(feats[i], **aux_kw)
+                aux = resize_bilinear(aux, hw, align_corners=self.align_corners, rows=fr[i])
+                return logits, aux
+            return logits
 
 
 class DatClassifier(nn.Module):

@@ -103,6 +103,7 @@ import torch.nn as nn
 from ..data.mixup import LABEL_SMOOTHING, MixupSampler, mixup_cutmix
 from ..models.layers import use_generator
 from ..parallel import mesh, spatial
+from ..utils import profiling
 from .losses import label_smoothing_cross_entropy, segmentation_loss, soft_target_cross_entropy
 from .metrics import intersect_and_union, topk_hits
 from .optim import make_optimizer
@@ -263,64 +264,66 @@ def make_train_step(
         return loss, logits, label
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model.train()
-        image = torch.as_tensor(batch["image"]).to(device, compute_dtype, non_blocking=True)
-        label = torch.as_tensor(batch["label"]).to(device, non_blocking=True)
-        label = label.float() if label.is_floating_point() else label.long()
-        image, rows, label = _own_rows(image, label)
-        if task == "seg":
-            loss, logits, hard = seg_loss(image, label, rows)
-        else:
-            loss, logits, hard = cls_loss(state, image, label, rows)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-
-        with torch.no_grad():
-            # a parameter the loss does not reach (a no_off block's offset
-            # net) takes a zero gradient, as jax.grad gives it: AdamW decays it
-            for p in plist:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            if distributed and not sharded:
-                mesh.reduce_gradients([p.grad for p in plist], group=lay.rows_group)
-            elif spatial_parts:
-                mesh.reduce_gradients([mesh.local(p.grad) for p in plist],
-                                      group=lay.spatial_group)
-            if partial:
-                mesh.reduce_gradients([p.grad for p in partial], group=axis.group)
-            if peers is not None:  # model rank 0's, so that the peers' replicas stay equal
-                mesh.reduce_gradients([mesh.local(p.grad) for p in whole], group=peers,
-                                      src=first_peer)
-            grads = [mesh.local(p.grad) for p in plist]
-            grad_norm = global_norm(grads, sharded, split, shards)
-            param_norm = global_norm([mesh.local(p) for p in plist], sharded, split, shards)
-            before = [mesh.local(p).detach().clone() for p in plist]
-            if state.grad_clip is not None:
-                # optax.clip_by_global_norm: g * clip / norm where norm > clip
-                factor = torch.clamp(state.grad_clip / grad_norm, max=1.0)
-                torch._foreach_mul_(grads, factor)
-            for group in state.optimizer.param_groups:
-                group["lr"] = state.schedule(state.step)
-            state.optimizer.step()
-            update_norm = global_norm(
-                torch._foreach_sub([mesh.local(p).detach() for p in plist], before), sharded,
-                split, shards)
-            metrics = {
-                "loss": loss.detach(),
-                "grad_norm": grad_norm,
-                "update_ratio": update_norm / (param_norm + 1e-12),
-            }
-            if task == "cls":
-                metrics["acc1"] = (logits.argmax(-1) == hard).float().mean()
-            elif iou_impl != "none":
-                inter, union, _, _ = intersect_and_union(
-                    logits.argmax(-1), hard, num_classes, ignore_index=ignore_index
-                )
-                metrics.update(inter=inter, union=union)
-            if distributed:
-                _global_metrics(metrics, task)
-        state.step += 1
-        return state, metrics
+        with profiling.span("dat.step"):
+            with profiling.span("dat.step.forward"):
+                model.train()
+                image = torch.as_tensor(batch["image"]).to(device, compute_dtype, non_blocking=True)
+                label = torch.as_tensor(batch["label"]).to(device, non_blocking=True)
+                label = label.float() if label.is_floating_point() else label.long()
+                image, rows, label = _own_rows(image, label)
+                if task == "seg":
+                    loss, logits, hard = seg_loss(image, label, rows)
+                else:
+                    loss, logits, hard = cls_loss(state, image, label, rows)
+            with profiling.span("dat.step.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with profiling.span("dat.step.update"), torch.no_grad():
+                # a parameter the loss does not reach (a no_off block's offset
+                # net) takes a zero gradient, as jax.grad gives it: AdamW decays it
+                for p in plist:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if distributed and not sharded:
+                    mesh.reduce_gradients([p.grad for p in plist], group=lay.rows_group)
+                elif spatial_parts:
+                    mesh.reduce_gradients([mesh.local(p.grad) for p in plist],
+                                          group=lay.spatial_group)
+                if partial:
+                    mesh.reduce_gradients([p.grad for p in partial], group=axis.group)
+                if peers is not None:  # model rank 0's, so that the peers' replicas stay equal
+                    mesh.reduce_gradients([mesh.local(p.grad) for p in whole], group=peers,
+                                          src=first_peer)
+                grads = [mesh.local(p.grad) for p in plist]
+                grad_norm = global_norm(grads, sharded, split, shards)
+                param_norm = global_norm([mesh.local(p) for p in plist], sharded, split, shards)
+                before = [mesh.local(p).detach().clone() for p in plist]
+                if state.grad_clip is not None:
+                    # optax.clip_by_global_norm: g * clip / norm where norm > clip
+                    factor = torch.clamp(state.grad_clip / grad_norm, max=1.0)
+                    torch._foreach_mul_(grads, factor)
+                for group in state.optimizer.param_groups:
+                    group["lr"] = state.schedule(state.step)
+                state.optimizer.step()
+                update_norm = global_norm(
+                    torch._foreach_sub([mesh.local(p).detach() for p in plist], before), sharded,
+                    split, shards)
+                metrics = {
+                    "loss": loss.detach(),
+                    "grad_norm": grad_norm,
+                    "update_ratio": update_norm / (param_norm + 1e-12),
+                }
+                if task == "cls":
+                    metrics["acc1"] = (logits.argmax(-1) == hard).float().mean()
+                elif iou_impl != "none":
+                    inter, union, _, _ = intersect_and_union(
+                        logits.argmax(-1), hard, num_classes, ignore_index=ignore_index
+                    )
+                    metrics.update(inter=inter, union=union)
+                if distributed:
+                    _global_metrics(metrics, task)
+            state.step += 1
+            return state, metrics
 
     return step
 

@@ -1,24 +1,173 @@
-"""Profiling and timing helpers, in PyTorch.
+"""The port's tracing: spans and counters at the layers of the main path.
 
-Counterpart of ``dat_segmentation_tpu/utils/profiling.py``: a device trace
-(``torch.profiler``, written as a Chrome trace), named regions in it, a
-call's operation count and memory, an images/s meter with warm-up, and a
-seconds-a-call timer that waits for the device. Nothing on the main path
-calls this module; ``chip_smoke.py`` and ``tools/step_time.py`` time the
-port with CUDA events of their own.
+``span(name)`` marks a layer's host time: ``with span("dat.backbone"):``.
+While no ``torch.profiler`` session is active it is one read of torch's own
+flag and returns a shared no-op, so the main path calls it unconditionally
+and an exported graph holds nothing of it. While a session is active it is
+a ``torch.profiler.record_function`` range (a host range on kineto's
+timeline, which kineto aligns with the device's activity) and, inside that
+range, a ``time.perf_counter_ns`` interval kept by the recorder with its
+enclosing span and its thread's outermost span (the request or the step).
+Nesting is per thread: the autograd engine runs a CUDA backward on a thread
+of its own. ``count(name, n)`` adds to a named counter, again only while a
+session is active, under the outermost span of its thread.
+
+The recorder holds one profiler session: it empties itself at the first
+span or count that finds a session active after one that found none, so a
+session traced after an untraced warm-up holds the session alone.
+``recorded()`` returns what it holds, each span with its inclusive and self
+time (inclusive less its child spans'). ``trace(log_dir)`` is the
+operator's way to see the spans: a Chrome trace with the ``dat.*`` ranges
+nested over the operations and kernels.
+
+A host span measures what the host did inside it, including any wait for
+the device there (a synchronising call, such as a CUDA ``bincount``'s read
+of its size).
+
+The spans on the main path: ``dat.serve`` (``SegInferencer.forward_batch``),
+``dat.backbone`` and ``dat.heads`` (``EncoderDecoder``),
+``dat.attention`` (``DeformableAttention.forward``), ``dat.step`` and its
+parts ``dat.step.forward``, ``dat.step.backward`` and ``dat.step.update``
+(``make_train_step``); the counter: ``attn.composite`` (attention calls
+that take the composite route instead of K1).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
+from collections import Counter, defaultdict
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _profiler  # its _is_profiler_enabled: any session sets it
 
-from ..ops import deform_attn as _k1  # registers dat::deform_attn_fwd
-from ..ops import x_block as _k3  # registers dat::x_block_fwd
+
+@dataclass(frozen=True)
+class Span:
+    """One recorded span: ``perf_counter_ns`` times; ``parent`` the id of
+    the enclosing span on its thread (None for a root), ``root`` the id of
+    its thread's outermost span (its own for a root)."""
+
+    name: str
+    id: int
+    parent: Optional[int]
+    root: int
+    start_ns: int
+    end_ns: int
+    self_ns: int
+
+    @property
+    def inclusive_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+
+@dataclass(frozen=True)
+class Recorded:
+    """What the recorder holds: the spans in the order they ended, and each
+    counter's total under each root id (None: counted outside any span)."""
+
+    spans: List[Span]
+    counts: Dict[Tuple[str, Optional[int]], int]
+
+
+class _Recorder:
+    def __init__(self):
+        self.live = False  # whether the last span or count found a session active
+        self.spans: List[Tuple[str, int, Optional[int], int, int, int]] = []
+        self.counts: List[Tuple[str, int, Optional[int]]] = []
+        self.ids = itertools.count()
+        self.local = threading.local()
+        self.lock = threading.Lock()
+
+    def begin(self) -> None:
+        """Empty the recorder where a session has started since the last look
+        (once: threads that start spans together find it live)."""
+        if not self.live:
+            with self.lock:
+                if not self.live:
+                    self.spans, self.counts, self.live = [], [], True
+
+    def stack(self) -> List[int]:
+        """The open spans' ids on this thread, outermost first."""
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+
+_recorder = _Recorder()
+
+
+class _Live:
+    """A span while a session is active: a profiler range and the recorder's
+    interval inside it."""
+
+    __slots__ = ("name", "_range", "_stack", "_id", "_parent", "_root", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._stack = stack = _recorder.stack()
+        self._id = next(_recorder.ids)
+        self._parent = stack[-1] if stack else None
+        self._root = stack[0] if stack else self._id
+        stack.append(self._id)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self._stack.pop()
+        _recorder.spans.append((self.name, self._id, self._parent, self._root, self._t0, t1))
+        return self._range.__exit__(*exc)
+
+
+_NOOP = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager over a layer's host time: the shared no-op while
+    no profiler session is active, else a recorded profiler range."""
+    if not _profiler._is_profiler_enabled:
+        if _recorder.live:
+            _recorder.live = False
+        return _NOOP
+    _recorder.begin()
+    return _Live(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler session is active."""
+    if not _profiler._is_profiler_enabled:
+        if _recorder.live:
+            _recorder.live = False
+        return
+    _recorder.begin()
+    stack = _recorder.stack()
+    _recorder.counts.append((name, n, stack[0] if stack else None))
+
+
+def recorded() -> Recorded:
+    """The spans and counters of the last (or the active) profiler session."""
+    raw, events = list(_recorder.spans), list(_recorder.counts)
+    children: Dict[int, int] = defaultdict(int)
+    for _, _, parent, _, t0, t1 in raw:
+        if parent is not None:
+            children[parent] += t1 - t0
+    spans = [Span(name, i, parent, root, t0, t1, t1 - t0 - children[i])
+             for name, i, parent, root, t0, t1 in raw]
+    counts: Counter = Counter()
+    for name, n, root in events:
+        counts[(name, root)] += n
+    return Recorded(spans=spans, counts=dict(counts))
 
 
 @contextlib.contextmanager
@@ -26,126 +175,15 @@ def trace(log_dir: str):
     """Profile the body with ``torch.profiler`` (CPU and, on a machine with
     a card, CUDA activities) and write ``trace.json``, a Chrome trace
     (chrome://tracing, Perfetto), into ``log_dir``: ``with trace('dir') as
-    prof: step()``; ``prof.key_averages()`` sums the time by kernel."""
+    prof: step()``; the spans show as ranges over the operations, and
+    ``recorded()`` holds them after the body."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     Path(log_dir).mkdir(parents=True, exist_ok=True)
+    _recorder.live = False  # the body's first span empties the recorder
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
-
-
-def annotate(name: str):
-    """A named region that shows up in the trace's timeline."""
-    return torch.profiler.record_function(name)
-
-
-def _k1_flops(q, k, v, pos, table, n_groups, scale, hn, wn, out_shape=None):
-    """K1's products, as PERF.md's bound counts them: q·kᵀ and P·v, two
-    multiply-adds a (query, sample, channel): 4·BG·H·W·Ns·Cg."""
-    BG, H, W, Cg = q
-    return 4 * BG * H * W * k[1] * Cg
-
-
-def _k3_flops(x, w3, b3, w7, b7, g, be, wf1, bf1, wd, bd, wf2, bf2, with_lpu, out_shape=None):
-    """K3's products: fc1 and fc2 (2·n·2·C·E) and the depthwise taps (the
-    LPU's 3x3 and the window's k x k on C channels, the MLP's 3x3 on E),
-    n = B·H·W."""
-    B, H, W, C = x
-    n, E = B * H * W, wf1[0]
-    taps = (9 if with_lpu and w3 is not None else 0) + (w7[-1] ** 2 if w7 is not None else 0)
-    return 2 * n * 2 * C * E + 2 * n * (C * taps + 9 * E)
-
-
-FLOP_FORMULAS = {torch.ops.dat.deform_attn_fwd: _k1_flops, torch.ops.dat.x_block_fwd: _k3_flops}
-
-
-def compiled_stats(fn: Callable, *args) -> dict:
-    """One call of ``fn(*args)``, counted (the JAX ``compiled_stats``).
-
-    * ``flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count of
-      the products it knows (matmuls, convolutions, attention), plus the
-      ``dat::`` ops by ``FLOP_FORMULAS`` (K1 and K3 without grad). A kernel
-      launched inside an autograd Function (K1 with its log-sum-exp and K2
-      under grad, K3's ``XBlockFunction``) runs outside the dispatcher and
-      is not counted: count without grad.
-    * ``argument_bytes`` and ``output_bytes``: the tensors ``args`` and the
-      result hold.
-    * ``peak_bytes`` (CUDA arguments only): the allocator's peak during the
-      call above what was allocated before it.
-
-    XLA's ``bytes accessed`` and ``temp_size_in_bytes`` have no PyTorch
-    counterpart and are left out, never estimated.
-    """
-    from torch.utils._pytree import tree_leaves
-    from torch.utils.flop_counter import FlopCounterMode
-
-    def nbytes(tree):
-        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
-                   if isinstance(t, torch.Tensor))
-
-    cuda = any(isinstance(t, torch.Tensor) and t.is_cuda for t in tree_leaves(args))
-    if cuda:
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    counter = FlopCounterMode(display=False, custom_mapping=FLOP_FORMULAS)
-    with counter:
-        out = fn(*args)
-    stats = {"flops": float(counter.get_total_flops()), "argument_bytes": nbytes(args),
-             "output_bytes": nbytes(out)}
-    if cuda:
-        torch.cuda.synchronize()
-        stats["peak_bytes"] = torch.cuda.max_memory_allocated() - before
-    return stats
-
-
-class Throughput:
-    """images/s meter with warm-up: the first ``warmup`` steps are not
-    counted, the clock starts at the last of them."""
-
-    def __init__(self, warmup: int = 3):
-        self.warmup = warmup
-        self.reset()
-
-    def reset(self):
-        self._count = 0
-        self._items = 0
-        self._t0 = None
-
-    def step(self, n_items: int):
-        self._count += 1
-        if self._count == self.warmup:
-            self._t0 = time.perf_counter()
-            self._items = 0
-        elif self._count > self.warmup:
-            self._items += n_items
-
-    @property
-    def rate(self) -> Optional[float]:
-        if self._t0 is None or self._items == 0:
-            return None
-        return self._items / (time.perf_counter() - self._t0)
-
-
-def _synchronize() -> None:
-    """Wait for the card, where the process has used one."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-def benchmark(fn: Callable, *args, iters: int = 20, warmup: int = 3) -> float:
-    """Seconds a call of ``fn(*args)``, after ``warmup`` calls: the host
-    clock around ``iters`` calls that ends when the device has finished
-    the last (CUDA launches return before their work is done)."""
-    for _ in range(warmup):
-        fn(*args)
-    _synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args)
-    _synchronize()
-    return (time.perf_counter() - t0) / iters
