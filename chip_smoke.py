@@ -38,13 +38,17 @@ line each:
    weights with ``kernel_impl='pallas'`` (K3 on), card against CPU and
    against the card's unfused run.
 5. serve: the main path. ``SegInferencer`` answers requests in bf16
-   (batches of 512x512 images, then one whole image); each kernel's
-   launch count, set to 0 just before, must show every kernel ran.
+   (batches of 512x512 images, then one whole image), the repeated batch
+   shape replayed from a CUDA graph from its second request on. Each
+   kernel's launches are counted by name on the profiler's device track,
+   which shows a replay's kernels: 14 K1 a forward; the kernels' wrappers
+   (their ``.launches``, set to 0 just before) must count the forwards
+   that ran the model's Python (eager and captured), and no replay.
    serve_pallas: the same with ``kernel_impl='pallas'`` (26 K3 and 14 K1
    launches a forward), then ``predict`` on a raw 512x683 uint8 image,
    single-scale in slide mode and multi-scale + flip in whole mode: each
-   request's K3 count must equal the count the JAX package's gate gives
-   for the sizes its forwards ran at. serve_small: DAT-S++ UperNet
+   request's K3 count on the device track must equal the count the JAX
+   package's gate gives for the sizes its forwards ran at. serve_small: DAT-S++ UperNet
    (``upn_small_160k``) with ``kernel_impl='pallas'``, one bf16 batch.
 6. times: K1 per stage (beside its attribution build: no bias) and K3
    per (stage, mode) (CUDA events, after
@@ -105,7 +109,9 @@ line each:
    set to 0 just before: K1 in the forwards whose inputs all fill their
    bucket, 14 each; the exact ones run the composite); the bucketed exact
    eval against the true-shape eval in bf16 at batch 4 (counts within the
-   eval phase's share), img/s in turns and each one's device busy share;
+   eval phase's share), img/s in turns and each one's device busy share,
+   each inferencer's forwards by route (eager, captured, replayed), its
+   graphs and its passes' peak memory;
    the exact forward's ms and device ms a batch beside the plain padded
    one's.
 10b. export: the serving export (``serving/``). The flagship from the eval
@@ -279,6 +285,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 SEED = 0
@@ -917,51 +924,66 @@ def main() -> int:
                 for _ in range(SERVE_REQUESTS)]
     da.deform_attn.launches = 0
     t0 = time.perf_counter()
-    outs = [server.forward_batch(r) for r in requests]
-    whole = server.logits_whole(image[0].numpy())
-    torch.cuda.synchronize()
+    (outs, whole), ran = device_launches(torch, lambda: (
+        [server.forward_batch(r) for r in requests], server.logits_whole(image[0].numpy())))
     serve_s = time.perf_counter() - t0
-    launches = {"deform_attn_fwd": da.deform_attn.launches}
+    launches = {"deform_attn_fwd": ran["deform_attn_fwd"]}
     forwards = SERVE_REQUESTS + 1
+    routes = dict(server._graphs.routes)
+    python_fwds = routes.get("eager", 0) + routes.get("capture", 0)
     shapes_ok = all(tuple(o.shape) == (SERVE_BATCH, IMG // 4, IMG // 4, cfg.num_classes)
                     and bool(torch.isfinite(o).all()) for o in outs)
     whole_ok = whole.shape == (IMG, IMG, cfg.num_classes) and bool(np.isfinite(whole).all())
     bf16_d = float(np.abs(whole - gpu_logits[0].cpu().numpy()).max())
     bf16_agree = float((whole.argmax(-1) == gpu_logits[0].cpu().numpy().argmax(-1)).mean())
     emit({"phase": "serve", "card": card, "dtype": "bfloat16", "requests": SERVE_REQUESTS,
-          "batch": SERVE_BATCH, "whole_images": 1, "wall_s": serve_s,
+          "batch": SERVE_BATCH, "whole_images": 1, "profiled_wall_s": serve_s,
           "launches": launches, "launches_per_forward": launches["deform_attn_fwd"] / forwards,
+          "routes": routes, "wrapper_launches": {"deform_attn_fwd": da.deform_attn.launches},
           "outputs_ok": shapes_ok and whole_ok,
           "bf16_vs_f32_max_abs_dlogit": bf16_d, "bf16_vs_f32_argmax_agreement": bf16_agree})
     check(shapes_ok and whole_ok, "serve: outputs of the wrong shape or not finite")
     check(launches["deform_attn_fwd"] == n_d * forwards,
-          f"serve: {launches['deform_attn_fwd']} K1 launches, want {n_d * forwards}")
+          f"serve: {launches['deform_attn_fwd']} K1 kernels on the card, want {n_d * forwards}")
+    check(routes == {"eager": 2, "capture": 1, "replay": SERVE_REQUESTS - 2}
+          and da.deform_attn.launches == n_d * python_fwds,
+          f"serve: routes {routes}, {da.deform_attn.launches} K1 wrapper calls, want "
+          f"{n_d} a forward that ran its Python")
 
     # serve_pallas: the same requests with K3; then predict on a raw image
     pserver = SegInferencer(pmodel, num_classes=cfg.num_classes, device=dev)
-    seen = []  # the (B, H, W) of every backbone forward
-    hook = pserver.model.backbone.register_forward_pre_hook(
-        lambda m, a: seen.append(tuple(a[0].shape[:3])))
+    seen = []  # the (B, H, W) of every forward, replayed from a CUDA graph or not
+    serve_batch = pserver.forward_batch
+
+    def recorded_batch(images, valid_hw=None):
+        seen.append(tuple(images.shape[:3]))
+        return serve_batch(images, valid_hw)
+
+    pserver.forward_batch = recorded_batch
     da.deform_attn.launches = xb.x_block_fwd.launches = 0
     t0 = time.perf_counter()
-    pouts = [pserver.forward_batch(r) for r in requests]
-    torch.cuda.synchronize()
+    pouts, ran = device_launches(torch, lambda: [pserver.forward_batch(r) for r in requests])
     pserve_s = time.perf_counter() - t0
-    pserve_launches = {"x_block_fwd": xb.x_block_fwd.launches,
-                       "deform_attn_fwd": da.deform_attn.launches}
+    pserve_launches = {k: ran[k] for k in ("x_block_fwd", "deform_attn_fwd")}
+    pwrapper = {"x_block_fwd": xb.x_block_fwd.launches,
+                "deform_attn_fwd": da.deform_attn.launches}
+    proutes = dict(pserver._graphs.routes)
     pshapes_ok = all(tuple(o.shape) == (SERVE_BATCH, IMG // 4, IMG // 4, cfg.num_classes)
                      and bool(torch.isfinite(o).all()) for o in pouts)
     agree = float(np.mean([(a.argmax(-1) == b.argmax(-1)).float().mean().item()
                            for a, b in zip(pouts, outs)]))
     emit({"phase": "serve_pallas", "card": card, "dtype": "bfloat16", "kernel_impl": "pallas",
-          "requests": SERVE_REQUESTS, "batch": SERVE_BATCH, "wall_s": pserve_s,
-          "launches": pserve_launches,
+          "requests": SERVE_REQUESTS, "batch": SERVE_BATCH, "profiled_wall_s": pserve_s,
+          "launches": pserve_launches, "routes": proutes, "wrapper_launches": pwrapper,
           "launches_per_forward": {k: v / SERVE_REQUESTS for k, v in pserve_launches.items()},
           "outputs_ok": pshapes_ok, "argmax_agreement_vs_unfused_bf16": agree})
     check(pshapes_ok, "serve_pallas: outputs of the wrong shape or not finite")
     check(pserve_launches == {"x_block_fwd": n_x * SERVE_REQUESTS,
                               "deform_attn_fwd": n_d * SERVE_REQUESTS},
           f"serve_pallas: launches {pserve_launches}, want {n_x} K3 and {n_d} K1 a forward")
+    check(proutes == {"eager": 1, "capture": 1, "replay": SERVE_REQUESTS - 2}
+          and pwrapper == {"x_block_fwd": 2 * n_x, "deform_attn_fwd": 2 * n_d},
+          f"serve_pallas: routes {proutes}, wrapper calls {pwrapper}, want those of 2 forwards")
 
     raw = np.random.RandomState(SEED + 6).randint(0, 256, (*PREDICT_HW, 3)).astype(np.uint8)
     predict_launches = {}
@@ -969,11 +991,11 @@ def main() -> int:
                            ("ms_flip", "whole", dict(ratios=MS_RATIOS, flip=True))):
         pserver.mode = mode
         seen.clear()
-        da.deform_attn.launches = xb.x_block_fwd.launches = 0
+        routes0 = Counter(pserver._graphs.routes)
         t0 = time.perf_counter()
-        pred = pserver.predict(raw, **kw)
+        pred, ran = device_launches(torch, lambda: pserver.predict(raw, **kw))
         pred_s = time.perf_counter() - t0
-        got = (xb.x_block_fwd.launches, da.deform_attn.launches)
+        got = (ran["x_block_fwd"], ran["deform_attn_fwd"])
         want = (sum(k3_gate_count(cfg.backbone, h, w) for _, h, w in seen), n_d * len(seen))
         predict_launches[name] = got[0]
         ok = bool(pred.shape == PREDICT_HW and pred.dtype == np.int32
@@ -981,11 +1003,13 @@ def main() -> int:
         emit({"phase": "serve_pallas", "card": card, "request": f"predict {name}",
               "mode": mode, "raw": list(raw.shape), "ratios": list(kw.get("ratios", (1.0,))),
               "flip": kw.get("flip", False), "forwards": [list(s) for s in seen],
+              "routes": dict(Counter(pserver._graphs.routes) - routes0),
               "k3_launches": got[0], "k3_gate_count": want[0], "k1_launches": got[1],
-              "classes_present": int(len(np.unique(pred))), "output_ok": ok, "wall_s": pred_s})
+              "classes_present": int(len(np.unique(pred))), "output_ok": ok,
+              "profiled_wall_s": pred_s})
         check(ok, f"serve_pallas: predict {name} gave {pred.shape} {pred.dtype}")
         check(got == want, f"serve_pallas: predict {name} launches (K3, K1) {got}, want {want}")
-    hook.remove()
+    del pserver.forward_batch
     pserver.mode = "whole"
 
     # serve_small: DAT-S++ UperNet at full width and depth, K3 at C = 96 ... 768
@@ -1864,13 +1888,19 @@ def exact_eval_phase(torch, np, card, dev, ckpt, n_d, timed):
               for b in (1, EXACT_BUCKET)}
     del model
     results, walls = {}, {1: [], EXACT_BUCKET: []}
+    routes = {1: [], EXACT_BUCKET: []}
+    peak = {1: 0, EXACT_BUCKET: 0}
     for b in (1, EXACT_BUCKET, EXACT_BUCKET, 1) * 2:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = Counter(server[b]._graphs.routes)
         t0 = time.perf_counter()
         results[b] = ev.evaluate_dataset(server[b], ds, img_scale=scale, batch_size=EXACT_BATCH,
                                          verbose=False)
         torch.cuda.synchronize()
         walls[b].append(time.perf_counter() - t0)
+        routes[b].append(dict(Counter(server[b]._graphs.routes) - before))
+        peak[b] = max(peak[b], torch.cuda.max_memory_allocated())
     pixels = int(sum(np.prod(ds.load_raw(i)[1].shape) for i in range(n_img)))
     d_inter = int(np.abs(np.subtract(results[EXACT_BUCKET]["inter"], results[1]["inter"])).sum())
     d_union = int(np.abs(np.subtract(results[EXACT_BUCKET]["union"], results[1]["union"])).sum())
@@ -1885,6 +1915,11 @@ def exact_eval_phase(torch, np, card, dev, ckpt, n_d, timed):
                      "consecutive images of one shape batched)",
           "wall_s": {str(b): v for b, v in walls.items()},
           "img_per_s": {str(b): [n_img / w for w in v] for b, v in walls.items()},
+          "routes_per_pass": {str(b): v for b, v in routes.items()},
+          "graphs": {str(b): len(server[b]._graphs.graphs) for b in server},
+          "keys": {str(b): len(server[b]._graphs.seen) for b in server},
+          "peak_gib": {str(b): v / 2 ** 30 for b, v in peak.items()},
+          "peak_note": "each pass's peak, both inferencers and their graphs alive",
           "device_busy_share": {str(b): p.get("device_busy_share") for b, p in profiles.items()},
           "device_ms_per_pass": {str(b): p.get("device_ms_per_eval_pass")
                                  for b, p in profiles.items()},
@@ -4786,6 +4821,22 @@ def x_block_bound(bb, stages, card, batch=TIME_BATCH, expansion=4):
     return {"phase": "bound", "card": card, "kernel": "x_block_fwd (K3, ported)",
             "replaces": "dat_segmentation_tpu/ops/pallas/x_block.py:227", "dtype": "bfloat16",
             "batch": batch, "per_forward": tot, "rows": rows}
+
+
+def device_launches(torch, fn):
+    """``fn()``'s result and the launches of each of ``KERNEL_NAMES`` that
+    ran on the card in it, counted by name on the profiler's device track:
+    a forward replayed from a CUDA graph launches its kernels without their
+    wrappers, whose ``.launches`` count only their own calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    return out, {k: sum(k in n for n in names) for k in KERNEL_NAMES}
 
 
 def profile_device(torch, fn, card, ref_ms, unit, iters=3):

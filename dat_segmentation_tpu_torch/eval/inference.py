@@ -26,13 +26,20 @@ antialias=False)``, cv2's ``INTER_LINEAR`` on float data; the raw uint8
 image's test-time resizes are cv2's fixed-point ``INTER_LINEAR`` in integer
 PyTorch ops (``ops/interpolate.py:resize_uint8_linear``), so the augmented
 inputs equal the JAX package's, bit for bit.
+
+On the card ``forward_batch`` replays a repeated input from a CUDA graph
+(``ForwardGraphs``): the host enqueues one graph launch in place of the
+forward's some 1,300 operations, with the same kernels and the same
+arithmetic.
 """
 
 from __future__ import annotations
 
 import copy
 import math
-from typing import Iterator, Optional, Sequence, Tuple, Union
+from collections import Counter
+from dataclasses import dataclass
+from typing import Dict, Hashable, Iterator, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,10 +48,16 @@ import torch.nn as nn
 from ..data.ade20k import IMG_NORM_MEAN, IMG_NORM_STD, IMG_SCALE
 from ..ops.interpolate import resize_bilinear, resize_uint8_linear
 from ..ops.valid_extent import stride4_extent
+from ..parallel import mesh
 from ..utils import profiling
 from ..utils.device import resolve_device
 
 MS_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)  # tools/test.py --aug-test
+# The graphs an inferencer holds at most: a server repeats a few batch
+# shapes, an eval pass captures each shape (or bucket) it sees twice. The
+# cap bounds the captures' one-off time and the static buffers they keep
+# (PERF.md §6); a shape new to a full cache stays eager.
+MAX_GRAPHS = 8
 
 Image = Union[np.ndarray, torch.Tensor]
 
@@ -56,6 +69,58 @@ def round_up(v: int, m: int) -> int:
 def _resize(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Bilinear resize of one (H, W, C) image (half-pixel centres)."""
     return resize_bilinear(x[None], tuple(out_hw))[0]
+
+
+def graphable(device: torch.device, model: nn.Module) -> bool:
+    """Whether ``model``'s forward on ``device`` may be captured: on a CUDA
+    device, and not for a model split over a mesh axis, whose forward runs
+    collectives. The second is a guard only: the trainer's validation and
+    ``tools/test.py`` hand the inferencer a whole model."""
+    return device.type == "cuda" and not mesh.is_split(model)
+
+
+class ForwardGraphs:
+    """Which forwards replay from a CUDA graph, by key (``forward_batch``:
+    the input's shape, whether the forward is exact, the model's identity).
+
+    A key's first sighting runs eagerly (it also builds the kernels and
+    warms the libraries), its second is captured, later ones replay. Once
+    ``MAX_GRAPHS`` graphs are held a new key stays eager: no graph is
+    evicted, so none is captured twice. ``routes`` counts the calls by
+    route."""
+
+    def __init__(self):
+        self.seen: Set[Hashable] = set()
+        self.graphs: Dict[Hashable, object] = {}
+        self.routes: Counter = Counter()
+
+    def route(self, key: Hashable) -> str:
+        """'replay', 'capture' or 'eager' for a call with ``key``."""
+        if key in self.graphs:
+            got = "replay"
+        elif len(self.graphs) >= MAX_GRAPHS:
+            got = "eager"
+        elif key in self.seen:
+            got = "capture"
+        else:
+            self.seen.add(key)
+            got = "eager"
+        self.routes[got] += 1
+        return got
+
+
+@dataclass
+class _Captured:
+    """One captured forward: its static input (and ``valid_hw``) and output
+    buffers, the program counters its capture counted, and the model whose
+    parameters' addresses the graph holds (kept alive with it)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor
+    valid: Optional[torch.Tensor]
+    out: torch.Tensor
+    counts: Counter
+    model: nn.Module
 
 
 class SegInferencer:
@@ -108,6 +173,8 @@ class SegInferencer:
         self._patch_size = int(getattr(bb, "patch_size", 4))
         self._mean = torch.tensor(IMG_NORM_MEAN, device=self.device)
         self._std = torch.tensor(IMG_NORM_STD, device=self.device)
+        self._graphs = ForwardGraphs()
+        self._pool = None  # the graphs' one memory pool: they replay one at a time
 
     def _image(self, img: Image) -> torch.Tensor:
         return torch.as_tensor(img).to(self.device, torch.float32)
@@ -127,13 +194,66 @@ class SegInferencer:
         float32 stride-4 logits, on the device. ``valid_hw`` ((B, 2) true
         sizes of zero-padded images) with ``exact``: the exact padded
         forward, whose rows and columns beyond each sample's stride-4
-        extent (``_ext4``) are invalid; else the plain forward."""
+        extent (``_ext4``) are invalid; else the plain forward.
+
+        On a CUDA device a repeated input shape (with its exactness, for
+        this model) is replayed from a CUDA graph captured at its second
+        sighting (``ForwardGraphs``); every call returns a fresh tensor,
+        which later calls leave as it is."""
         with profiling.span("dat.serve"):
-            x = torch.as_tensor(images).to(self.device, self.compute_dtype, non_blocking=True)
+            x = torch.as_tensor(images)
+            valid = None
             if valid_hw is not None and self.exact:
-                valid = torch.as_tensor(np.asarray(valid_hw), dtype=torch.int32).to(self.device)
-                return self.model(x, upsample=False, valid_hw=valid).float()
-            return self.model(x, upsample=False).float()
+                valid = torch.as_tensor(np.asarray(valid_hw), dtype=torch.int32)
+            route, key = "eager", None
+            if graphable(self.device, self.model):
+                key = (tuple(x.shape), valid is not None, id(self.model))
+                route = self._graphs.route(key)
+            if route == "eager":
+                x = x.to(self.device, self.compute_dtype, non_blocking=True)
+                return self._forward(x, None if valid is None else valid.to(self.device)).float()
+            if route == "capture":
+                self._graphs.graphs[key] = self._capture(x, valid)
+            return self._replay(self._graphs.graphs[key], x, valid)
+
+    def _forward(self, x: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+        """The model's stride-4 logits in the compute dtype: exact where
+        ``valid`` (the (B, 2) true sizes on the device) is given."""
+        if valid is None:
+            return self.model(x, upsample=False)
+        return self.model(x, upsample=False, valid_hw=valid)
+
+    def _capture(self, x: torch.Tensor, valid: Optional[torch.Tensor]) -> _Captured:
+        """Capture the forward of static buffers shaped as ``x`` (and
+        ``valid``), in the inferencer's one pool. The capture runs the
+        forward's Python once and launches nothing: its program counters
+        (``attn.composite``) are kept for each replay to count again. The
+        kernels' ``.launches`` count their wrappers' calls, the capture's
+        among them; a replay launches its kernels without them."""
+        sx = torch.empty(x.shape, dtype=self.compute_dtype, device=self.device)
+        sv = None if valid is None else valid.to(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with profiling.tally() as counts, torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
+            out = self._forward(sx, sv)
+        return _Captured(graph, sx, sv, out, counts, self.model)
+
+    @staticmethod
+    def _replay(g: _Captured, x: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+        """Copy the request into ``g``'s static buffers (the cast to the
+        compute dtype is this copy), replay it and copy its logits out as
+        float32, so that the next replay cannot overwrite what this call
+        returns."""
+        g.x.copy_(x, non_blocking=True)
+        if valid is not None:
+            g.valid.copy_(valid)
+        g.graph.replay()
+        for name, n in g.counts.items():
+            profiling.count(name, n)
+        profiling.count("serve.graph")
+        return g.out.to(torch.float32, copy=True)  # a copy also where the compute is float32
 
     def _padded(self, imgs: Sequence[torch.Tensor], hw, batch: Optional[int] = None):
         """Images zero-padded to ``hw`` in a batch of ``batch`` (the empty

@@ -99,6 +99,16 @@ def reference_points(Hk: int, Wk: int, device=None) -> torch.Tensor:
     return torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1)
 
 
+def _pair(a: float, b: float, device) -> torch.Tensor:
+    """The float32 pair (a, b), filled on ``device`` (``fill_`` takes a
+    number; an assignment copies a host tensor): a host tensor's copy would
+    wait for the stream, and a CUDA graph cannot capture it."""
+    out = torch.empty(2, dtype=torch.float32, device=device)
+    out[0].fill_(a)
+    out[1].fill_(b)
+    return out
+
+
 def query_grid(H: int, W: int, device=None) -> torch.Tensor:
     """Normalised (y, x) query coordinates, corners at exactly -1 and +1,
     (H, W, 2): the reference's ``_get_q_grid`` (not the pixel centres of
@@ -219,7 +229,7 @@ class DeformableAttention(nn.Module):
             offset = torch.zeros_like(offset)
         elif self.offset_range_factor >= 0:
             if exact is None:
-                rng = offset.new_tensor([1.0 / (Hk - 1.0), 1.0 / (Wk - 1.0)])
+                rng = _pair(1.0 / (Hk - 1.0), 1.0 / (Wk - 1.0), offset.device)
             else:  # over each sample's true kv extent
                 rng = 1.0 / (ext_kv.float() - 1.0).clamp_min(1.0)
                 rng = valid_extent.repeat_groups(rng, B * g)[:, None, None, :]
@@ -236,8 +246,7 @@ class DeformableAttention(nn.Module):
             # zeros padding; the positions, normalised over the true extent,
             # rescaled for the sampler's padded map
             x = valid_extent.mask_tensor(x, ext_q)
-            sc = (ext_q.float() - 1.0) / torch.tensor(
-                [max(H - 1.0, 1.0), max(W - 1.0, 1.0)], device=x.device)
+            sc = (ext_q.float() - 1.0) / _pair(max(H - 1.0, 1.0), max(W - 1.0, 1.0), x.device)
             grid = (pos + 1.0) * valid_extent.repeat_groups(sc, B * g)[:, None, None, :] - 1.0
         else:
             grid = pos
@@ -300,8 +309,7 @@ class DeformableAttention(nn.Module):
             attn = attn + bias
         if exact is not None:  # kv points beyond the true grid do not exist there
             kv_mask = valid_extent.mask_for(exact[2], exact[1], torch.bool).reshape(B, 1, 1, Ns)
-            attn = torch.where(kv_mask, attn, torch.tensor(-1e30, dtype=attn.dtype,
-                                                           device=attn.device))
+            attn = torch.where(kv_mask, attn, attn.new_full((), -1e30))
         p = self.attn_dropout(torch.softmax(attn, dim=-1).to(q.dtype), ax, batch=batch,
                               channel_dim=1)
         out = torch.einsum("bhmn,bnhc->bmhc", p.float(), v.reshape(B, Ns, heads, hc).float())
@@ -330,7 +338,8 @@ class DeformableAttention(nn.Module):
                 qg = torch.stack(torch.broadcast_tensors(qy[:, :, None], qx[:, None, :]), dim=-1)
                 qg = qg.reshape(B * g, H * W, 1, 2)
             disp = (qg - pos[:, None]) * 4.0  # (B*g, H*W, Ns, 2)
-            disp = torch.sign(disp) * torch.log2(disp.abs() + 1.0) / disp.new_tensor(math.log2(8.0))
+            disp = (torch.sign(disp) * torch.log2(disp.abs() + 1.0)
+                    / disp.new_full((), math.log2(8.0)))
             # float32, as flax's Dense promotes its bf16 weights to the
             # float32 displacements
             hb = F.relu(F.linear(disp, self.cpb_fc1.weight.float(), self.cpb_fc1.bias.float()))

@@ -59,7 +59,7 @@ def query_coords(n: int, n_true: int, device=None) -> torch.Tensor:
     moves the bias gradient by a tap's slope wherever a table coordinate
     lies that close to an integer."""
     idx = torch.arange(n, dtype=torch.float32, device=device)
-    return idx / torch.tensor(max(n_true - 1.0, 1.0), device=device) * 2.0 - 1.0
+    return idx / torch.full((), max(n_true - 1.0, 1.0), device=device) * 2.0 - 1.0
 
 
 def rpe_bias(
@@ -472,5 +472,7 @@ def deform_attn(
     return torch.ops.dat.deform_attn_fwd(q, k, v, pos, table, n_groups, float(scale), hn, wn)
 
 
-deform_attn.launches = 0  # K1 launches; chip_smoke.py reads and resets it
+# K1 launches by this wrapper (a CUDA graph's capture counts; its replays,
+# which launch K1 without it, do not); chip_smoke.py reads and resets it
+deform_attn.launches = 0
 deform_attn_bwd.launches = 0  # K2 launches; likewise

@@ -10,7 +10,11 @@ range, a ``time.perf_counter_ns`` interval kept by the recorder with its
 enclosing span and its thread's outermost span (the request or the step).
 Nesting is per thread: the autograd engine runs a CUDA backward on a thread
 of its own. ``count(name, n)`` adds to a named counter, again only while a
-session is active, under the outermost span of its thread.
+session is active, under the outermost span of its thread. ``tally()``
+collects the counts its body makes on its thread instead, session or none:
+a CUDA graph's capture runs its forward's Python once and launches nothing,
+so the server keeps what the capture counted and counts it again at each
+replay.
 
 The recorder holds one profiler session: it empties itself at the first
 span or count that finds a session active after one that found none, so a
@@ -28,8 +32,10 @@ The spans on the main path: ``dat.serve`` (``SegInferencer.forward_batch``),
 ``dat.backbone`` and ``dat.heads`` (``EncoderDecoder``),
 ``dat.attention`` (``DeformableAttention.forward``), ``dat.step`` and its
 parts ``dat.step.forward``, ``dat.step.backward`` and ``dat.step.update``
-(``make_train_step``); the counter: ``attn.composite`` (attention calls
-that take the composite route instead of K1).
+(``make_train_step``); the counters: ``attn.composite`` (attention calls
+that take the composite route instead of K1) and ``serve.graph``
+(requests that ``SegInferencer.forward_batch`` serves by replaying a
+captured CUDA graph, under their ``dat.serve`` span).
 """
 
 from __future__ import annotations
@@ -145,7 +151,12 @@ def span(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while a profiler session is active."""
+    """Add ``n`` to the counter ``name`` while a profiler session is active
+    (inside ``tally()``: to the tally alone)."""
+    tallied = getattr(_recorder.local, "tally", None)
+    if tallied is not None:
+        tallied[name] += n
+        return
     if not _profiler._is_profiler_enabled:
         if _recorder.live:
             _recorder.live = False
@@ -153,6 +164,19 @@ def count(name: str, n: int = 1) -> None:
     _recorder.begin()
     stack = _recorder.stack()
     _recorder.counts.append((name, n, stack[0] if stack else None))
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect the counts that the body makes on this thread into the
+    ``Counter`` it yields, whether or not a profiler session is active, and
+    keep them from the session's record."""
+    outer = getattr(_recorder.local, "tally", None)
+    _recorder.local.tally = got = Counter()
+    try:
+        yield got
+    finally:
+        _recorder.local.tally = outer
 
 
 def recorded() -> Recorded:

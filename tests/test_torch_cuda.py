@@ -16,7 +16,11 @@ exported and served on the card against the live model, with K1's and
 K3's launches); ``test_an_artifact_serves_where_nvcc_is_not`` the
 artifact's own kernel library, served by a process that cannot compile;
 ``test_small_mixed_mode_model_matches_cpu`` a model whose position-bias
-modes send two 'D' blocks to K1 and two to the composite.
+modes send two 'D' blocks to K1 and two to the composite. The last tests
+hold ``SegInferencer``'s CUDA graphs: a replay equals the eager forward
+bit for bit (every position-bias mode, the UperNet, plain and exact),
+returns a fresh tensor, counts its kernels on the card's track and its
+counters as the eager forward, and shows its kernels under the profiler.
 
 Tolerances, as in chip_smoke.py: float32 1e-4 (the kernel sums in another
 order and uses the fast exp), bf16 1e-2 (outputs rounded to bf16, and the
@@ -993,3 +997,156 @@ def test_an_artifact_serves_where_nvcc_is_not(cuda, tmp_path):
     csrc, built = proc.stdout.split()[-2:]
     assert csrc.startswith(str(root.resolve())) and built == "False"
     np.testing.assert_array_equal(np.load(tmp_path / "y.npy"), want)
+
+
+# -- the served forward replayed from a CUDA graph -----------------------------
+# A replay launches the kernels that the eager forward launches, on the same
+# buffers' contents, with the algorithms the libraries chose for the eager
+# call of the same shape: its logits equal the eager forward's bit for bit.
+
+
+def _graph_server(cuda, dtype=torch.bfloat16):
+    """``SegInferencer`` over the small SemanticFPN (head width 32: K1 in
+    each of its four 'D' blocks) on the card."""
+    torch.manual_seed(0)
+    model = build_model(small_fpn(get_config, head_width=32), device=cuda)
+    return SegInferencer(model, num_classes=8, compute_dtype=dtype, device=cuda)
+
+
+def _batches(n, shape=(2, 64, 96, 3), seed=5):
+    rng = np.random.RandomState(seed)
+    return [torch.tensor(rng.randn(*shape), dtype=torch.float32) for _ in range(n)]
+
+
+def _eager(server, x, valid=None):
+    """The served forward run eagerly, outside ``forward_batch``."""
+    with torch.inference_mode():
+        x = x.to(server.device, server.compute_dtype)
+        if valid is None:
+            return server.model(x, upsample=False).float()
+        valid = torch.as_tensor(valid, dtype=torch.int32, device=server.device)
+        return server.model(x, upsample=False, valid_hw=valid).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_a_repeated_shape_replays_the_eager_forward(cuda, dtype):
+    server = _graph_server(cuda, dtype)
+    a, b = _batches(2)
+    first = server.forward_batch(a)  # the key's first sighting: eager
+    assert not server._graphs.graphs
+    again = server.forward_batch(a)  # its second: captured, then replayed
+    assert len(server._graphs.graphs) == 1
+    other = server.forward_batch(b)  # replayed
+    assert again.dtype == torch.float32
+    assert torch.equal(again, first)
+    assert torch.equal(other, _eager(server, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_each_request_keeps_its_own_output(cuda, dtype):
+    """Batches of one shape give their own logits (the static input is
+    refreshed), and a returned tensor is left alone by later requests."""
+    server = _graph_server(cuda, dtype)
+    xs = _batches(4)
+    outs = [server.forward_batch(x) for x in xs]  # eager, capture, replay, replay
+    kept = [o.clone() for o in outs]
+    for x in reversed(xs):
+        server.forward_batch(x)
+    assert len({o.data_ptr() for o in outs}) == len(outs)
+    assert not torch.equal(outs[2], outs[3])
+    for x, o, k in zip(xs, outs, kept):
+        assert torch.equal(o, k)
+        assert torch.equal(o, _eager(server, x))
+
+
+@pytest.mark.cuda
+def test_an_exact_key_replays_with_each_requests_valid_hw(cuda):
+    """One graph serves every ``valid_hw`` of a padded shape: the masks and
+    resize matrices are built from the extents on the card."""
+    server = _graph_server(cuda)
+    xs = _batches(4)
+    valids = [np.array(v, np.int32) for v in ([[52, 76], [61, 64]], [[64, 96], [49, 80]],
+                                              [[33, 90], [60, 70]], [[64, 40], [40, 96]])]
+    outs = [server.forward_batch(x, valid_hw=v) for x, v in zip(xs, valids)]
+    assert len(server._graphs.graphs) == 1
+    server.forward_batch(xs[0])  # the plain key of the shape is another
+    server.forward_batch(xs[0])
+    assert len(server._graphs.graphs) == 2
+    outs.append(server.forward_batch(xs[0], valid_hw=valids[2]))
+    for x, v, o in zip(xs + [xs[0]], valids + [valids[2]], outs):
+        assert torch.equal(o, _eager(server, x, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["plain", "valid_hw"])
+@pytest.mark.parametrize("model", ["continuous", "dwc_pe", "fixed_pe", "log_cpb", "no_off",
+                                   "no_pe", "upernet"])
+def test_every_model_replays_its_eager_forward(cuda, model, exact):
+    """Each position-bias mode (the small SemanticFPN with it in every
+    stage: K1 or the composite) and the small UperNet capture, plain and
+    exact, and replay their eager forwards."""
+    torch.manual_seed(0)
+    cfg = (small_upernet(get_config, head_width=32) if model == "upernet" else
+           with_modes(small_fpn(get_config, head_width=32), (model,) * 4))
+    server = SegInferencer(build_model(cfg, device=cuda), num_classes=8, device=cuda)
+    xs = _batches(3)
+    valid = np.array([[52, 76], [61, 64]], np.int32) if exact else None
+    outs = [server.forward_batch(x, valid_hw=valid) for x in xs]
+    assert len(server._graphs.graphs) == 1
+    for x, o in zip(xs, outs):
+        assert torch.equal(o, _eager(server, x, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["plain", "valid_hw"])
+def test_a_replay_counts_as_the_eager_forward(cuda, exact):
+    """A request, eager, captured and replayed: K1's kernels on the card's
+    track (4 plain, 0 exact), the composite's calls (0 plain, 4 exact) and
+    ``serve.graph`` (the replayed requests); K1's wrapper is called by the
+    eager forward and the capture, not by a replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dat_segmentation_tpu_torch.utils import profiling
+
+    server = _graph_server(cuda)
+    x = _batches(1)[0]
+    valid = np.array([[52, 76], [61, 64]], np.int32) if exact else None
+    got, wrapper = [], []
+    for _ in range(4):  # eager, capture, replay, replay
+        before = deform_attn.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            server.forward_batch(x, valid_hw=valid)
+            torch.cuda.synchronize()
+        kernels = sum("deform_attn_fwd" in e.name for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False))
+        rec = profiling.recorded()  # sessions back to back: this request's root is the last
+        root = [s.id for s in rec.spans if s.name == "dat.serve"][-1]
+        got.append((kernels, rec.counts.get(("attn.composite", root), 0),
+                    rec.counts.get(("serve.graph", root), 0)))
+        wrapper.append(deform_attn.launches - before)
+    want = (0, 4) if exact else (4, 0)
+    assert got == [want + (0,)] + [want + (1,)] * 3
+    assert wrapper == [want[0]] * 2 + [0] * 2
+
+
+@pytest.mark.cuda
+def test_a_traced_replay_shows_its_kernels(cuda):
+    """Under the profiler a replayed request's kernels are on the device's
+    track by name: K1 once a 'D' block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    server = _graph_server(cuda)
+    x = _batches(1)[0]
+    server.forward_batch(x)
+    server.forward_batch(x)  # captured outside the session
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.forward_batch(x)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    assert sum("deform_attn_fwd" in n for n in kernels) == 4, kernels

@@ -207,6 +207,25 @@ def test_train_step_records_its_three_parts():
     assert not rec.counts
 
 
+def test_a_tally_takes_its_counts_whether_or_not_a_session_is_active():
+    """``tally()`` collects the counts of its body, off or under a session,
+    and keeps them from the session's record (a CUDA graph's capture)."""
+    with profiling.tally() as off:
+        count("t.tally", 2)
+    assert off == {"t.tally": 2}
+    with profile():
+        with span("t.root"):
+            count("t.kept")
+            with profiling.tally() as on:
+                count("t.tally", 3)
+                count("t.tally")
+            count("t.kept")
+    rec = recorded()
+    (root,) = by_name(rec, "t.root")
+    assert on == {"t.tally": 4}
+    assert rec.counts == {("t.kept", root.id): 2}
+
+
 def test_a_new_session_starts_the_recorder_empty():
     torch.manual_seed(0)
     server = SegInferencer(build_model(small_fpn(get_config), device="cpu"), num_classes=8,
